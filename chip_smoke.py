@@ -1,0 +1,471 @@
+"""Drive the PyTorch/CUDA port on one NVIDIA card and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines:
+
+1. device — the card's name and power limit; no CUDA device is an error;
+2. build — compile ``csrc/tree_eval.cu`` for sm_90a with nvcc, print the
+   ``-Xptxas -v`` report;
+3. kernels against plain versions — K1 (gather, onehot), K2, K3 (gather,
+   onehot) and K4 on adversarial records (ties, ±inf, NaN) and trees of depth
+   0–9 (one with N > 128), M ∈ {1, 7, 65,536}, compared with ``torch.equal``;
+4. tree service — the paper's configuration: CART on the segmentation twin,
+   five 256×256 images (65,536 records each) classified by ``ops.tree_eval``
+   in all three modes, each equal to ``eval_serial``;
+5. forest service — a 16-tree bagged CART forest, the same images through
+   ``ops.forest_eval_fused`` (all three modes) and ``majority_vote``, per-tree
+   classes equal to stacked ``eval_serial``;
+6. timing — where one image's service time goes (host wall, device busy by
+   kernel); then each kernel on the main path's own tree, forest and image,
+   checked equal to its plain version there and timed (device time from the
+   profiler, record buffers rotated past the 50 MB L2), its plain version
+   (CUDA events), and its bound;
+7. the ``kernels`` JSON line, the card line, and the ``ok`` line.
+
+Kernel launches are counted from zero over phases 4–5 only.  Any mismatch,
+missing launch or exception exits non-zero.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.core import (  # noqa: E402
+    CartConfig,
+    EncodedForest,
+    Node,
+    breadth_first_encode,
+    eval_serial,
+    majority_vote,
+    random_tree,
+    sanitize_records,
+    train_cart,
+    tree_depth,
+)
+from repro_torch.core.analysis import mean_traversal_depth, observed_depths  # noqa: E402
+from repro_torch.data import make_segmentation, replicated_dataset  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.tree_eval import kernel as K, ops  # noqa: E402
+
+N_ATTRS, N_CLASSES, M_IMAGE, N_IMAGES, N_TREES = 19, 7, 65_536, 5, 16
+MODES = (("speculative", "gather"), ("speculative", "onehot"), ("data_parallel", "gather"))
+# H100 SXM peaks from NVIDIA's data sheet: HBM3 bytes/s, and
+# float32 outside the tensor cores, the unit the compares run on.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+L2_BYTES = 50 * 2**20
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    raise SystemExit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def adversarial_records(m: int) -> np.ndarray:
+    """(m, 19) records with the conformance suite's adversarial rows up front."""
+    rng = np.random.default_rng(2026)
+    rec = rng.normal(size=(max(m, 8), N_ATTRS)).astype(np.float32)
+    rec[0, :] = 0.5                      # ties with the shared 0.5 threshold
+    rec[1, :] = 0.0
+    rec[2, :] = np.inf
+    rec[3, :] = -np.inf
+    rec[4, ::2], rec[4, 1::2] = np.inf, -np.inf
+    rec[5, :] = np.nan
+    rec[6, ::3] = np.nan
+    rec[7, :4] = [np.nan, np.inf, -np.inf, 0.5]
+    return rec[:m]
+
+
+def duplicate_threshold_tree() -> Node:
+    def split(attr, left, right):
+        return Node(attr=attr, threshold=0.5, left=left, right=right)
+
+    def leaf(c):
+        return Node(class_val=c)
+
+    return split(0, split(1, split(2, leaf(0), leaf(1)), split(3, leaf(2), leaf(3))),
+                 split(2, split(4, leaf(4), leaf(0)), split(1, leaf(1), leaf(2))))
+
+
+def fixture_trees():
+    trees = [Node(class_val=3), duplicate_threshold_tree()]
+    for depth in range(1, 10):
+        balance = 1.0 if depth >= 8 else 0.6   # perfect at 8 and 9: N = 511, 1023
+        trees.append(random_tree(n_attrs=N_ATTRS, n_classes=N_CLASSES, max_depth=depth,
+                                 min_depth=min(depth, 2), seed=depth, balance=balance))
+    return [breadth_first_encode(t) for t in trees]
+
+
+def run_speculative(fused: bool, rec, tabs, jump_mode: str, block_m: int | None = None):
+    """K1 (or K3 if ``fused``) on ``tabs``; its plain version when ``block_m`` is None."""
+    args = (rec, tabs.attr_idx, tabs.attr_select, tabs.threshold, tabs.child, tabs.class_val)
+    kw = dict(total_jumps=ops._total_jumps(tabs.max_depth), jump_mode=jump_mode)
+    if block_m is None:
+        plain = K.fused_speculative_plain if fused else K.speculative_plain
+        return plain(*args, **kw)
+    kernel = K.fused_speculative if fused else K.speculative
+    return kernel(*args, block_m=block_m, **kw)
+
+
+def run_data_parallel(fused: bool, rec, tabs, block_m: int | None = None):
+    """K2 (or K4 if ``fused``) on ``tabs``; its plain version when ``block_m`` is None."""
+    args = (rec, tabs.attr_idx, tabs.threshold, tabs.child, tabs.class_val)
+    if block_m is None:
+        plain = K.fused_data_parallel_plain if fused else K.data_parallel_plain
+        return plain(*args, max_depth=tabs.max_depth)
+    kernel = K.fused_data_parallel if fused else K.data_parallel
+    return kernel(*args, max_depth=tabs.max_depth, block_m=block_m)
+
+
+def kernel_vs_plain(fused: bool, algorithm: str, jump_mode: str, rec, tabs, block_m: int):
+    """Run one kernel and its plain version on the same inputs; returns both."""
+    if algorithm == "speculative":
+        return (run_speculative(fused, rec, tabs, jump_mode, block_m),
+                run_speculative(fused, rec, tabs, jump_mode))
+    return run_data_parallel(fused, rec, tabs, block_m), run_data_parallel(fused, rec, tabs)
+
+
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
+def phase_kernels(dev) -> dict:
+    """K1–K4 against their plain versions; returns the largest error per kernel."""
+    errs: dict[str, int] = {}
+    trees = fixture_trees()
+    forest = ops.PackedForest(EncodedForest(trees), N_ATTRS, device=dev)
+    print(f"[kernels] {len(trees)} trees, N = {[t.n_nodes for t in trees]}, "
+          f"depths {[tree_depth(t) for t in trees]}; forest N = {forest.n_nodes}")
+    for m in (1, 7, M_IMAGE):
+        raw = torch.from_numpy(adversarial_records(m)).to(dev)
+        clean = sanitize_records(raw)
+        for algorithm, jump_mode in MODES:
+            # The gather and data-parallel kernels see the raw adversarial
+            # records; the one-hot form is defined on sanitized records, which
+            # is what ops hands every speculative launch.
+            rec = clean if jump_mode == "onehot" else raw
+            name = kernel_name(False, algorithm, jump_mode)
+            for enc in trees:
+                tabs = ops.PackedTree(enc, N_ATTRS, device=dev)
+                bm = ops.choose_block_m(tabs.n_nodes, N_ATTRS, algorithm=algorithm, jump_mode=jump_mode)
+                got, want = kernel_vs_plain(False, algorithm, jump_mode, rec, tabs, bm)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"{name} != plain at M={m}, N={enc.n_nodes}, block_m={bm}")
+                errs[name] = max(errs.get(name, 0), max_abs_err(got, want))
+            fname = kernel_name(True, algorithm, jump_mode)
+            bm = ops.choose_block_m(forest.n_nodes, N_ATTRS, algorithm=algorithm, jump_mode=jump_mode)
+            for block_m in sorted({bm, 1 if algorithm == "speculative" else 32}):
+                got, want = kernel_vs_plain(True, algorithm, jump_mode, rec, forest, block_m)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"{fname} != plain at M={m}, block_m={block_m}")
+                errs[fname] = max(errs.get(fname, 0), max_abs_err(got, want))
+        print(f"[kernels] M={m}: K1 gather/onehot, K2, K3 gather/onehot, K4 equal to plain")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phases 4–5: the main path
+# ---------------------------------------------------------------------------
+
+
+def kernel_name(fused: bool, algorithm: str, jump_mode: str) -> str:
+    """LAUNCHES key of the wrapper that serves (fused, algorithm, jump_mode)."""
+    base = ("fused_" if fused else "") + algorithm
+    return f"{base}/{jump_mode}" if algorithm == "speculative" else base
+
+
+def bagged_forest(data) -> EncodedForest:
+    """The 16-tree bagged CART forest of the JAX package's cascade bench."""
+    rng = np.random.default_rng(0)
+    trees = []
+    for _ in range(N_TREES):
+        idx = rng.integers(0, data.x_train.shape[0], data.x_train.shape[0])
+        root = train_cart(data.x_train[idx], data.y_train[idx], N_CLASSES,
+                          CartConfig(max_depth=8, min_samples_split=16, min_gain=4e-3))
+        trees.append(breadth_first_encode(root))
+    return EncodedForest(trees)
+
+
+def host_vote(per_tree: np.ndarray) -> np.ndarray:
+    votes = (per_tree[..., None] == np.arange(N_CLASSES)).sum(0)
+    return votes.argmax(-1).astype(np.int32)      # first maximum: lowest class
+
+
+def timed(fn):
+    """Host-clock milliseconds of ``fn()`` ending in a device synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_service(dev, images, labels, enc, forest):
+    tree = ops.PackedTree(enc, N_ATTRS, device=dev)
+    packed = ops.PackedForest(forest, N_ATTRS, device=dev)
+    lat = {f"tree/{a}/{j}": [] for a, j in MODES} | {f"forest/{a}/{j}": [] for a, j in MODES}
+    for i, img in enumerate(images):
+        want = eval_serial(enc, img)
+        for algorithm, jump_mode in MODES:
+            out, ms = timed(lambda: ops.tree_eval(
+                torch.from_numpy(img).to(dev), tree, algorithm=algorithm, jump_mode=jump_mode).cpu())
+            check(np.array_equal(out.numpy(), want), f"tree {algorithm}/{jump_mode} != eval_serial, image {i}")
+            lat[f"tree/{algorithm}/{jump_mode}"].append(ms)
+        acc = float((want == labels[i]).mean())
+        per_tree = np.stack([eval_serial(forest.tree(t), img) for t in range(forest.n_trees)])
+        want_vote = host_vote(per_tree)
+        for algorithm, jump_mode in MODES:
+            def classify():
+                rec = torch.from_numpy(img).to(dev)
+                classes = ops.forest_eval_fused(rec, packed, algorithm=algorithm, jump_mode=jump_mode)
+                return classes.cpu(), majority_vote(classes, N_CLASSES).cpu()
+            (classes, vote), ms = timed(classify)
+            check(np.array_equal(classes.numpy(), per_tree),
+                  f"forest {algorithm}/{jump_mode} != stacked eval_serial, image {i}")
+            check(np.array_equal(vote.numpy(), want_vote), f"majority_vote differs, image {i}")
+            lat[f"forest/{algorithm}/{jump_mode}"].append(ms)
+        print(f"[service] image {i}: tree acc {acc:.4f}, forest vote acc "
+              f"{float((want_vote == labels[i]).mean()):.4f}; classes equal eval_serial in all modes")
+    return lat
+
+
+# ---------------------------------------------------------------------------
+# phase 6: timing at the main-path shapes
+# ---------------------------------------------------------------------------
+
+
+def event_ms(fn, n_bufs: int, iters: int, warmup: int = 3) -> float:
+    """Mean device milliseconds per call of ``fn(i)`` over ``iters`` calls."""
+    for i in range(warmup):
+        fn(i % n_bufs)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i % n_bufs)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profiled_kernel_ms(fn, n_bufs: int, iters: int) -> tuple[float, int]:
+    """Mean device time of the kernels ``fn(i)`` launches, from the profiler.
+
+    Timed this way because a wrapper call costs the host more than these
+    kernels cost the card, so events around back-to-back calls would time the
+    host.  Returns (mean ms of the kernel events seen, their number); fails
+    the run if the profiler saw no kernel, rather than report host time.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(3):
+        fn(i % n_bufs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i % n_bufs)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    count = sum(e.count for e in kernels)
+    check(count > 0, "the profiler saw no kernel on the card: no device time to report")
+    return sum(e.self_device_time_total for e in kernels) / 1e3 / count, count
+
+
+def bound(m: int, a: int, t: int, n: int, compares: int) -> tuple[float, str]:
+    """Least time the card could take to classify ``m`` records by ``t`` trees.
+
+    Every mode of one shape computes the same function, so each gets the same
+    bound: read the records and the four per-node tables (attr_idx,
+    threshold, child, class_val) once, write the (t, m) classes once; and
+    make the ``compares`` this run's records need, one per level each
+    descends.  The speculative algorithm's extra node evaluations and the
+    one-hot form's FMAs are its own cost, not the function's.
+    """
+    byte_ms = (m * a * 4 + t * n * 4 * 4 + t * m * 4) / PEAK_BYTES_PER_S * 1e3
+    op_ms = compares / PEAK_F32_OPS_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def phase_timing(dev, image, enc, forest, depth_sum_tree, depth_sum_forest, card):
+    rec = torch.from_numpy(image).to(dev)
+    # Enough distinct record buffers to overflow L2, so each launch reads
+    # its records from device memory as a fresh image would be.
+    n_bufs = L2_BYTES // rec.nbytes + 2
+    raw = [rec.clone() for _ in range(n_bufs)]
+    clean = [sanitize_records(r) for r in raw]
+    tree = ops.PackedTree(enc, N_ATTRS, device=dev)
+    packed = ops.PackedForest(forest, N_ATTRS, device=dev)
+    m, a = rec.shape
+    rows = []
+    for fused, tabs, depth_sum in ((False, tree, depth_sum_tree), (True, packed, depth_sum_forest)):
+        t = packed.n_trees if fused else 1
+        n = tabs.n_nodes
+        for algorithm, jump_mode in MODES:
+            bufs = clean if algorithm == "speculative" else raw
+            bm = ops.choose_block_m(n, a, algorithm=algorithm, jump_mode=jump_mode)
+            if algorithm == "speculative":
+                def run(i, bm=bm, bufs=bufs, jump_mode=jump_mode):
+                    return run_speculative(fused, bufs[i], tabs, jump_mode, bm)
+
+                def plain(i, bufs=bufs, jump_mode=jump_mode):
+                    return run_speculative(fused, bufs[i], tabs, jump_mode)
+            else:
+                def run(i, bm=bm, bufs=bufs):
+                    return run_data_parallel(fused, bufs[i], tabs, bm)
+
+                def plain(i, bufs=bufs):
+                    return run_data_parallel(fused, bufs[i], tabs)
+            name = kernel_name(fused, algorithm, jump_mode)
+            got, want = run(0), plain(0)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"{name} != plain on the main-path inputs")
+            call_ms = event_ms(run, n_bufs, iters=200)
+            ms, n_events = profiled_kernel_ms(run, n_bufs, iters=200)
+            plain_ms = event_ms(plain, n_bufs, iters=10, warmup=1)
+            bound_ms, bound_by = bound(m, a, t, n, depth_sum)
+            print(f"[timing] {card}: {name:25s} M={m} N={n} T={t} block_m={bm}: kernel {ms:.4f} ms "
+                  f"(profiler, {n_events} launches; {call_ms:.4f} ms per wrapper call by events), "
+                  f"plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.5f} ms ({bound_by}), kernel at {bound_ms / ms:.1%} of bound")
+            rows.append(dict(name=name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             max_abs_err=max_abs_err(got, want)))
+    return rows
+
+
+def phase_breakdown(dev, image, enc, forest, card) -> None:
+    """Where one image's service time goes: host wall vs device busy, by kernel.
+
+    One call each of the tree (K1 gather) and the forest (K3 gather + vote)
+    path, from numpy on the host to classes on the host, under the profiler
+    (which slows the host side; the device times stand).
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    tree = ops.PackedTree(enc, N_ATTRS, device=dev)
+    packed = ops.PackedForest(forest, N_ATTRS, device=dev)
+    calls = {
+        "tree": lambda: ops.tree_eval(torch.from_numpy(image).to(dev), tree).cpu(),
+        "forest": lambda: majority_vote(
+            ops.forest_eval_fused(torch.from_numpy(image).to(dev), packed), N_CLASSES).cpu(),
+    }
+    for label, call in calls.items():
+        timed(call)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall = timed(call)
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        parts = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.4f} ms x{e.count}"
+                          for e in sorted(events, key=lambda e: -e.self_device_time_total))
+        print(f"[breakdown] {card}: {label} speculative/gather, one image: host wall {wall:.3f} ms, "
+              f"device busy {busy:.4f} ms, idle share {1 - busy / wall:.1%}; {parts}")
+
+
+# ---------------------------------------------------------------------------
+
+
+REPLACES = {
+    "speculative": "src/repro/kernels/tree_eval/kernel.py:137",
+    "data_parallel": "src/repro/kernels/tree_eval/kernel.py:219",
+    "fused_speculative": "src/repro/kernels/tree_eval/kernel.py:285",
+    "fused_data_parallel": "src/repro/kernels/tree_eval/kernel.py:618",
+}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device", file=sys.stderr)
+        raise SystemExit(2)
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    print(f"[device] {kind}; nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    report = _build.ptxas_report(K.SOURCE)
+    print(f"[build] {_build.library_path(K.SOURCE).name} in {time.perf_counter() - t0:.1f} s on the host of {card}")
+    for line in report.splitlines():
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
+            print(f"[build] {line.strip()}")
+
+    errs = phase_kernels(dev)
+
+    t0 = time.perf_counter()
+    data = make_segmentation(seed=0)
+    enc = breadth_first_encode(train_cart(
+        data.x_train, data.y_train, N_CLASSES,
+        CartConfig(max_depth=12, min_samples_split=8, min_gain=4e-3)))
+    forest = bagged_forest(data)
+    pairs = [replicated_dataset(data, M_IMAGE, seed=i + 1) for i in range(N_IMAGES)]
+    images, labels = [p[0] for p in pairs], [p[1] for p in pairs]
+    depths = observed_depths(enc, images[0])
+    forest_depths = sum(int(observed_depths(forest.tree(t), images[0]).sum()) for t in range(forest.n_trees))
+    print(f"[setup] CART tree N={enc.n_nodes} depth={tree_depth(enc)} "
+          f"d_mu={mean_traversal_depth(depths):.3f}; forest T={forest.n_trees} "
+          f"N={forest.n_nodes} depth={forest.max_depth} "
+          f"d_mu={forest_depths / (forest.n_trees * M_IMAGE):.3f} ({time.perf_counter() - t0:.1f} s on host)")
+
+    K.reset_launches()
+    lat = phase_service(dev, images, labels, enc, forest)
+    launches = dict(K.LAUNCHES)
+    print(f"[service] main-path launches: {launches}")
+    for key, ms in lat.items():
+        steady = ms[1:]
+        print(f"[service] {card}: {key:30s} per-image ms (H2D + eval + D2H, host clock): "
+              f"first {ms[0]:.3f}, steady mean {np.mean(steady):.3f} min {min(steady):.3f} max {max(steady):.3f}")
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched on the main path")
+
+    phase_breakdown(dev, images[0], enc, forest, card)
+    rows = phase_timing(dev, images[0], enc, forest, int(depths.sum()), forest_depths, card)
+    kernels = []
+    for row in rows:
+        wrapper = row["name"].split("/")[0]
+        kernels.append({
+            "name": row["name"],
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/tree_eval/csrc/tree_eval.cu",
+            "replaces": REPLACES[wrapper],
+            "launches": launches[row["name"]],
+            "max_abs_err": max(errs[row["name"]], row["max_abs_err"]),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,   # no single PyTorch call evaluates a tree
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

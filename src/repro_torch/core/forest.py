@@ -1,0 +1,109 @@
+"""Random-forest evaluation (Sharp's extension, paper §1) + top-k routing.
+
+Per-tree encodings are padded to one node count and stacked into (T, N)
+tables; the forest is evaluated with the tree axis as a batch dimension of
+the paper's evaluators (the JAX package ``vmap``s over it).
+
+Forests serve two roles:
+  1. classic majority-vote classification (the paper's lineage), and
+  2. **top-k expert routing**: a forest of k trees where tree ``j`` emits the
+     j-th expert choice for each token.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import _device
+from repro_torch.core.eval_speculative import eval_speculative
+from repro_torch.core.tree import (
+    EncodedTree,
+    Node,
+    _checked_tables,
+    breadth_first_encode,
+    pad_tree,
+    tree_depth,
+)
+
+
+class EncodedForest:
+    """T trees padded to a common node count and stacked (numpy, on the host)."""
+
+    def __init__(self, trees: Sequence[EncodedTree]):
+        if not trees:
+            raise ValueError("empty forest")
+        n_pad = max(t.n_nodes for t in trees)
+        padded = [pad_tree(t, n_pad) for t in trees]
+        self.n_trees = len(trees)
+        self.n_nodes = n_pad
+        self.max_depth = max(tree_depth(t) for t in trees)
+        self.attr_idx = np.stack([p.attr_idx for p in padded])  # (T, N)
+        self.threshold = np.stack([p.threshold for p in padded])
+        self.child = np.stack([p.child for p in padded])
+        self.class_val = np.stack([p.class_val for p in padded])
+
+    @classmethod
+    def from_nodes(cls, roots: Sequence[Node]) -> "EncodedForest":
+        return cls([breadth_first_encode(r) for r in roots])
+
+    @classmethod
+    def from_arrays(cls, attr_idx, threshold, child, class_val) -> "EncodedForest":
+        """Carry a stacked forest across as (T, N) numpy tables.
+
+        Dtypes must be int32/float32/int32/int32; ``max_depth`` is recomputed
+        from the tables.
+        """
+        tables = _checked_tables((attr_idx, threshold, child, class_val), ndim=2)
+        return cls([EncodedTree(*(t[i] for t in tables)) for i in range(tables[0].shape[0])])
+
+    def tree(self, i: int) -> EncodedTree:
+        """Recover tree ``i`` as a standalone (padded) encoding."""
+        return EncodedTree(
+            self.attr_idx[i], self.threshold[i], self.child[i], self.class_val[i]
+        )
+
+
+def eval_forest(
+    forest: EncodedForest,
+    records,
+    *,
+    jumps_per_round: int = 2,
+    use_onehot_matmul: bool = True,
+    device=None,
+) -> torch.Tensor:
+    """Per-tree class assignments, shape (T, M), via the speculative evaluator."""
+    return eval_speculative(
+        records,
+        forest.attr_idx,
+        forest.threshold,
+        forest.child,
+        forest.class_val,
+        max_depth=forest.max_depth,
+        jumps_per_round=jumps_per_round,
+        use_onehot_matmul=use_onehot_matmul,
+        device=device,
+    )
+
+
+def majority_vote(per_tree, n_classes: int, *, device=None) -> torch.Tensor:
+    """(T, M) per-tree classes → (M,) majority class, int32.
+
+    Ties go to the lowest class (as ``jnp.argmax`` picks the first maximum).
+    The rule is built into the key — ``votes·C + (C-1-c)`` has one maximum
+    per record — so it does not rest on how ``argmax`` breaks ties on a
+    device.  Classes outside ``[0, n_classes)`` cast no vote.
+    """
+    dev = _device.resolve(per_tree, device)
+    per_tree = _device.as_tensor(per_tree, torch.int64, dev)
+    classes = torch.arange(n_classes, device=dev)
+    votes = (per_tree[..., None] == classes).sum(0)           # (M, C)
+    key = votes * n_classes + (n_classes - 1 - classes)
+    return key.argmax(-1).to(torch.int32)
+
+
+def route_topk(per_tree: torch.Tensor) -> torch.Tensor:
+    """(k, M) per-tree expert picks → (M, k) routing table (may repeat)."""
+    return per_tree.T

@@ -1,0 +1,286 @@
+"""CUDA kernels K1–K4 for classification-tree evaluation, with their plain versions.
+
+The kernels live in ``csrc/tree_eval.cu`` (see its header for the bound and
+the design); this module builds and loads that library at first launch and
+wraps each kernel:
+
+=====  =======================  ==============================================
+ ID     wrapper                  replaces (``src/repro/kernels/tree_eval/kernel.py``)
+=====  =======================  ==============================================
+ K1     ``speculative``          ``speculative_pallas`` (Procedure 4/5)
+ K2     ``data_parallel``        ``data_parallel_pallas`` (Procedure 3)
+ K3     ``fused_speculative``    ``fused_speculative_pallas`` (forest, one launch)
+ K4     ``fused_data_parallel``  ``fused_data_parallel_pallas`` (forest, one launch)
+=====  =======================  ==============================================
+
+A wrapper given CPU tensors returns its plain torch version (``*_plain``);
+given CUDA tensors it checks them, allocates the output, launches the kernel
+on the current stream and adds one to its entry of ``LAUNCHES``.  There is
+no fallback: a failed build or launch raises.
+
+The speculative kernels' ``onehot`` form computes ``records @ attr_select``;
+it is exact only on records passed through
+``core.eval_speculative.sanitize_records`` (``ops`` does so before every
+speculative launch, in both jump modes).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.core.eval_speculative import pointer_jump, speculative_node_eval
+from repro_torch.kernels import _build
+from repro_torch.kernels.tree_eval.ref import forest_eval_ref, tree_eval_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "tree_eval.cu"
+
+SMEM_MAX = 232_448        # bytes of shared memory one CTA may opt into on sm_90
+MAX_THREADS = 1024        # threads of a CTA; the data-parallel CTA has block_m
+JUMP_MODES = ("gather", "onehot")
+
+# Launches per kernel instantiation since the last reset_launches(): a run
+# reads these to show that its main path went through the kernels.
+LAUNCHES = {
+    "speculative/gather": 0,
+    "speculative/onehot": 0,
+    "data_parallel": 0,
+    "fused_speculative/gather": 0,
+    "fused_speculative/onehot": 0,
+    "fused_data_parallel": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def smem_bytes(
+    algorithm: str, block_m: int, n_attrs: int, n_nodes: int, jump_mode: str = "gather"
+) -> int:
+    """Dynamic shared memory of one CTA, in bytes.
+
+    The one formula for it: the wrappers pass this count to the launch
+    functions of ``csrc/tree_eval.cu``, whose kernels carve their record
+    tile, path buffers and tables out of it in this order.
+    """
+    if algorithm == "data_parallel":
+        return 4 * (block_m * n_attrs + 4 * n_nodes)
+    select = n_attrs * n_nodes if jump_mode == "onehot" else n_nodes
+    return 4 * (block_m * n_attrs + 2 * block_m * n_nodes + 3 * n_nodes + select)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "k1_speculative": [_P] * 7 + [_I] * 7 + [_P],
+    "k2_data_parallel": [_P] * 6 + [_I] * 6 + [_P],
+    "k3_fused_speculative": [_P] * 7 + [_I] * 8 + [_P],
+    "k4_fused_data_parallel": [_P] * 6 + [_I] * 7 + [_P],
+}
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.tree_eval_error_string.argtypes = [ctypes.c_int]
+    lib.tree_eval_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(records: torch.Tensor, tables: dict, algorithm: str, block_m: int, jump_mode: str):
+    """Validate what a kernel is handed; returns (M, A, N, shared-memory bytes)."""
+    if records.device.type != "cuda":
+        raise ValueError(f"kernels take CPU or CUDA tensors, got {records.device}")
+    if records.dtype != torch.float32 or records.dim() != 2 or not records.is_contiguous():
+        raise ValueError(
+            f"records must be contiguous 2-D float32, got {records.dtype} {tuple(records.shape)}"
+        )
+    m, a = records.shape
+    if m > 2**31 - 1 - MAX_THREADS:
+        raise ValueError(f"{m} records exceed one launch's int32 record count")
+    for name, (t, dtype, shape) in tables.items():
+        if t.device != records.device:
+            raise ValueError(f"{name} is on {t.device}, records on {records.device}")
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"{name} must be contiguous {dtype} {shape}, got {t.dtype} {tuple(t.shape)}"
+            )
+    n = tables["threshold"][2][-1]
+    return m, a, n, _tile_smem(algorithm, block_m, a, n, jump_mode)
+
+
+def _tile_smem(algorithm: str, block_m: int, n_attrs: int, n_nodes: int, jump_mode: str) -> int:
+    """Shared-memory bytes of a launchable tile; raises for a tile no CTA can hold."""
+    if jump_mode not in JUMP_MODES:
+        raise ValueError(f"unknown jump_mode {jump_mode!r}")
+    if block_m < 1 or (algorithm == "data_parallel" and block_m > MAX_THREADS):
+        raise ValueError(f"block_m={block_m} is not a valid {algorithm} tile")
+    need = smem_bytes(algorithm, block_m, n_attrs, n_nodes, jump_mode)
+    if need > SMEM_MAX:
+        raise ValueError(
+            f"block_m={block_m} needs {need} B of shared memory for N={n_nodes}, "
+            f"A={n_attrs}; a CTA has {SMEM_MAX} B"
+        )
+    return need
+
+
+def _launch(c_name: str, counter: str, tensors, ints) -> None:
+    lib = _library()
+    device = tensors[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, c_name)(*(t.data_ptr() for t in tensors), *ints, stream)
+    if err != 0:
+        msg = lib.tree_eval_error_string(err).decode()
+        raise RuntimeError(f"{c_name} launch failed: CUDA error {err} ({msg})")
+    LAUNCHES[counter] += 1
+
+
+def _tables(attr_idx, threshold, child, class_val, lead, attr_select=None, n_attrs=0):
+    """What ``_check`` expects of each table: (tensor, dtype, shape)."""
+    n = threshold.shape[-1]
+    tables = {
+        "attr_idx": (attr_idx, torch.int32, lead + (n,)),
+        "threshold": (threshold, torch.float32, lead + (n,)),
+        "child": (child, torch.int32, lead + (n,)),
+        "class_val": (class_val, torch.int32, lead + (n,)),
+    }
+    if attr_select is not None:
+        tables["attr_select"] = (attr_select, torch.float32, lead + (n_attrs, n))
+    return tables
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def fused_speculative_plain(
+    records, attr_idx, attr_select, threshold, child, class_val, *, total_jumps: int, jump_mode: str
+) -> torch.Tensor:
+    """K3's function in plain torch: (T, N) tables → (T, M) int32."""
+    if jump_mode not in JUMP_MODES:
+        raise ValueError(f"unknown jump_mode {jump_mode!r}")
+    path = speculative_node_eval(
+        records, attr_idx, threshold, child,
+        use_onehot_matmul=(jump_mode == "onehot"), attr_select=attr_select,
+    )
+    path = pointer_jump(path, total_jumps)
+    return class_val.gather(-1, path[..., 0].long())
+
+
+def speculative_plain(
+    records, attr_idx, attr_select, threshold, child, class_val, *, total_jumps: int, jump_mode: str
+) -> torch.Tensor:
+    """K1's function in plain torch: (N,) tables → (M,) int32."""
+    return fused_speculative_plain(
+        records, attr_idx[None], attr_select[None], threshold[None], child[None],
+        class_val[None], total_jumps=total_jumps, jump_mode=jump_mode,
+    )[0]
+
+
+def data_parallel_plain(records, attr_idx, threshold, child, class_val, *, max_depth: int):
+    """K2's function in plain torch: ``max_depth`` rounds of descent, (M,) int32."""
+    return tree_eval_ref(records, attr_idx, threshold, child, class_val, max_depth=max_depth)
+
+
+def fused_data_parallel_plain(records, attr_idx, threshold, child, class_val, *, max_depth: int):
+    """K4's function in plain torch: (T, N) tables → (T, M) int32."""
+    return forest_eval_ref(records, attr_idx, threshold, child, class_val, max_depth=max_depth)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def speculative(
+    records, attr_idx, attr_select, threshold, child, class_val,
+    *, total_jumps: int, jump_mode: str, block_m: int,
+) -> torch.Tensor:
+    """K1: Procedure 4/5 for one tree, ``total_jumps`` pointer jumps. (M,) int32."""
+    if records.device.type == "cpu":
+        return speculative_plain(
+            records, attr_idx, attr_select, threshold, child, class_val,
+            total_jumps=total_jumps, jump_mode=jump_mode,
+        )
+    tables = _tables(attr_idx, threshold, child, class_val, (), attr_select, records.shape[-1])
+    m, a, n, smem = _check(records, tables, "speculative", block_m, jump_mode)
+    out = torch.empty((m,), dtype=torch.int32, device=records.device)
+    if m:
+        _launch(
+            "k1_speculative", f"speculative/{jump_mode}",
+            (records, attr_idx, attr_select, threshold, child, class_val, out),
+            (m, a, n, block_m, total_jumps, int(jump_mode == "onehot"), smem),
+        )
+    return out
+
+
+def data_parallel(
+    records, attr_idx, threshold, child, class_val, *, max_depth: int, block_m: int
+) -> torch.Tensor:
+    """K2: Procedure 3 for one tree, ``max_depth`` rounds. (M,) int32."""
+    if records.device.type == "cpu":
+        return data_parallel_plain(records, attr_idx, threshold, child, class_val, max_depth=max_depth)
+    tables = _tables(attr_idx, threshold, child, class_val, ())
+    m, a, n, smem = _check(records, tables, "data_parallel", block_m, "gather")
+    out = torch.empty((m,), dtype=torch.int32, device=records.device)
+    if m:
+        _launch(
+            "k2_data_parallel", "data_parallel",
+            (records, attr_idx, threshold, child, class_val, out),
+            (m, a, n, block_m, max_depth, smem),
+        )
+    return out
+
+
+def fused_speculative(
+    records, attr_idx, attr_select, threshold, child, class_val,
+    *, total_jumps: int, jump_mode: str, block_m: int,
+) -> torch.Tensor:
+    """K3: K1 over a stacked (T, N) forest in one launch. (T, M) int32."""
+    if records.device.type == "cpu":
+        return fused_speculative_plain(
+            records, attr_idx, attr_select, threshold, child, class_val,
+            total_jumps=total_jumps, jump_mode=jump_mode,
+        )
+    t = threshold.shape[0]
+    tables = _tables(attr_idx, threshold, child, class_val, (t,), attr_select, records.shape[-1])
+    m, a, n, smem = _check(records, tables, "speculative", block_m, jump_mode)
+    out = torch.empty((t, m), dtype=torch.int32, device=records.device)
+    if m and t:
+        _launch(
+            "k3_fused_speculative", f"fused_speculative/{jump_mode}",
+            (records, attr_idx, attr_select, threshold, child, class_val, out),
+            (m, a, n, t, block_m, total_jumps, int(jump_mode == "onehot"), smem),
+        )
+    return out
+
+
+def fused_data_parallel(
+    records, attr_idx, threshold, child, class_val, *, max_depth: int, block_m: int
+) -> torch.Tensor:
+    """K4: K2 over a stacked (T, N) forest in one launch. (T, M) int32."""
+    if records.device.type == "cpu":
+        return fused_data_parallel_plain(
+            records, attr_idx, threshold, child, class_val, max_depth=max_depth
+        )
+    t = threshold.shape[0]
+    tables = _tables(attr_idx, threshold, child, class_val, (t,))
+    m, a, n, smem = _check(records, tables, "data_parallel", block_m, "gather")
+    out = torch.empty((t, m), dtype=torch.int32, device=records.device)
+    if m and t:
+        _launch(
+            "k4_fused_data_parallel", "fused_data_parallel",
+            (records, attr_idx, threshold, child, class_val, out),
+            (m, a, n, t, block_m, max_depth, smem),
+        )
+    return out

@@ -45,3 +45,7 @@ def _global_numpy_seed(request):
     np.random.seed(seed)
     print(f"[np.random seed] {seed}")
     yield
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "gpu: needs a CUDA device; skips without one")

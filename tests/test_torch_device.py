@@ -1,0 +1,169 @@
+"""Where the port runs, and its CUDA kernels on the card.
+
+Imports nothing of JAX, so the card tests run on a machine without it:
+
+    python -m pytest -m gpu tests/test_torch_device.py
+
+Tests marked ``gpu`` decide inside a fixture whether there is a card and skip
+without one; each holds a CUDA kernel against its plain version with
+``torch.equal``.
+"""
+
+from __future__ import annotations
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import EncodedForest, Node, breadth_first_encode, random_tree, sanitize_records
+from repro_torch.kernels.tree_eval import kernel as K
+from repro_torch.kernels.tree_eval import ops
+from repro_torch.kernels.tree_eval.ref import forest_eval_ref, tree_eval_ref
+
+REPO = Path(__file__).resolve().parents[1]
+MODES = [("speculative", "gather"), ("speculative", "onehot"), ("data_parallel", "gather")]
+FORBIDDEN_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+
+
+def _tree(depth: int, seed: int, balance: float = 1.0):
+    if depth == 0:
+        return breadth_first_encode(Node(class_val=3))
+    return breadth_first_encode(
+        random_tree(n_attrs=19, n_classes=7, max_depth=depth, seed=seed, balance=balance)
+    )
+
+
+def _records(m: int, seed: int = 3) -> np.ndarray:
+    """(m, 19) records with exact ties, ±inf and NaN rows up front."""
+    rec = np.random.default_rng(seed).normal(size=(max(m, 8), 19)).astype(np.float32)
+    rec[0], rec[1], rec[2], rec[3] = 0.5, 0.0, np.inf, -np.inf
+    rec[4, ::2], rec[4, 1::2] = np.inf, -np.inf
+    rec[5], rec[6, ::3] = np.nan, np.nan
+    rec[7, :4] = [np.nan, np.inf, -np.inf, 0.5]
+    return rec[:m]
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, for tests marked ``gpu``; decided when the test runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
+                 for f in files for m in FORBIDDEN_IMPORT.finditer(f.read_text())]
+    assert offenders == []
+
+
+def test_forbidden_import_pattern_catches_what_it_should():
+    for line in ("import jax", "from jax.numpy import x", "import repro.core", "  from repro import a"):
+        assert FORBIDDEN_IMPORT.search(line), line
+    for line in ("import repro_torch", "from repro_torch.core import x", "import jaxlib_like_name_x"):
+        assert not FORBIDDEN_IMPORT.search(line), line
+
+
+def test_numpy_input_without_device_raises_without_a_card(monkeypatch):
+    """No card and no device="cpu": the kernel entry points raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    enc, rec = _tree(4, seed=1), _records(20)
+    forest = EncodedForest([enc, _tree(2, seed=2)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.tree_eval(rec, enc)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.forest_eval_fused(rec, forest)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.PackedTree(enc, 19)
+    got = ops.tree_eval(rec, enc, device="cpu")
+    assert got.device.type == "cpu"
+    assert torch.equal(got, ops.tree_eval(torch.from_numpy(rec), enc))
+
+
+def test_tables_and_records_on_different_devices_are_refused():
+    packed = ops.PackedTree(_tree(3, seed=1), 19, device="cpu")
+    with pytest.raises(ValueError, match="tables are on cpu"):
+        ops.tree_eval(torch.empty((4, 19), device="meta"), packed)
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+
+def _jumps(max_depth: int) -> int:
+    return max(1, int(np.ceil(np.log2(max(max_depth, 2)))))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 7, 1000, 65_536])
+@pytest.mark.parametrize("depth,balance", [(0, 1.0), (1, 1.0), (6, 0.7), (8, 1.0), (9, 0.6)])
+def test_tree_kernels_equal_plain_on_card(cuda_device, m, depth, balance):
+    raw = torch.from_numpy(_records(m)).to(cuda_device)
+    clean = sanitize_records(raw)
+    packed = ops.PackedTree(_tree(depth, seed=depth, balance=balance), 19, device=cuda_device)
+    jumps = _jumps(packed.max_depth)
+    for mode, rec in (("gather", raw), ("onehot", clean)):
+        args = (rec, packed.attr_idx, packed.attr_select, packed.threshold, packed.child, packed.class_val)
+        bm = ops.choose_block_m(packed.n_nodes, 19, jump_mode=mode)
+        got = K.speculative(*args, total_jumps=jumps, jump_mode=mode, block_m=bm)
+        assert torch.equal(got, K.speculative_plain(*args, total_jumps=jumps, jump_mode=mode)), mode
+    args = (raw, packed.attr_idx, packed.threshold, packed.child, packed.class_val)
+    got = K.data_parallel(*args, max_depth=packed.max_depth, block_m=256)
+    assert torch.equal(got, K.data_parallel_plain(*args, max_depth=packed.max_depth))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 7, 65_536])
+@pytest.mark.parametrize("block_m", [None, 1, 32])
+def test_forest_kernels_equal_plain_on_card(cuda_device, m, block_m):
+    raw = torch.from_numpy(_records(m)).to(cuda_device)
+    clean = sanitize_records(raw)
+    forest = EncodedForest([_tree(d, seed=d, balance=0.7) for d in (0, 1, 3, 5, 8)])
+    packed = ops.PackedForest(forest, 19, device=cuda_device)
+    jumps = _jumps(packed.max_depth)
+    for mode, rec in (("gather", raw), ("onehot", clean)):
+        args = (rec, packed.attr_idx, packed.attr_select, packed.threshold, packed.child, packed.class_val)
+        bm = block_m or ops.choose_block_m(packed.n_nodes, 19, jump_mode=mode)
+        got = K.fused_speculative(*args, total_jumps=jumps, jump_mode=mode, block_m=bm)
+        assert torch.equal(got, K.fused_speculative_plain(*args, total_jumps=jumps, jump_mode=mode)), mode
+    args = (raw, packed.attr_idx, packed.threshold, packed.child, packed.class_val)
+    got = K.fused_data_parallel(*args, max_depth=packed.max_depth, block_m=block_m or 256)
+    assert torch.equal(got, K.fused_data_parallel_plain(*args, max_depth=packed.max_depth))
+
+
+@pytest.mark.gpu
+def test_ops_on_card_launch_each_kernel_once_and_match_ref(cuda_device):
+    rec = _records(500, seed=9)
+    enc = _tree(6, seed=2, balance=0.8)
+    forest = EncodedForest([_tree(d, seed=d, balance=0.7) for d in (1, 4, 6)])
+    want_tree = tree_eval_ref(rec, *enc, max_depth=6, device="cpu")
+    want_forest = forest_eval_ref(rec, forest.attr_idx, forest.threshold, forest.child,
+                                  forest.class_val, max_depth=forest.max_depth, device="cpu")
+    K.reset_launches()
+    for algorithm, jump_mode in MODES:
+        got = ops.tree_eval(rec, enc, algorithm=algorithm, jump_mode=jump_mode)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want_tree), (algorithm, jump_mode)
+        got = ops.forest_eval_fused(rec, forest, algorithm=algorithm, jump_mode=jump_mode)
+        assert torch.equal(got.cpu(), want_forest), (algorithm, jump_mode)
+    assert all(v == 1 for v in K.LAUNCHES.values()), K.LAUNCHES
+
+
+@pytest.mark.gpu
+def test_bad_tiles_and_tables_raise_on_card(cuda_device):
+    packed = ops.PackedTree(_tree(8, seed=5), 19, device=cuda_device)
+    rec = torch.zeros((10, 19), device=cuda_device)
+    args = (rec, packed.attr_idx, packed.attr_select, packed.threshold, packed.child, packed.class_val)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.speculative(*args, total_jumps=3, jump_mode="onehot", block_m=64)
+    with pytest.raises(ValueError, match="attr_idx must be contiguous"):
+        K.speculative(rec, packed.attr_idx.double(), *args[2:], total_jumps=3, jump_mode="gather", block_m=4)
+    with pytest.raises(ValueError, match="block_m=2048"):
+        K.data_parallel(rec, packed.attr_idx, packed.threshold, packed.child, packed.class_val,
+                        max_depth=3, block_m=2048)

@@ -1,0 +1,278 @@
+"""The port's kernel wrappers (``kernels/tree_eval``) against the JAX package.
+
+On the CPU the wrappers run their kernels' plain versions; they are held
+against the JAX package's Pallas kernels run in interpret mode, as the JAX
+tests run them, at M ∈ {1, 7, 100}, with a 511-node tree, explicit
+``block_m`` and bf16 records.  The CUDA kernels themselves are held against
+their plain versions on the card by ``test_torch_device.py``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core import breadth_first_encode, random_tree
+from repro.core.forest import EncodedForest as JaxForest
+from repro.kernels.tree_eval import ops as jax_ops
+from repro.kernels.tree_eval.ref import forest_eval_ref as jax_forest_ref
+from repro.kernels.tree_eval.ref import tree_eval_ref as jax_tree_ref
+from repro_torch.core import EncodedForest, EncodedTree, sanitize_records
+from repro_torch.kernels import _build
+from repro_torch.kernels.tree_eval import kernel as K
+from repro_torch.kernels.tree_eval import ops
+
+from torch_parity import (
+    FOREST,
+    PORT_FOREST,
+    PORT_TREES,
+    RECORDS,
+    TREES,
+    adversarial_records,
+    assert_same,
+    cpu,
+)
+
+MODES = [("speculative", "gather"), ("speculative", "onehot"), ("data_parallel", "gather")]
+
+
+def _tree(depth: int, seed: int, balance: float = 1.0, attrs: int = 19):
+    return breadth_first_encode(
+        random_tree(n_attrs=attrs, n_classes=7, max_depth=depth, seed=seed, balance=balance)
+    )
+
+
+def _forest(depths, attrs: int = 19) -> JaxForest:
+    return JaxForest([_tree(d, seed=d, balance=0.7, attrs=attrs) for d in depths])
+
+
+def _port_forest(jf: JaxForest) -> EncodedForest:
+    return EncodedForest.from_arrays(jf.attr_idx, jf.threshold, jf.child, jf.class_val)
+
+
+DEPTH6 = _tree(6, seed=2, balance=0.8)
+TREE511 = _tree(8, seed=5)                  # perfect: 511 nodes
+FOREST19 = _forest([1, 4, 6])
+
+
+# ---------------------------------------------------------------------------
+# ops against the JAX package's ops (Pallas in interpret mode)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("algorithm,jump_mode", MODES)
+@pytest.mark.parametrize("m", [1, 7, 100])
+def test_tree_eval_matches_jax(algorithm, jump_mode, m):
+    rec = adversarial_records(m, 19, seed=m)
+    want = jax_ops.tree_eval(rec, DEPTH6, algorithm=algorithm, jump_mode=jump_mode)
+    got = ops.tree_eval(rec, EncodedTree.from_arrays(*DEPTH6), algorithm=algorithm,
+                        jump_mode=jump_mode, device="cpu")
+    assert got.dtype == torch.int32
+    assert_same(got, want, f"{algorithm}/{jump_mode}/M={m}")
+
+
+@pytest.mark.parametrize("algorithm,jump_mode", MODES)
+def test_tree_eval_511_nodes_explicit_block_m_matches_jax(algorithm, jump_mode):
+    assert TREE511.n_nodes == 511
+    rec = adversarial_records(40, 19, seed=11)
+    want = jax_ops.tree_eval(rec, TREE511, algorithm=algorithm, jump_mode=jump_mode, block_m=8)
+    packed = ops.PackedTree(EncodedTree.from_arrays(*TREE511), 19, device="cpu")
+    got = ops.tree_eval(rec, packed, algorithm=algorithm, jump_mode=jump_mode, block_m=8, device="cpu")
+    assert_same(got, want, f"511/{algorithm}/{jump_mode}")
+
+
+@pytest.mark.parametrize("algorithm,jump_mode", MODES)
+def test_tree_eval_bf16_gives_f32_answer(algorithm, jump_mode):
+    base = np.random.default_rng(0).normal(size=(64, 19)).astype(np.float32)
+    jax_rec = jnp.asarray(base, dtype=jnp.bfloat16)
+    port_rec = torch.from_numpy(base).to(torch.bfloat16)
+    want = jax_ops.tree_eval(jax_rec, DEPTH6, algorithm=algorithm, jump_mode=jump_mode)
+    got = ops.tree_eval(port_rec, EncodedTree.from_arrays(*DEPTH6), algorithm=algorithm, jump_mode=jump_mode)
+    assert_same(got, want, "bf16")
+    f32 = np.asarray(jax_rec, np.float32)
+    assert_same(got, jax_tree_ref(jnp.asarray(f32), *map(jnp.asarray, DEPTH6), max_depth=6), "bf16 vs f32 ref")
+
+
+@pytest.mark.parametrize("algorithm,jump_mode", MODES)
+@pytest.mark.parametrize("m", [1, 7, 100])
+def test_forest_eval_fused_matches_jax(algorithm, jump_mode, m):
+    rec = adversarial_records(m, 19, seed=m + 1)
+    want = jax_ops.forest_eval_fused(rec, FOREST19, algorithm=algorithm, jump_mode=jump_mode)
+    got = ops.forest_eval_fused(rec, _port_forest(FOREST19), algorithm=algorithm,
+                                jump_mode=jump_mode, device="cpu")
+    assert got.dtype == torch.int32
+    assert_same(got, want, f"{algorithm}/{jump_mode}/M={m}")
+
+
+@pytest.mark.parametrize("algorithm,jump_mode", MODES)
+def test_forest_eval_fused_fixtures_match_jax(algorithm, jump_mode):
+    """The conformance forest (single leaf, phantom padding) with explicit block_m."""
+    want = jax_ops.forest_eval_fused(RECORDS, FOREST, algorithm=algorithm, jump_mode=jump_mode, block_m=16)
+    packed = ops.PackedForest(PORT_FOREST, RECORDS.shape[1], device="cpu")
+    got = ops.forest_eval_fused(cpu(RECORDS), packed, algorithm=algorithm, jump_mode=jump_mode, block_m=16)
+    assert_same(got, want, f"fixtures/{algorithm}/{jump_mode}")
+
+
+def test_forest_eval_stacks_tree_eval():
+    packed = [ops.PackedTree(enc, RECORDS.shape[1], device="cpu") for enc in PORT_TREES.values()]
+    got = ops.forest_eval(cpu(RECORDS), packed, algorithm="speculative")
+    for row, enc in zip(got, TREES.values()):
+        assert_same(row, jax_ops.tree_eval(RECORDS, enc, algorithm="speculative"), "forest_eval")
+
+
+# ---------------------------------------------------------------------------
+# registries
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("variant", sorted(ops.VARIANTS))
+def test_tree_variants_conform(variant):
+    spec = ops.get_variant(variant)
+    for name, enc in TREES.items():
+        depth = max(int(jax_ops.tree_depth(enc)), 1)
+        want = jax_tree_ref(jnp.asarray(RECORDS), *map(jnp.asarray, enc), max_depth=depth)
+        assert_same(spec.fn(cpu(RECORDS), PORT_TREES[name], max_depth=depth), want, f"{variant}/{name}")
+
+
+@pytest.mark.parametrize("variant", sorted(ops.FOREST_VARIANTS))
+def test_forest_variants_conform(variant):
+    spec = ops.get_forest_variant(variant)
+    depth = max(int(FOREST.max_depth), 1)
+    want = jax_forest_ref(jnp.asarray(RECORDS), *map(jnp.asarray, (
+        FOREST.attr_idx, FOREST.threshold, FOREST.child, FOREST.class_val)), max_depth=depth)
+    assert_same(spec.fn(cpu(RECORDS), PORT_FOREST, max_depth=depth), want, variant)
+
+
+def test_registries_mirror_jax_families():
+    assert {s.engine for s in ops.list_variants()} == {"cuda", "torch"}
+    assert [s.name for s in ops.list_variants(engine="cuda")] == [
+        "cuda_data_parallel", "cuda_speculative_gather", "cuda_speculative_onehot"]
+    assert len(ops.list_variants(algorithm="speculative")) == 4
+    assert {s.family for s in ops.list_forest_variants()} == {"fused", "batched"}
+    assert len(ops.list_forest_variants(engine="cuda", family="fused")) == 3
+    with pytest.raises(KeyError, match="unknown variant"):
+        ops.get_variant("pallas_speculative_gather")
+    with pytest.raises(KeyError, match="unknown forest variant"):
+        ops.get_forest_variant("forest_vmap_data_parallel")
+    with pytest.raises(ValueError, match="already registered"):
+        ops.register_variant(ops.get_variant("cuda_data_parallel"))
+    with pytest.raises(ValueError, match="already registered"):
+        ops.register_forest_variant(ops.get_forest_variant("forest_fused_data_parallel"))
+
+
+# ---------------------------------------------------------------------------
+# tile sizing, checks, build
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("algorithm,jump_mode", MODES)
+@pytest.mark.parametrize("n_nodes", [1, 31, 75, 511, 1023, 2047])
+def test_choose_block_m_fits_shared_memory(algorithm, jump_mode, n_nodes):
+    bm = ops.choose_block_m(n_nodes, 19, algorithm=algorithm, jump_mode=jump_mode)
+    assert bm >= 1 and bm & (bm - 1) == 0
+    assert K.smem_bytes(algorithm, bm, 19, n_nodes, jump_mode) <= K.SMEM_MAX
+    cap = ops.DATA_PARALLEL_BM_MAX if algorithm == "data_parallel" else ops.SPECULATIVE_BM_MAX
+    if bm < cap:   # the next larger tile must not fit the budget that was used
+        budget = ops.SMEM_TARGET if K.smem_bytes(algorithm, bm, 19, n_nodes, jump_mode) <= ops.SMEM_TARGET \
+            else K.SMEM_MAX
+        assert K.smem_bytes(algorithm, 2 * bm, 19, n_nodes, jump_mode) > budget
+
+
+def test_choose_block_m_raises_when_no_tile_fits():
+    with pytest.raises(ValueError, match="no speculative/onehot record tile fits"):
+        ops.choose_block_m(20_000, 19, algorithm="speculative", jump_mode="onehot")
+    with pytest.raises(ValueError, match="no data_parallel"):
+        ops.choose_block_m(100_000, 19, algorithm="data_parallel")
+
+
+@pytest.mark.parametrize("algorithm,jump_mode", MODES)
+def test_launch_shared_memory_is_the_checked_footprint(algorithm, jump_mode):
+    """The byte count handed to a launch is ``smem_bytes`` of a tile that fits."""
+    bm = ops.choose_block_m(511, 19, algorithm=algorithm, jump_mode=jump_mode)
+    assert K._tile_smem(algorithm, bm, 19, 511, jump_mode) == K.smem_bytes(algorithm, bm, 19, 511, jump_mode)
+    too_many = 1
+    while K.smem_bytes(algorithm, 1, 19, too_many, jump_mode) <= K.SMEM_MAX:
+        too_many *= 2
+    with pytest.raises(ValueError, match="B of shared memory"):
+        K._tile_smem(algorithm, 1, 19, too_many, jump_mode)
+    with pytest.raises(ValueError, match="not a valid"):
+        K._tile_smem(algorithm, 0, 19, 511, jump_mode)
+    with pytest.raises(ValueError, match="unknown jump_mode"):
+        K._tile_smem(algorithm, bm, 19, 511, "scan")
+
+
+def test_packing_rejects_out_of_range_indices():
+    enc = PORT_TREES["deep"]
+    with pytest.raises(ValueError, match="attr_idx outside"):
+        ops.PackedTree(enc, 3, device="cpu")
+    bad = enc._replace(child=enc.child.copy())
+    bad.child[0] = enc.n_nodes - 1          # internal node: right child off the end
+    with pytest.raises(ValueError, match="child index outside"):
+        ops.PackedTree(bad, 7, device="cpu")
+    with pytest.raises(ValueError, match="child index outside"):
+        ops.PackedForest(type("F", (), dict(vars(PORT_FOREST), child=PORT_FOREST.child - 1))(), 7, device="cpu")
+
+
+def test_wrappers_reject_bad_arguments():
+    enc = PORT_TREES["deep"]
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        ops.tree_eval(cpu(RECORDS), enc, algorithm="serial")
+    with pytest.raises(ValueError, match="unknown jump_mode"):
+        ops.forest_eval_fused(cpu(RECORDS), PORT_FOREST, jump_mode="scan")
+    with pytest.raises(ValueError, match="records must be"):
+        ops.tree_eval(cpu(RECORDS[:, :5]), ops.PackedTree(enc, 7, device="cpu"))
+
+
+def test_kernel_wrapper_never_falls_back_off_the_cpu():
+    """Only a CPU tensor takes the plain version; any other device is checked
+    for a kernel launch and refused here (a meta tensor stands in for one)."""
+    enc = PORT_TREES["deep"]
+    packed = ops.PackedTree(enc, 7, device="cpu")
+    rec = torch.empty((5, 7), device="meta")
+    args = (packed.attr_idx, packed.threshold, packed.child, packed.class_val)
+    with pytest.raises(ValueError, match="kernels take CPU or CUDA tensors"):
+        K.data_parallel(rec, *args, max_depth=3, block_m=32)
+    with pytest.raises(ValueError, match="kernels take CPU or CUDA tensors"):
+        K.speculative(rec, packed.attr_idx, packed.attr_select, *args[1:], total_jumps=3,
+                      jump_mode="gather", block_m=8)
+
+
+def test_cpu_wrappers_equal_plain_versions():
+    packed = ops.PackedForest(PORT_FOREST, 7, device="cpu")
+    rec = sanitize_records(cpu(RECORDS))
+    tabs = (packed.attr_idx, packed.attr_select, packed.threshold, packed.child, packed.class_val)
+    for mode in ("gather", "onehot"):
+        full = K.fused_speculative(rec, *tabs, total_jumps=3, jump_mode=mode, block_m=4)
+        assert_same(full, K.fused_speculative_plain(rec, *tabs, total_jumps=3, jump_mode=mode), mode)
+        for t in range(packed.n_trees):
+            one = K.speculative(rec, *(x[t] for x in tabs), total_jumps=3, jump_mode=mode, block_m=4)
+            assert_same(one, full[t], f"{mode} tree {t}")
+    dp_tabs = (packed.attr_idx, packed.threshold, packed.child, packed.class_val)
+    full = K.fused_data_parallel(rec, *dp_tabs, max_depth=packed.max_depth, block_m=32)
+    for t in range(packed.n_trees):
+        one = K.data_parallel(rec, *(x[t] for x in dp_tabs), max_depth=packed.max_depth, block_m=32)
+        assert_same(one, full[t], f"data_parallel tree {t}")
+    assert all(v == 0 for v in K.LAUNCHES.values())   # CPU tensors launch nothing
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "NVCC_FALLBACK", str(tmp_path / "missing-nvcc"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(K.SOURCE)
+    assert not (tmp_path / "build").exists()
+
+
+def test_failed_build_raises_and_leaves_no_library(monkeypatch, tmp_path):
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\necho 'error: refused' >&2\nexit 1\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="(?s)nvcc failed.*refused"):
+        _build.build(K.SOURCE)
+    assert list((tmp_path / "build").iterdir()) == []

@@ -1,0 +1,94 @@
+"""The port's slice as a whole against the JAX package, at small M on the CPU.
+
+The paper's pipeline: the segmentation twin, CART, the branchless encoding,
+then one tree (``ops.tree_eval``, three modes) and a bagged forest
+(``ops.forest_eval_fused``, three modes, then ``majority_vote``) — each stage
+fed the same numpy inputs in both packages and compared exactly.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+
+from repro.core import CartConfig as JaxCartConfig
+from repro.core import EncodedForest as JaxForest
+from repro.core import breadth_first_encode as jax_encode
+from repro.core import eval_serial as jax_eval_serial
+from repro.core import majority_vote as jax_majority_vote
+from repro.core import train_cart as jax_train_cart
+from repro.data.segmentation import make_segmentation as jax_make_segmentation
+from repro.data.segmentation import replicated_dataset as jax_replicated_dataset
+from repro.kernels.tree_eval import forest_eval_fused as jax_forest_eval_fused
+from repro.kernels.tree_eval import tree_eval as jax_tree_eval
+from repro_torch.core import (
+    CartConfig,
+    EncodedForest,
+    breadth_first_encode,
+    eval_serial,
+    majority_vote,
+    train_cart,
+)
+from repro_torch.data import make_segmentation, replicated_dataset
+from repro_torch.kernels.tree_eval import PackedForest, PackedTree, forest_eval_fused, tree_eval
+
+from torch_parity import assert_same
+
+MODES = [("speculative", "gather"), ("speculative", "onehot"), ("data_parallel", "gather")]
+M = 256
+N_TREES = 3
+PAPER_CART = dict(max_depth=12, min_samples_split=8, min_gain=4e-3)
+FOREST_CART = dict(max_depth=8, min_samples_split=16, min_gain=4e-3)
+
+
+@pytest.fixture(scope="module")
+def slice_inputs():
+    """Both packages' data, tree and bagged forest, built from the same seeds."""
+    data, jax_data = make_segmentation(0), jax_make_segmentation(0)
+    enc = breadth_first_encode(train_cart(data.x_train, data.y_train, 7, CartConfig(**PAPER_CART)))
+    jax_enc = jax_encode(jax_train_cart(jax_data.x_train, jax_data.y_train, 7, JaxCartConfig(**PAPER_CART)))
+    rng = np.random.default_rng(0)
+    trees, jax_trees = [], []
+    for _ in range(N_TREES):
+        idx = rng.integers(0, data.x_train.shape[0], data.x_train.shape[0])
+        trees.append(breadth_first_encode(train_cart(
+            data.x_train[idx], data.y_train[idx], 7, CartConfig(**FOREST_CART))))
+        jax_trees.append(jax_encode(jax_train_cart(
+            jax_data.x_train[idx], jax_data.y_train[idx], 7, JaxCartConfig(**FOREST_CART))))
+    rec, labels = replicated_dataset(data, M, seed=1)
+    jax_rec, _ = jax_replicated_dataset(jax_data, M, seed=1)
+    assert_same(rec, jax_rec, "records")
+    return dict(enc=enc, jax_enc=jax_enc, forest=EncodedForest(trees), jax_forest=JaxForest(jax_trees),
+                rec=rec, labels=labels)
+
+
+def test_slice_tree(slice_inputs):
+    s = slice_inputs
+    for field in ("attr_idx", "threshold", "child", "class_val"):
+        assert_same(getattr(s["enc"], field), getattr(s["jax_enc"], field), field)
+    want_serial = jax_eval_serial(s["jax_enc"], s["rec"])
+    assert_same(eval_serial(s["enc"], s["rec"]), want_serial, "eval_serial")
+    packed = PackedTree(s["enc"], 19, device="cpu")
+    for algorithm, jump_mode in MODES:
+        want = jax_tree_eval(s["rec"], s["jax_enc"], algorithm=algorithm, jump_mode=jump_mode)
+        got = tree_eval(s["rec"], packed, algorithm=algorithm, jump_mode=jump_mode, device="cpu")
+        assert_same(got, want, f"tree/{algorithm}/{jump_mode}")
+        assert_same(got, want_serial, f"tree/{algorithm}/{jump_mode} vs serial")
+    assert float((want_serial == s["labels"]).mean()) > 0.9
+
+
+def test_slice_forest_and_vote(slice_inputs):
+    s = slice_inputs
+    forest, jax_forest = s["forest"], s["jax_forest"]
+    assert (forest.n_trees, forest.n_nodes, forest.max_depth) == \
+        (jax_forest.n_trees, jax_forest.n_nodes, jax_forest.max_depth)
+    per_tree = np.stack([jax_eval_serial(jax_forest.tree(t), s["rec"]) for t in range(N_TREES)])
+    packed = PackedForest(forest, 19, device="cpu")
+    for algorithm, jump_mode in MODES:
+        want = jax_forest_eval_fused(s["rec"], jax_forest, algorithm=algorithm, jump_mode=jump_mode)
+        got = forest_eval_fused(s["rec"], packed, algorithm=algorithm, jump_mode=jump_mode, device="cpu")
+        assert_same(got, want, f"forest/{algorithm}/{jump_mode}")
+        assert_same(got, per_tree, f"forest/{algorithm}/{jump_mode} vs serial")
+        assert_same(majority_vote(got, 7), jax_majority_vote(jnp.asarray(want), 7), "vote")
