@@ -9,22 +9,35 @@ Phases, each printing its own lines:
    ``-Xptxas -v`` report;
 3. kernels against plain versions — K1 (gather, onehot), K2, K3 (gather,
    onehot) and K4 on adversarial records (ties, ±inf, NaN) and trees of depth
-   0–9 (one with N > 128), M ∈ {1, 7, 65,536}, compared with ``torch.equal``;
+   0–9 (one with N > 128), M ∈ {1, 7, 65,536}; K5 (gather, onehot) and K6 on
+   the same records and forest at C = 7 and at C = 3 (so that classes outside
+   [0, C) occur); all compared with ``torch.equal``;
 4. tree service — the paper's configuration: CART on the segmentation twin,
    five 256×256 images (65,536 records each) classified by ``ops.tree_eval``
    in all three modes, each equal to ``eval_serial``;
 5. forest service — a 16-tree bagged CART forest, the same images through
    ``ops.forest_eval_fused`` (all three modes) and ``majority_vote``, per-tree
    classes equal to stacked ``eval_serial``;
-6. timing — where one image's service time goes (host wall, device busy by
-   kernel); then each kernel on the main path's own tree, forest and image,
-   checked equal to its plain version there and timed (device time from the
-   profiler, record buffers rotated past the 50 MB L2), its plain version
-   (CUDA events), and its bound;
-7. the ``kernels`` JSON line, the card line, and the ``ok`` line.
+6. cascade — the same forest planned by ``plan_cascade`` (trees ranked by K4
+   on 512 records), then ``CascadeEvaluator`` (engine "cuda": K5/K6 stages,
+   on-device compaction) in all three modes, 2 and 3 stages, bounds None, 1.0
+   and 0.5, on the five images and a skewed 90/10 mix of image 0 with noise;
+   every result field equal to the host oracle ``cascade_ref_from_classes``
+   over the stacked ``eval_serial`` classes, classes equal to the majority
+   vote for the exact bounds, ``deadline_ms=0`` stopping after stage 0;
+   per-image latency beside ``forest_eval_fused`` + ``majority_vote``, timed
+   in turns, survivors per stage and mean trees evaluated;
+7. timing — where one image's service time goes (host wall, device busy by
+   kernel) on the tree, forest and cascade paths; then each kernel on the
+   main path's own tree, forest, cascade stage and image, checked equal to
+   its plain version there and timed (device time from the profiler, record
+   buffers rotated past the 50 MB L2), its plain version (CUDA events), and
+   its bound;
+8. the ``kernels`` JSON line, the card line, and the ``ok`` line.
 
-Kernel launches are counted from zero over phases 4–5 only.  Any mismatch,
-missing launch or exception exits non-zero.
+Kernel launches are counted from zero over phases 4–6 only, and every
+kernel must have launched there.  Any mismatch, missing launch or exception
+exits non-zero.
 """
 
 from __future__ import annotations
@@ -52,13 +65,23 @@ from repro_torch.core import (  # noqa: E402
     train_cart,
     tree_depth,
 )
+from repro_torch import obs  # noqa: E402
 from repro_torch.core.analysis import mean_traversal_depth, observed_depths  # noqa: E402
 from repro_torch.data import make_segmentation, replicated_dataset  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.tree_eval import kernel as K, ops  # noqa: E402
+from repro_torch.kernels.tree_eval import (  # noqa: E402
+    CascadeEvaluator,
+    cascade_ref_from_classes,
+    kernel as K,
+    ops,
+    plan_cascade,
+)
 
 N_ATTRS, N_CLASSES, M_IMAGE, N_IMAGES, N_TREES = 19, 7, 65_536, 5, 16
 MODES = (("speculative", "gather"), ("speculative", "onehot"), ("data_parallel", "gather"))
+CASCADE_STAGES = (2, 3)
+CASCADE_BOUNDS = (None, 1.0, 0.5)
+CASCADE_FIELDS = ("classes", "margin", "exit_stage", "trees_evaluated", "confidence")
 # H100 SXM peaks from NVIDIA's data sheet: HBM3 bytes/s, and
 # float32 outside the tensor cores, the unit the compares run on.
 PEAK_BYTES_PER_S = 3.35e12
@@ -145,6 +168,21 @@ def run_data_parallel(fused: bool, rec, tabs, block_m: int | None = None):
     return kernel(*args, max_depth=tabs.max_depth, block_m=block_m)
 
 
+def run_votes(algorithm: str, jump_mode: str, rec, tabs, n_classes: int, block_m: int | None = None):
+    """K5 (or K6 for data-parallel) on ``tabs``; its plain version when ``block_m`` is None."""
+    if algorithm == "speculative":
+        args = (rec, tabs.attr_idx, tabs.attr_select, tabs.threshold, tabs.child, tabs.class_val)
+        kw = dict(n_classes=n_classes, total_jumps=ops._total_jumps(tabs.max_depth), jump_mode=jump_mode)
+        if block_m is None:
+            return K.fused_votes_speculative_plain(*args, **kw)
+        return K.fused_votes_speculative(*args, block_m=block_m, **kw)
+    args = (rec, tabs.attr_idx, tabs.threshold, tabs.child, tabs.class_val)
+    kw = dict(n_classes=n_classes, max_depth=tabs.max_depth)
+    if block_m is None:
+        return K.fused_votes_data_parallel_plain(*args, **kw)
+    return K.fused_votes_data_parallel(*args, block_m=block_m, **kw)
+
+
 def kernel_vs_plain(fused: bool, algorithm: str, jump_mode: str, rec, tabs, block_m: int):
     """Run one kernel and its plain version on the same inputs; returns both."""
     if algorithm == "speculative":
@@ -158,7 +196,7 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
 
 
 def phase_kernels(dev) -> dict:
-    """K1–K4 against their plain versions; returns the largest error per kernel."""
+    """K1–K6 against their plain versions; returns the largest error per kernel."""
     errs: dict[str, int] = {}
     trees = fixture_trees()
     forest = ops.PackedForest(EncodedForest(trees), N_ATTRS, device=dev)
@@ -187,7 +225,18 @@ def phase_kernels(dev) -> dict:
                 torch.cuda.synchronize()
                 check(torch.equal(got, want), f"{fname} != plain at M={m}, block_m={block_m}")
                 errs[fname] = max(errs.get(fname, 0), max_abs_err(got, want))
-        print(f"[kernels] M={m}: K1 gather/onehot, K2, K3 gather/onehot, K4 equal to plain")
+            vname = votes_name(algorithm, jump_mode)
+            for c in (N_CLASSES, 3):
+                want = run_votes(algorithm, jump_mode, rec, forest, c)
+                bm = ops.choose_block_m(forest.n_nodes, N_ATTRS, algorithm=algorithm,
+                                        jump_mode=jump_mode, n_classes=c)
+                for block_m in sorted({bm, 1 if algorithm == "speculative" else 32}):
+                    got = run_votes(algorithm, jump_mode, rec, forest, c, block_m)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, want), f"{vname} != plain at M={m}, C={c}, block_m={block_m}")
+                    errs[vname] = max(errs.get(vname, 0), max_abs_err(got, want))
+        print(f"[kernels] M={m}: K1 gather/onehot, K2, K3 gather/onehot, K4, "
+              f"K5 gather/onehot and K6 (C = {N_CLASSES}, 3) equal to plain")
     return errs
 
 
@@ -200,6 +249,11 @@ def kernel_name(fused: bool, algorithm: str, jump_mode: str) -> str:
     """LAUNCHES key of the wrapper that serves (fused, algorithm, jump_mode)."""
     base = ("fused_" if fused else "") + algorithm
     return f"{base}/{jump_mode}" if algorithm == "speculative" else base
+
+
+def votes_name(algorithm: str, jump_mode: str) -> str:
+    """LAUNCHES key of the vote kernel (K5/K6) that serves (algorithm, jump_mode)."""
+    return "fused_votes_" + kernel_name(False, algorithm, jump_mode)
 
 
 def bagged_forest(data) -> EncodedForest:
@@ -229,9 +283,11 @@ def timed(fn):
 
 
 def phase_service(dev, images, labels, enc, forest):
+    """Returns the per-image latencies and each image's stacked ``eval_serial`` classes."""
     tree = ops.PackedTree(enc, N_ATTRS, device=dev)
     packed = ops.PackedForest(forest, N_ATTRS, device=dev)
     lat = {f"tree/{a}/{j}": [] for a, j in MODES} | {f"forest/{a}/{j}": [] for a, j in MODES}
+    per_trees = []
     for i, img in enumerate(images):
         want = eval_serial(enc, img)
         for algorithm, jump_mode in MODES:
@@ -241,6 +297,7 @@ def phase_service(dev, images, labels, enc, forest):
             lat[f"tree/{algorithm}/{jump_mode}"].append(ms)
         acc = float((want == labels[i]).mean())
         per_tree = np.stack([eval_serial(forest.tree(t), img) for t in range(forest.n_trees)])
+        per_trees.append(per_tree)
         want_vote = host_vote(per_tree)
         for algorithm, jump_mode in MODES:
             def classify():
@@ -254,11 +311,104 @@ def phase_service(dev, images, labels, enc, forest):
             lat[f"forest/{algorithm}/{jump_mode}"].append(ms)
         print(f"[service] image {i}: tree acc {acc:.4f}, forest vote acc "
               f"{float((want_vote == labels[i]).mean()):.4f}; classes equal eval_serial in all modes")
-    return lat
+    return lat, per_trees
 
 
 # ---------------------------------------------------------------------------
-# phase 6: timing at the main-path shapes
+# phase 6: the cascade
+# ---------------------------------------------------------------------------
+
+
+def skewed_mix(image: np.ndarray, seed: int = 1) -> np.ndarray:
+    """``image`` with 10% of its rows replaced by noise drawn from its
+    per-attribute mean and std — the 90/10 mix of the JAX package's cascade
+    bench (``benchmarks/cascade_sweep.py``)."""
+    m = image.shape[0]
+    rng = np.random.default_rng(seed)
+    hard = rng.normal(loc=image.mean(0), scale=image.std(0) + 1e-6, size=image.shape).astype(np.float32)
+    n_hard = m // 10
+    skew = image.copy()
+    skew[rng.permutation(m)[:n_hard]] = hard[:n_hard]
+    return skew
+
+
+def cascade_plan(dev, forest, calibration, stages: int, bound):
+    return plan_cascade(forest, calibration[:512], n_classes=N_CLASSES, stages=stages, bound=bound,
+                        device=dev)
+
+
+def cascade_evaluator(dev, forest, plan, bound, algorithm: str, jump_mode: str) -> CascadeEvaluator:
+    return CascadeEvaluator(forest, plan, n_classes=N_CLASSES, bound=bound, engine="cuda",
+                            algorithm=algorithm, jump_mode=jump_mode, device=dev)
+
+
+def phase_cascade(dev, inputs, per_trees, forest, card) -> None:
+    """Every cascade configuration on every input against the host oracle."""
+    names = [f"image {i}" for i in range(len(inputs) - 1)] + ["skewed 90/10"]
+    calibration = inputs[0]
+    for stages in CASCADE_STAGES:
+        for bound in CASCADE_BOUNDS:
+            plan = cascade_plan(dev, forest, calibration, stages, bound)
+            refs = [cascade_ref_from_classes(pt, order=plan.order, stage_sizes=plan.stage_sizes,
+                                             n_classes=N_CLASSES, bound=bound) for pt in per_trees]
+            survivors, trees = {}, {}
+            for algorithm, jump_mode in MODES:
+                ev = cascade_evaluator(dev, forest, plan, bound, algorithm, jump_mode)
+                for img, pt, ref, name in zip(inputs, per_trees, refs, names):
+                    res = ev(torch.from_numpy(img).to(dev))
+                    for field in CASCADE_FIELDS:
+                        check(np.array_equal(getattr(res, field).cpu().numpy(), getattr(ref, field)),
+                              f"cascade {algorithm}/{jump_mode} stages={stages} bound={bound}: "
+                              f"{field} != host reference on {name}")
+                    if bound in (None, 1.0):
+                        check(np.array_equal(res.classes.cpu().numpy(), host_vote(pt)),
+                              f"cascade bound={bound} classes != majority vote on {name}")
+                    survivors[name] = res.stage_survivors
+                    trees[name] = float(ref.trees_evaluated.mean())
+            print(f"[cascade] {card}: stages={stages} bound={bound} plan {plan.stage_sizes}: "
+                  f"3 modes x {len(inputs)} inputs equal the host reference; survivors per stage "
+                  f"{survivors[names[0]]} (image 0), {survivors[names[-1]]} (skewed); mean trees "
+                  f"evaluated {trees[names[0]]:.3f} (image 0), {trees[names[-1]]:.3f} (skewed), "
+                  f"{np.mean([trees[n] for n in names[:-1]]):.3f} (5 images)")
+    plan = cascade_plan(dev, forest, calibration, 2, None)
+    res = cascade_evaluator(dev, forest, plan, None, "speculative", "gather")(
+        torch.from_numpy(inputs[0]).to(dev), deadline_ms=0)
+    check(res.stages_run == 1, f"deadline_ms=0 ran {res.stages_run} stages, not 1")
+    print(f"[cascade] deadline_ms=0: stages_run {res.stages_run}, survivors {res.stage_survivors}")
+
+
+def phase_cascade_latency(dev, inputs, forest, card) -> None:
+    """Per-input latency of the cascade (2 stages, bound 1.0) and of the fused
+    forest + majority vote, timed in turns: forest, cascade, cascade, forest."""
+    packed = ops.PackedForest(forest, N_ATTRS, device=dev)
+    plan = cascade_plan(dev, forest, inputs[0], 2, 1.0)
+    for algorithm, jump_mode in MODES:
+        ev = cascade_evaluator(dev, forest, plan, 1.0, algorithm, jump_mode)
+
+        def cascade(img):
+            return ev(torch.from_numpy(img).to(dev)).classes.cpu()
+
+        def fused(img):
+            rec = torch.from_numpy(img).to(dev)
+            per_tree = ops.forest_eval_fused(rec, packed, algorithm=algorithm, jump_mode=jump_mode)
+            return majority_vote(per_tree, N_CLASSES).cpu()
+
+        cascade(inputs[0]), fused(inputs[0])                # warm up
+        calls = {"cascade": cascade, "fused": fused}
+        lat = {"cascade": [], "fused": []}
+        for img in inputs:
+            for label in ("fused", "cascade", "cascade", "fused"):
+                _, ms = timed(lambda: calls[label](img))
+                lat[label].append(ms)
+        c, f = np.array(lat["cascade"]).reshape(-1, 2), np.array(lat["fused"]).reshape(-1, 2)
+        print(f"[cascade] {card}: {algorithm}/{jump_mode} per-input ms (H2D + eval + D2H, host clock, "
+              f"in turns): cascade 2 stages bound 1.0 mean {c[:-1].mean():.3f} on the 5 images, "
+              f"{c[-1].mean():.3f} on the skewed mix; forest_eval_fused + majority_vote "
+              f"{f[:-1].mean():.3f} and {f[-1].mean():.3f}")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: timing at the main-path shapes
 # ---------------------------------------------------------------------------
 
 
@@ -299,17 +449,20 @@ def profiled_kernel_ms(fn, n_bufs: int, iters: int) -> tuple[float, int]:
     return sum(e.self_device_time_total for e in kernels) / 1e3 / count, count
 
 
-def bound(m: int, a: int, t: int, n: int, compares: int) -> tuple[float, str]:
+def bound(m: int, a: int, t: int, n: int, compares: int, out_bytes: int | None = None) -> tuple[float, str]:
     """Least time the card could take to classify ``m`` records by ``t`` trees.
 
     Every mode of one shape computes the same function, so each gets the same
     bound: read the records and the four per-node tables (attr_idx,
-    threshold, child, class_val) once, write the (t, m) classes once; and
-    make the ``compares`` this run's records need, one per level each
-    descends.  The speculative algorithm's extra node evaluations and the
-    one-hot form's FMAs are its own cost, not the function's.
+    threshold, child, class_val) once, write the output once — the (t, m)
+    classes, or ``out_bytes`` (the vote kernels' (m, C) counts); and make
+    the ``compares`` this run's records need, one per level each descends.
+    The speculative algorithm's extra node evaluations and the one-hot
+    form's FMAs are its own cost, not the function's.
     """
-    byte_ms = (m * a * 4 + t * n * 4 * 4 + t * m * 4) / PEAK_BYTES_PER_S * 1e3
+    if out_bytes is None:
+        out_bytes = t * m * 4
+    byte_ms = (m * a * 4 + t * n * 4 * 4 + out_bytes) / PEAK_BYTES_PER_S * 1e3
     op_ms = compares / PEAK_F32_OPS_PER_S * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
@@ -360,21 +513,64 @@ def phase_timing(dev, image, enc, forest, depth_sum_tree, depth_sum_forest, card
     return rows
 
 
-def phase_breakdown(dev, image, enc, forest, card) -> None:
+def phase_vote_timing(dev, image, forest, stage_trees, depth_sums, card):
+    """K5 and K6 at the cascade's first-stage shape and at the whole forest."""
+    rec = torch.from_numpy(image).to(dev)
+    n_bufs = L2_BYTES // rec.nbytes + 2
+    raw = [rec.clone() for _ in range(n_bufs)]
+    clean = [sanitize_records(r) for r in raw]
+    m, a = rec.shape
+    rows = []
+    for label, ids in (("first stage", stage_trees), ("whole forest", tuple(range(forest.n_trees)))):
+        # The cascade packs a stage with the whole forest's depth, as here.
+        tabs = ops.PackedForest(EncodedForest([forest.tree(i) for i in ids]), N_ATTRS,
+                                max_depth=forest.max_depth, device=dev)
+        t, n = tabs.n_trees, tabs.n_nodes
+        for algorithm, jump_mode in MODES:
+            bufs = clean if algorithm == "speculative" else raw
+            bm = ops.choose_block_m(n, a, algorithm=algorithm, jump_mode=jump_mode, n_classes=N_CLASSES)
+
+            def run(i, bm=bm, bufs=bufs, algorithm=algorithm, jump_mode=jump_mode):
+                return run_votes(algorithm, jump_mode, bufs[i], tabs, N_CLASSES, bm)
+
+            def plain(i, bufs=bufs, algorithm=algorithm, jump_mode=jump_mode):
+                return run_votes(algorithm, jump_mode, bufs[i], tabs, N_CLASSES)
+
+            name = votes_name(algorithm, jump_mode)
+            got, want = run(0), plain(0)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"{name} != plain on the {label} inputs")
+            ms, n_events = profiled_kernel_ms(run, n_bufs, iters=200)
+            plain_ms = event_ms(plain, n_bufs, iters=10, warmup=1)
+            bound_ms, bound_by = bound(m, a, t, n, sum(depth_sums[i] for i in ids), out_bytes=m * N_CLASSES * 4)
+            print(f"[timing] {card}: {name:32s} {label}: M={m} N={n} T={t} C={N_CLASSES} block_m={bm}: "
+                  f"kernel {ms:.4f} ms (profiler, {n_events} launches), plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.5f} ms ({bound_by}), kernel at {bound_ms / ms:.1%} of bound")
+            if label == "first stage":
+                rows.append(dict(name=name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                 max_abs_err=max_abs_err(got, want)))
+    return rows
+
+
+def phase_breakdown(dev, image, enc, forest, plan, card) -> None:
     """Where one image's service time goes: host wall vs device busy, by kernel.
 
-    One call each of the tree (K1 gather) and the forest (K3 gather + vote)
-    path, from numpy on the host to classes on the host, under the profiler
-    (which slows the host side; the device times stand).
+    One call each of the tree (K1 gather), the forest (K3 gather + vote) and
+    the cascade (2 stages of K5 gather, bound 1.0) path, from numpy on the
+    host to classes on the host, under the profiler (which slows the host
+    side; the device times stand).  For the cascade also the host ops that
+    cost most, and, from one call without the profiler, its own spans.
     """
     from torch.profiler import ProfilerActivity, profile
 
     tree = ops.PackedTree(enc, N_ATTRS, device=dev)
     packed = ops.PackedForest(forest, N_ATTRS, device=dev)
+    ev = cascade_evaluator(dev, forest, plan, 1.0, "speculative", "gather")
     calls = {
         "tree": lambda: ops.tree_eval(torch.from_numpy(image).to(dev), tree).cpu(),
         "forest": lambda: majority_vote(
             ops.forest_eval_fused(torch.from_numpy(image).to(dev), packed), N_CLASSES).cpu(),
+        "cascade": lambda: ev(torch.from_numpy(image).to(dev)).classes.cpu(),
     }
     for label, call in calls.items():
         timed(call)
@@ -386,6 +582,16 @@ def phase_breakdown(dev, image, enc, forest, card) -> None:
                           for e in sorted(events, key=lambda e: -e.self_device_time_total))
         print(f"[breakdown] {card}: {label} speculative/gather, one image: host wall {wall:.3f} ms, "
               f"device busy {busy:.4f} ms, idle share {1 - busy / wall:.1%}; {parts}")
+        if label == "cascade":
+            host = sorted((e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU),
+                          key=lambda e: -e.self_cpu_time_total)[:12]
+            print(f"[breakdown] {card}: cascade host ops by self CPU time: " + "; ".join(
+                f"{e.key} {e.self_cpu_time_total / 1e3:.4f} ms x{e.count}" for e in host))
+    ev.tracer = obs.Tracer()
+    _, wall = timed(calls["cascade"])
+    spans = "; ".join(f"{e.name}" + "".join(f" {k}={e.args[k]}" for k in ("stage", "phase") if k in e.args)
+                      + f" {e.dur_us / 1e3:.4f} ms" for e in ev.tracer.events())
+    print(f"[breakdown] {card}: cascade spans, one image without the profiler: host wall {wall:.3f} ms; {spans}")
 
 
 # ---------------------------------------------------------------------------
@@ -396,6 +602,8 @@ REPLACES = {
     "data_parallel": "src/repro/kernels/tree_eval/kernel.py:219",
     "fused_speculative": "src/repro/kernels/tree_eval/kernel.py:285",
     "fused_data_parallel": "src/repro/kernels/tree_eval/kernel.py:618",
+    "fused_votes_speculative": "src/repro/kernels/tree_eval/kernel.py:373",
+    "fused_votes_data_parallel": "src/repro/kernels/tree_eval/kernel.py:431",
 }
 
 
@@ -426,14 +634,23 @@ def main() -> None:
     pairs = [replicated_dataset(data, M_IMAGE, seed=i + 1) for i in range(N_IMAGES)]
     images, labels = [p[0] for p in pairs], [p[1] for p in pairs]
     depths = observed_depths(enc, images[0])
-    forest_depths = sum(int(observed_depths(forest.tree(t), images[0]).sum()) for t in range(forest.n_trees))
+    tree_depth_sums = [int(observed_depths(forest.tree(t), images[0]).sum()) for t in range(forest.n_trees)]
+    forest_depths = sum(tree_depth_sums)
     print(f"[setup] CART tree N={enc.n_nodes} depth={tree_depth(enc)} "
           f"d_mu={mean_traversal_depth(depths):.3f}; forest T={forest.n_trees} "
           f"N={forest.n_nodes} depth={forest.max_depth} "
           f"d_mu={forest_depths / (forest.n_trees * M_IMAGE):.3f} ({time.perf_counter() - t0:.1f} s on host)")
 
+    t0 = time.perf_counter()
+    mix = skewed_mix(images[0])
+    mix_per_tree = np.stack([eval_serial(forest.tree(t), mix) for t in range(forest.n_trees)])
+    print(f"[setup] skewed 90/10 mix of image 0 and its per-tree eval_serial classes "
+          f"({time.perf_counter() - t0:.1f} s on host)")
+
     K.reset_launches()
-    lat = phase_service(dev, images, labels, enc, forest)
+    lat, per_trees = phase_service(dev, images, labels, enc, forest)
+    phase_cascade(dev, images + [mix], per_trees + [mix_per_tree], forest, card)
+    phase_cascade_latency(dev, images + [mix], forest, card)
     launches = dict(K.LAUNCHES)
     print(f"[service] main-path launches: {launches}")
     for key, ms in lat.items():
@@ -443,8 +660,11 @@ def main() -> None:
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the main path")
 
-    phase_breakdown(dev, images[0], enc, forest, card)
+    plan = cascade_plan(dev, forest, images[0], 2, 1.0)
+    phase_breakdown(dev, images[0], enc, forest, plan, card)
     rows = phase_timing(dev, images[0], enc, forest, int(depths.sum()), forest_depths, card)
+    rows += phase_vote_timing(dev, images[0], forest, plan.stage_trees(0), tree_depth_sums, card)
+    check(len(rows) == len(K.LAUNCHES), f"timed {len(rows)} kernels, not {len(K.LAUNCHES)}")
     kernels = []
     for row in rows:
         wrapper = row["name"].split("/")[0]
@@ -459,7 +679,7 @@ def main() -> None:
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
-            "library_ms": None,   # no single PyTorch call evaluates a tree
+            "library_ms": None,   # no single PyTorch call evaluates a tree or a forest
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

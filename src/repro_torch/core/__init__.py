@@ -32,7 +32,15 @@ from repro_torch.core.eval_speculative import (
     speculative_node_eval,
 )
 from repro_torch.core.cart import CartConfig, accuracy, train_cart
-from repro_torch.core.forest import EncodedForest, eval_forest, majority_vote, route_topk
+from repro_torch.core.forest import (
+    EncodedForest,
+    eval_forest,
+    eval_forest_cascade,
+    majority_vote,
+    route_topk,
+    vote_counts,
+    vote_winner,
+)
 from repro_torch.core import analysis
 
 __all__ = [
@@ -66,7 +74,10 @@ __all__ = [
     "train_cart",
     "EncodedForest",
     "eval_forest",
+    "eval_forest_cascade",
     "majority_vote",
     "route_topk",
+    "vote_counts",
+    "vote_winner",
     "analysis",
 ]

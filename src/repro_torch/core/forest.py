@@ -88,20 +88,84 @@ def eval_forest(
     )
 
 
+def eval_forest_cascade(
+    forest: EncodedForest,
+    records,
+    *,
+    n_classes: int,
+    stages: int = 2,
+    bound: float | None = 1.0,
+    plan=None,
+    calibration=None,
+    engine: str | None = None,
+    deadline_ms: float | None = None,
+    registry=None,
+    tracer=None,
+    device=None,
+):
+    """Staged early-exit majority vote — the forest-scale dual of speculation.
+
+    Trees are evaluated in stages (most discriminative first); records whose
+    vote margin already exceeds ``bound`` times the remaining tree count exit
+    early, and the survivors are compacted on the device between stages.
+    With ``bound=None`` every tree runs and the classes equal
+    ``majority_vote`` of the whole forest; with ``bound=1.0`` the exits are
+    provably unable to change the answer, so the classes still match exactly
+    while easy records skip most of the forest.
+
+    Returns a :class:`repro_torch.kernels.tree_eval.CascadeResult` — classes
+    plus per-record margin, trees evaluated, exit stage and confidence.
+    """
+    from repro_torch.kernels.tree_eval import eval_cascade
+
+    return eval_cascade(
+        forest,
+        records,
+        n_classes=n_classes,
+        stages=stages,
+        bound=bound,
+        plan=plan,
+        calibration=calibration,
+        engine=engine,
+        deadline_ms=deadline_ms,
+        registry=registry,
+        tracer=tracer,
+        device=device,
+    )
+
+
+def vote_counts(per_tree: torch.Tensor, n_classes: int) -> torch.Tensor:
+    """(T, M) per-tree classes → (M, n_classes) int32 votes.
+
+    Classes outside ``[0, n_classes)`` cast no vote.
+    """
+    classes = torch.arange(n_classes, device=per_tree.device, dtype=per_tree.dtype)
+    return (per_tree[..., None] == classes).sum(0, dtype=torch.int32)
+
+
+def vote_winner(votes: torch.Tensor) -> torch.Tensor:
+    """(M, C) vote counts → (M,) int32 class with the most votes.
+
+    Ties go to the lowest class (as ``jnp.argmax`` and ``np.argmax`` pick the
+    first maximum).  The rule is built into the key — ``votes·C + (C-1-c)``
+    has one maximum per record — so it does not rest on how ``argmax``
+    breaks ties on a device.
+    """
+    c = votes.shape[-1]
+    classes = torch.arange(c, device=votes.device)
+    key = votes.long() * c + (c - 1 - classes)
+    return key.argmax(-1).to(torch.int32)
+
+
 def majority_vote(per_tree, n_classes: int, *, device=None) -> torch.Tensor:
     """(T, M) per-tree classes → (M,) majority class, int32.
 
-    Ties go to the lowest class (as ``jnp.argmax`` picks the first maximum).
-    The rule is built into the key — ``votes·C + (C-1-c)`` has one maximum
-    per record — so it does not rest on how ``argmax`` breaks ties on a
-    device.  Classes outside ``[0, n_classes)`` cast no vote.
+    Ties go to the lowest class (:func:`vote_winner`).  Classes outside
+    ``[0, n_classes)`` cast no vote.
     """
     dev = _device.resolve(per_tree, device)
     per_tree = _device.as_tensor(per_tree, torch.int64, dev)
-    classes = torch.arange(n_classes, device=dev)
-    votes = (per_tree[..., None] == classes).sum(0)           # (M, C)
-    key = votes * n_classes + (n_classes - 1 - classes)
-    return key.argmax(-1).to(torch.int32)
+    return vote_winner(vote_counts(per_tree, n_classes))
 
 
 def route_topk(per_tree: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,22 @@
-"""CUDA kernels K1–K4 for classification-tree evaluation, with their plain versions.
+"""CUDA kernels K1–K6 for classification-tree evaluation, with their plain versions.
 
 The kernels live in ``csrc/tree_eval.cu`` (see its header for the bound and
 the design); this module builds and loads that library at first launch and
 wraps each kernel:
 
-=====  =======================  ==============================================
- ID     wrapper                  replaces (``src/repro/kernels/tree_eval/kernel.py``)
-=====  =======================  ==============================================
- K1     ``speculative``          ``speculative_pallas`` (Procedure 4/5)
- K2     ``data_parallel``        ``data_parallel_pallas`` (Procedure 3)
- K3     ``fused_speculative``    ``fused_speculative_pallas`` (forest, one launch)
- K4     ``fused_data_parallel``  ``fused_data_parallel_pallas`` (forest, one launch)
-=====  =======================  ==============================================
+=====  =============================  ==============================================
+ ID     wrapper                        replaces (``src/repro/kernels/tree_eval/kernel.py``)
+=====  =============================  ==============================================
+ K1     ``speculative``                ``speculative_pallas`` (Procedure 4/5)
+ K2     ``data_parallel``              ``data_parallel_pallas`` (Procedure 3)
+ K3     ``fused_speculative``          ``fused_speculative_pallas`` (forest, one launch)
+ K4     ``fused_data_parallel``        ``fused_data_parallel_pallas`` (forest, one launch)
+ K5     ``fused_votes_speculative``    ``fused_votes_speculative_pallas`` (forest votes)
+ K6     ``fused_votes_data_parallel``  ``fused_votes_data_parallel_pallas`` (forest votes)
+=====  =============================  ==============================================
+
+K5/K6 return the forest's (M, C) int32 vote counts instead of the (T, M)
+per-tree classes; a class outside ``[0, C)`` casts no vote.
 
 A wrapper given CPU tensors returns its plain torch version (``*_plain``);
 given CUDA tensors it checks them, allocates the output, launches the kernel
@@ -33,6 +38,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.core.eval_speculative import pointer_jump, speculative_node_eval
+from repro_torch.core.forest import vote_counts
 from repro_torch.kernels import _build
 from repro_torch.kernels.tree_eval.ref import forest_eval_ref, tree_eval_ref
 
@@ -51,6 +57,9 @@ LAUNCHES = {
     "fused_speculative/gather": 0,
     "fused_speculative/onehot": 0,
     "fused_data_parallel": 0,
+    "fused_votes_speculative/gather": 0,
+    "fused_votes_speculative/onehot": 0,
+    "fused_votes_data_parallel": 0,
 }
 
 
@@ -60,18 +69,22 @@ def reset_launches() -> None:
 
 
 def smem_bytes(
-    algorithm: str, block_m: int, n_attrs: int, n_nodes: int, jump_mode: str = "gather"
+    algorithm: str, block_m: int, n_attrs: int, n_nodes: int, jump_mode: str = "gather",
+    n_classes: int = 0,
 ) -> int:
     """Dynamic shared memory of one CTA, in bytes.
 
     The one formula for it: the wrappers pass this count to the launch
     functions of ``csrc/tree_eval.cu``, whose kernels carve their record
-    tile, path buffers and tables out of it in this order.
+    tile, path buffers and tables out of it in this order, then the vote
+    kernels' (block_m, n_classes) int32 vote tile (``n_classes`` = 0 for the
+    class kernels).
     """
+    votes = block_m * n_classes
     if algorithm == "data_parallel":
-        return 4 * (block_m * n_attrs + 4 * n_nodes)
+        return 4 * (block_m * n_attrs + 4 * n_nodes + votes)
     select = n_attrs * n_nodes if jump_mode == "onehot" else n_nodes
-    return 4 * (block_m * n_attrs + 2 * block_m * n_nodes + 3 * n_nodes + select)
+    return 4 * (block_m * n_attrs + 2 * block_m * n_nodes + 3 * n_nodes + select + votes)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -80,6 +93,8 @@ _SIGNATURES = {
     "k2_data_parallel": [_P] * 6 + [_I] * 6 + [_P],
     "k3_fused_speculative": [_P] * 7 + [_I] * 8 + [_P],
     "k4_fused_data_parallel": [_P] * 6 + [_I] * 7 + [_P],
+    "k5_fused_votes_speculative": [_P] * 7 + [_I] * 9 + [_P],
+    "k6_fused_votes_data_parallel": [_P] * 6 + [_I] * 8 + [_P],
 }
 
 
@@ -95,7 +110,10 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(records: torch.Tensor, tables: dict, algorithm: str, block_m: int, jump_mode: str):
+def _check(
+    records: torch.Tensor, tables: dict, algorithm: str, block_m: int, jump_mode: str,
+    n_classes: int = 0,
+):
     """Validate what a kernel is handed; returns (M, A, N, shared-memory bytes)."""
     if records.device.type != "cuda":
         raise ValueError(f"kernels take CPU or CUDA tensors, got {records.device}")
@@ -114,20 +132,24 @@ def _check(records: torch.Tensor, tables: dict, algorithm: str, block_m: int, ju
                 f"{name} must be contiguous {dtype} {shape}, got {t.dtype} {tuple(t.shape)}"
             )
     n = tables["threshold"][2][-1]
-    return m, a, n, _tile_smem(algorithm, block_m, a, n, jump_mode)
+    return m, a, n, _tile_smem(algorithm, block_m, a, n, jump_mode, n_classes)
 
 
-def _tile_smem(algorithm: str, block_m: int, n_attrs: int, n_nodes: int, jump_mode: str) -> int:
+def _tile_smem(
+    algorithm: str, block_m: int, n_attrs: int, n_nodes: int, jump_mode: str, n_classes: int = 0
+) -> int:
     """Shared-memory bytes of a launchable tile; raises for a tile no CTA can hold."""
     if jump_mode not in JUMP_MODES:
         raise ValueError(f"unknown jump_mode {jump_mode!r}")
     if block_m < 1 or (algorithm == "data_parallel" and block_m > MAX_THREADS):
         raise ValueError(f"block_m={block_m} is not a valid {algorithm} tile")
-    need = smem_bytes(algorithm, block_m, n_attrs, n_nodes, jump_mode)
+    if n_classes < 0:
+        raise ValueError(f"n_classes={n_classes} is negative")
+    need = smem_bytes(algorithm, block_m, n_attrs, n_nodes, jump_mode, n_classes)
     if need > SMEM_MAX:
         raise ValueError(
             f"block_m={block_m} needs {need} B of shared memory for N={n_nodes}, "
-            f"A={n_attrs}; a CTA has {SMEM_MAX} B"
+            f"A={n_attrs}, C={n_classes}; a CTA has {SMEM_MAX} B"
         )
     return need
 
@@ -195,6 +217,28 @@ def data_parallel_plain(records, attr_idx, threshold, child, class_val, *, max_d
 def fused_data_parallel_plain(records, attr_idx, threshold, child, class_val, *, max_depth: int):
     """K4's function in plain torch: (T, N) tables → (T, M) int32."""
     return forest_eval_ref(records, attr_idx, threshold, child, class_val, max_depth=max_depth)
+
+
+def fused_votes_speculative_plain(
+    records, attr_idx, attr_select, threshold, child, class_val,
+    *, n_classes: int, total_jumps: int, jump_mode: str,
+) -> torch.Tensor:
+    """K5's function in plain torch: K3's classes summed one-hot, (M, C) int32."""
+    per_tree = fused_speculative_plain(
+        records, attr_idx, attr_select, threshold, child, class_val,
+        total_jumps=total_jumps, jump_mode=jump_mode,
+    )
+    return vote_counts(per_tree, n_classes)
+
+
+def fused_votes_data_parallel_plain(
+    records, attr_idx, threshold, child, class_val, *, n_classes: int, max_depth: int
+) -> torch.Tensor:
+    """K6's function in plain torch: K4's classes summed one-hot, (M, C) int32."""
+    per_tree = fused_data_parallel_plain(
+        records, attr_idx, threshold, child, class_val, max_depth=max_depth
+    )
+    return vote_counts(per_tree, n_classes)
 
 
 # ---------------------------------------------------------------------------
@@ -283,4 +327,50 @@ def fused_data_parallel(
             (records, attr_idx, threshold, child, class_val, out),
             (m, a, n, t, block_m, max_depth, smem),
         )
+    return out
+
+
+def fused_votes_speculative(
+    records, attr_idx, attr_select, threshold, child, class_val,
+    *, n_classes: int, total_jumps: int, jump_mode: str, block_m: int,
+) -> torch.Tensor:
+    """K5: K3 with the forest's votes tallied in the CTA. (M, n_classes) int32."""
+    if records.device.type == "cpu":
+        return fused_votes_speculative_plain(
+            records, attr_idx, attr_select, threshold, child, class_val,
+            n_classes=n_classes, total_jumps=total_jumps, jump_mode=jump_mode,
+        )
+    t = threshold.shape[0]
+    tables = _tables(attr_idx, threshold, child, class_val, (t,), attr_select, records.shape[-1])
+    m, a, n, smem = _check(records, tables, "speculative", block_m, jump_mode, n_classes)
+    if not (m and t and n_classes):
+        return torch.zeros((m, n_classes), dtype=torch.int32, device=records.device)
+    out = torch.empty((m, n_classes), dtype=torch.int32, device=records.device)
+    _launch(
+        "k5_fused_votes_speculative", f"fused_votes_speculative/{jump_mode}",
+        (records, attr_idx, attr_select, threshold, child, class_val, out),
+        (m, a, n, t, n_classes, block_m, total_jumps, int(jump_mode == "onehot"), smem),
+    )
+    return out
+
+
+def fused_votes_data_parallel(
+    records, attr_idx, threshold, child, class_val, *, n_classes: int, max_depth: int, block_m: int
+) -> torch.Tensor:
+    """K6: K4 with the forest's votes tallied in the CTA. (M, n_classes) int32."""
+    if records.device.type == "cpu":
+        return fused_votes_data_parallel_plain(
+            records, attr_idx, threshold, child, class_val, n_classes=n_classes, max_depth=max_depth
+        )
+    t = threshold.shape[0]
+    tables = _tables(attr_idx, threshold, child, class_val, (t,))
+    m, a, n, smem = _check(records, tables, "data_parallel", block_m, "gather", n_classes)
+    if not (m and t and n_classes):
+        return torch.zeros((m, n_classes), dtype=torch.int32, device=records.device)
+    out = torch.empty((m, n_classes), dtype=torch.int32, device=records.device)
+    _launch(
+        "k6_fused_votes_data_parallel", "fused_votes_data_parallel",
+        (records, attr_idx, threshold, child, class_val, out),
+        (m, a, n, t, n_classes, block_m, max_depth, smem),
+    )
     return out

@@ -35,25 +35,32 @@ ALGORITHMS = ("speculative", "data_parallel")
 
 
 def choose_block_m(
-    n_nodes: int, n_attrs: int, *, algorithm: str = "speculative", jump_mode: str = "gather"
+    n_nodes: int,
+    n_attrs: int,
+    *,
+    algorithm: str = "speculative",
+    jump_mode: str = "gather",
+    n_classes: int = 0,
 ) -> int:
     """Pick the record-tile height from the kernels' shared-memory footprint.
 
     The largest power of two up to the algorithm's cap whose tile fits in
     ``SMEM_TARGET``; failing that, in all a CTA may opt into (``SMEM_MAX``).
     The speculative footprint grows as ``block_m·N·8`` (two path buffers),
-    plus ``A·N·4`` for the one-hot form's ``attr_select``.
+    plus ``A·N·4`` for the one-hot form's ``attr_select``.  The vote
+    kernels (K5/K6) add their (block_m, C) int32 vote tile, ``block_m·C·4``:
+    pass ``n_classes`` for them, 0 for the class kernels.
     """
     top = DATA_PARALLEL_BM_MAX if algorithm == "data_parallel" else SPECULATIVE_BM_MAX
     for budget in (SMEM_TARGET, _k.SMEM_MAX):
         bm = top
         while bm >= 1:
-            if _k.smem_bytes(algorithm, bm, n_attrs, n_nodes, jump_mode) <= budget:
+            if _k.smem_bytes(algorithm, bm, n_attrs, n_nodes, jump_mode, n_classes) <= budget:
                 return bm
             bm //= 2
     raise ValueError(
-        f"no {algorithm}/{jump_mode} record tile fits N={n_nodes} nodes and "
-        f"A={n_attrs} attributes in {_k.SMEM_MAX} B of shared memory"
+        f"no {algorithm}/{jump_mode} record tile fits N={n_nodes} nodes, "
+        f"A={n_attrs} attributes and C={n_classes} classes in {_k.SMEM_MAX} B of shared memory"
     )
 
 
@@ -231,6 +238,54 @@ def forest_eval_fused(
         sanitize_records(records), forest.attr_idx, forest.attr_select, forest.threshold,
         forest.child, forest.class_val, total_jumps=_total_jumps(forest.max_depth),
         jump_mode=jump_mode, block_m=block_m,
+    )
+
+
+def forest_votes_fused(
+    records,
+    forest: "PackedForest | object",
+    *,
+    n_classes: int,
+    n_attrs: int | None = None,
+    algorithm: str = "speculative",
+    jump_mode: str = "gather",
+    block_m: int | None = None,
+    device=None,
+) -> torch.Tensor:
+    """Accumulate the forest's class votes in one fused CUDA launch (K5 or K6).
+
+    The per-tree classes stay inside the CTA: each tree adds its one-hot
+    vote into a (block_m, C) tile in shared memory, so the (T, M) class
+    matrix never reaches device memory.  This is the stage primitive of the
+    cascade evaluator.
+
+    Returns:
+      (M, n_classes) int32 vote counts (a class outside ``[0, n_classes)``
+      casts no vote); ``core.forest.vote_winner`` of it reproduces
+      ``majority_vote`` exactly.
+    """
+    _check_args(algorithm, jump_mode)
+    if not isinstance(forest, PackedForest):
+        if n_attrs is None:
+            n_attrs = int(np.shape(records)[-1])
+        forest = PackedForest(forest, n_attrs, device=_device.resolve(records, device))
+    records = _records(records, forest, forest.n_attrs, device)
+    n_classes = int(n_classes)
+    if block_m is None:
+        block_m = choose_block_m(
+            forest.n_nodes, forest.n_attrs, algorithm=algorithm, jump_mode=jump_mode,
+            n_classes=n_classes,
+        )
+    if algorithm == "data_parallel":
+        return _k.fused_votes_data_parallel(
+            records, forest.attr_idx, forest.threshold, forest.child, forest.class_val,
+            n_classes=n_classes, max_depth=forest.max_depth, block_m=block_m,
+        )
+    # Same records@S contract as forest_eval_fused (inf*0 = NaN).
+    return _k.fused_votes_speculative(
+        sanitize_records(records), forest.attr_idx, forest.attr_select, forest.threshold,
+        forest.child, forest.class_val, n_classes=n_classes,
+        total_jumps=_total_jumps(forest.max_depth), jump_mode=jump_mode, block_m=block_m,
     )
 
 

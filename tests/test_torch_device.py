@@ -18,7 +18,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import EncodedForest, Node, breadth_first_encode, random_tree, sanitize_records
+from repro_torch.core import (
+    EncodedForest,
+    Node,
+    breadth_first_encode,
+    majority_vote,
+    random_tree,
+    sanitize_records,
+    vote_winner,
+)
+from repro_torch.kernels.tree_eval import CascadeEvaluator, plan_cascade
 from repro_torch.kernels.tree_eval import kernel as K
 from repro_torch.kernels.tree_eval import ops
 from repro_torch.kernels.tree_eval.ref import forest_eval_ref, tree_eval_ref
@@ -138,6 +147,29 @@ def test_forest_kernels_equal_plain_on_card(cuda_device, m, block_m):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 7, 65_536])
+@pytest.mark.parametrize("block_m", [None, 1, 32])
+@pytest.mark.parametrize("n_classes", [7, 3])
+def test_vote_kernels_equal_plain_on_card(cuda_device, m, block_m, n_classes):
+    """K5/K6; at C = 3 the forest's classes 3..6 cast no vote."""
+    raw = torch.from_numpy(_records(m)).to(cuda_device)
+    clean = sanitize_records(raw)
+    forest = EncodedForest([_tree(d, seed=d, balance=0.7) for d in (0, 1, 3, 5, 8)])
+    packed = ops.PackedForest(forest, 19, device=cuda_device)
+    jumps = _jumps(packed.max_depth)
+    for mode, rec in (("gather", raw), ("onehot", clean)):
+        args = (rec, packed.attr_idx, packed.attr_select, packed.threshold, packed.child, packed.class_val)
+        bm = block_m or ops.choose_block_m(packed.n_nodes, 19, jump_mode=mode, n_classes=n_classes)
+        kw = dict(n_classes=n_classes, total_jumps=jumps, jump_mode=mode)
+        got = K.fused_votes_speculative(*args, block_m=bm, **kw)
+        assert torch.equal(got, K.fused_votes_speculative_plain(*args, **kw)), mode
+    args = (raw, packed.attr_idx, packed.threshold, packed.child, packed.class_val)
+    kw = dict(n_classes=n_classes, max_depth=packed.max_depth)
+    got = K.fused_votes_data_parallel(*args, block_m=block_m or 256, **kw)
+    assert torch.equal(got, K.fused_votes_data_parallel_plain(*args, **kw))
+
+
+@pytest.mark.gpu
 def test_ops_on_card_launch_each_kernel_once_and_match_ref(cuda_device):
     rec = _records(500, seed=9)
     enc = _tree(6, seed=2, balance=0.8)
@@ -145,6 +177,7 @@ def test_ops_on_card_launch_each_kernel_once_and_match_ref(cuda_device):
     want_tree = tree_eval_ref(rec, *enc, max_depth=6, device="cpu")
     want_forest = forest_eval_ref(rec, forest.attr_idx, forest.threshold, forest.child,
                                   forest.class_val, max_depth=forest.max_depth, device="cpu")
+    want_winner = majority_vote(want_forest, 7)
     K.reset_launches()
     for algorithm, jump_mode in MODES:
         got = ops.tree_eval(rec, enc, algorithm=algorithm, jump_mode=jump_mode)
@@ -152,7 +185,32 @@ def test_ops_on_card_launch_each_kernel_once_and_match_ref(cuda_device):
         assert torch.equal(got.cpu(), want_tree), (algorithm, jump_mode)
         got = ops.forest_eval_fused(rec, forest, algorithm=algorithm, jump_mode=jump_mode)
         assert torch.equal(got.cpu(), want_forest), (algorithm, jump_mode)
+        votes = ops.forest_votes_fused(rec, forest, n_classes=7, algorithm=algorithm, jump_mode=jump_mode)
+        assert votes.device.type == "cuda" and votes.shape == (500, 7)
+        assert torch.equal(vote_winner(votes).cpu(), want_winner), (algorithm, jump_mode)
     assert all(v == 1 for v in K.LAUNCHES.values()), K.LAUNCHES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm,jump_mode", MODES)
+def test_cascade_on_card_equals_cascade_on_cpu(cuda_device, algorithm, jump_mode):
+    rec = np.random.default_rng(4).normal(size=(3000, 19)).astype(np.float32)
+    forest = EncodedForest([_tree(2 + i % 5, seed=i, balance=0.7) for i in range(12)])
+    for stages, bound in ((2, 1.0), (3, 0.5), (3, None)):
+        plan = plan_cascade(forest, rec, n_classes=7, stages=stages, bound=bound, device=cuda_device)
+        assert plan == plan_cascade(forest, rec, n_classes=7, stages=stages, bound=bound, device="cpu")
+        kw = dict(n_classes=7, bound=bound, algorithm=algorithm, jump_mode=jump_mode)
+        card = CascadeEvaluator(forest, plan, device=cuda_device, **kw)
+        assert card.engine == "cuda"
+        K.reset_launches()
+        got = card(rec)
+        assert K.LAUNCHES[f"fused_votes_{algorithm}" + (f"/{jump_mode}" if algorithm == "speculative" else "")] \
+            == got.stages_run
+        want = CascadeEvaluator(forest, plan, device="cpu", engine="cuda", **kw)(rec)
+        for field in ("classes", "margin", "trees_evaluated", "exit_stage", "confidence"):
+            assert getattr(got, field).device.type == "cuda"
+            assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), (stages, bound, field)
+        assert (got.stages_run, got.stage_survivors) == (want.stages_run, want.stage_survivors)
 
 
 @pytest.mark.gpu

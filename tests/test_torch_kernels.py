@@ -171,14 +171,16 @@ def test_registries_mirror_jax_families():
 @pytest.mark.parametrize("algorithm,jump_mode", MODES)
 @pytest.mark.parametrize("n_nodes", [1, 31, 75, 511, 1023, 2047])
 def test_choose_block_m_fits_shared_memory(algorithm, jump_mode, n_nodes):
-    bm = ops.choose_block_m(n_nodes, 19, algorithm=algorithm, jump_mode=jump_mode)
-    assert bm >= 1 and bm & (bm - 1) == 0
-    assert K.smem_bytes(algorithm, bm, 19, n_nodes, jump_mode) <= K.SMEM_MAX
-    cap = ops.DATA_PARALLEL_BM_MAX if algorithm == "data_parallel" else ops.SPECULATIVE_BM_MAX
-    if bm < cap:   # the next larger tile must not fit the budget that was used
-        budget = ops.SMEM_TARGET if K.smem_bytes(algorithm, bm, 19, n_nodes, jump_mode) <= ops.SMEM_TARGET \
-            else K.SMEM_MAX
-        assert K.smem_bytes(algorithm, 2 * bm, 19, n_nodes, jump_mode) > budget
+    """For the class kernels (C = 0) and the vote kernels' tile (C = 7, 128)."""
+    for c in (0, 7, 128):
+        bm = ops.choose_block_m(n_nodes, 19, algorithm=algorithm, jump_mode=jump_mode, n_classes=c)
+        assert bm >= 1 and bm & (bm - 1) == 0
+        need = K.smem_bytes(algorithm, bm, 19, n_nodes, jump_mode, c)
+        assert need <= K.SMEM_MAX
+        cap = ops.DATA_PARALLEL_BM_MAX if algorithm == "data_parallel" else ops.SPECULATIVE_BM_MAX
+        if bm < cap:   # the next larger tile must not fit the budget that was used
+            budget = ops.SMEM_TARGET if need <= ops.SMEM_TARGET else K.SMEM_MAX
+            assert K.smem_bytes(algorithm, 2 * bm, 19, n_nodes, jump_mode, c) > budget
 
 
 def test_choose_block_m_raises_when_no_tile_fits():
@@ -193,6 +195,16 @@ def test_launch_shared_memory_is_the_checked_footprint(algorithm, jump_mode):
     """The byte count handed to a launch is ``smem_bytes`` of a tile that fits."""
     bm = ops.choose_block_m(511, 19, algorithm=algorithm, jump_mode=jump_mode)
     assert K._tile_smem(algorithm, bm, 19, 511, jump_mode) == K.smem_bytes(algorithm, bm, 19, 511, jump_mode)
+    # the vote kernels' (block_m, C) int32 tile is the one term C adds
+    for c in (1, 7, 128):
+        bm = ops.choose_block_m(511, 19, algorithm=algorithm, jump_mode=jump_mode, n_classes=c)
+        need = K._tile_smem(algorithm, bm, 19, 511, jump_mode, c)
+        assert need == K.smem_bytes(algorithm, bm, 19, 511, jump_mode, c)
+        assert need == K.smem_bytes(algorithm, bm, 19, 511, jump_mode) + 4 * bm * c
+    with pytest.raises(ValueError, match="C=60000"):
+        K._tile_smem(algorithm, 1, 19, 511, jump_mode, 60_000)
+    with pytest.raises(ValueError, match="negative"):
+        K._tile_smem(algorithm, 1, 19, 511, jump_mode, -1)
     too_many = 1
     while K.smem_bytes(algorithm, 1, 19, too_many, jump_mode) <= K.SMEM_MAX:
         too_many *= 2
@@ -238,6 +250,16 @@ def test_kernel_wrapper_never_falls_back_off_the_cpu():
     with pytest.raises(ValueError, match="kernels take CPU or CUDA tensors"):
         K.speculative(rec, packed.attr_idx, packed.attr_select, *args[1:], total_jumps=3,
                       jump_mode="gather", block_m=8)
+    forest = ops.PackedForest(PORT_FOREST, 7, device="cpu")
+    tabs = (forest.attr_idx, forest.threshold, forest.child, forest.class_val)
+    with pytest.raises(ValueError, match="kernels take CPU or CUDA tensors"):
+        K.fused_votes_data_parallel(rec, *tabs, n_classes=5, max_depth=3, block_m=32)
+    for mode in ("gather", "onehot"):
+        with pytest.raises(ValueError, match="kernels take CPU or CUDA tensors"):
+            K.fused_votes_speculative(rec, forest.attr_idx, forest.attr_select, *tabs[1:], n_classes=5,
+                                      total_jumps=3, jump_mode=mode, block_m=8)
+    with pytest.raises(ValueError, match="tables are on cpu"):
+        ops.forest_votes_fused(rec, forest, n_classes=5)
 
 
 def test_cpu_wrappers_equal_plain_versions():
@@ -256,6 +278,29 @@ def test_cpu_wrappers_equal_plain_versions():
         one = K.data_parallel(rec, *(x[t] for x in dp_tabs), max_depth=packed.max_depth, block_m=32)
         assert_same(one, full[t], f"data_parallel tree {t}")
     assert all(v == 0 for v in K.LAUNCHES.values())   # CPU tensors launch nothing
+
+
+@pytest.mark.parametrize("n_classes", [0, 1, 3, 5, 9])
+def test_cpu_vote_wrappers_equal_plain_versions(n_classes):
+    """K5/K6 on CPU tensors: their plain versions, the one-hot sum of K3/K4's
+    classes in which a class outside [0, C) casts no vote."""
+    packed = ops.PackedForest(PORT_FOREST, 7, device="cpu")
+    rec = sanitize_records(cpu(RECORDS))
+    tabs = (packed.attr_idx, packed.attr_select, packed.threshold, packed.child, packed.class_val)
+    dp_tabs = (packed.attr_idx, packed.threshold, packed.child, packed.class_val)
+    classes = torch.arange(max(n_classes, 1))
+    for mode in ("gather", "onehot"):
+        got = K.fused_votes_speculative(rec, *tabs, n_classes=n_classes, total_jumps=3, jump_mode=mode, block_m=4)
+        want = K.fused_votes_speculative_plain(rec, *tabs, n_classes=n_classes, total_jumps=3, jump_mode=mode)
+        assert got.shape == (rec.shape[0], n_classes) and got.dtype == torch.int32
+        assert_same(got, want, mode)
+        per_tree = K.fused_speculative(rec, *tabs, total_jumps=3, jump_mode=mode, block_m=4)
+        cast = ((per_tree[..., None] == classes) & (classes < n_classes)).sum(0)[:, :n_classes]
+        assert_same(got, cast, f"{mode} one-hot sum")
+    got = K.fused_votes_data_parallel(rec, *dp_tabs, n_classes=n_classes, max_depth=packed.max_depth, block_m=32)
+    assert_same(got, K.fused_votes_data_parallel_plain(rec, *dp_tabs, n_classes=n_classes,
+                                                       max_depth=packed.max_depth), "data_parallel")
+    assert all(v == 0 for v in K.LAUNCHES.values())
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

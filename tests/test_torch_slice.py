@@ -1,9 +1,11 @@
 """The port's slice as a whole against the JAX package, at small M on the CPU.
 
 The paper's pipeline: the segmentation twin, CART, the branchless encoding,
-then one tree (``ops.tree_eval``, three modes) and a bagged forest
-(``ops.forest_eval_fused``, three modes, then ``majority_vote``) — each stage
-fed the same numpy inputs in both packages and compared exactly.
+then one tree (``ops.tree_eval``, three modes), a bagged forest
+(``ops.forest_eval_fused``, three modes, then ``majority_vote``) and the
+early-exit cascade over that forest (``CascadeEvaluator``, three modes, on
+the records and on a 90/10 mix of them with noise) — each stage fed the same
+numpy inputs in both packages and compared exactly.
 """
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ from repro.core import majority_vote as jax_majority_vote
 from repro.core import train_cart as jax_train_cart
 from repro.data.segmentation import make_segmentation as jax_make_segmentation
 from repro.data.segmentation import replicated_dataset as jax_replicated_dataset
+from repro.kernels.tree_eval import CascadeEvaluator as JaxCascadeEvaluator
 from repro.kernels.tree_eval import forest_eval_fused as jax_forest_eval_fused
+from repro.kernels.tree_eval import plan_cascade as jax_plan_cascade
 from repro.kernels.tree_eval import tree_eval as jax_tree_eval
 from repro_torch.core import (
     CartConfig,
@@ -32,13 +36,20 @@ from repro_torch.core import (
     train_cart,
 )
 from repro_torch.data import make_segmentation, replicated_dataset
-from repro_torch.kernels.tree_eval import PackedForest, PackedTree, forest_eval_fused, tree_eval
+from repro_torch.kernels.tree_eval import (
+    CascadeEvaluator,
+    PackedForest,
+    PackedTree,
+    forest_eval_fused,
+    plan_cascade,
+    tree_eval,
+)
 
 from torch_parity import assert_same
 
 MODES = [("speculative", "gather"), ("speculative", "onehot"), ("data_parallel", "gather")]
 M = 256
-N_TREES = 3
+N_TREES = 5
 PAPER_CART = dict(max_depth=12, min_samples_split=8, min_gain=4e-3)
 FOREST_CART = dict(max_depth=8, min_samples_split=16, min_gain=4e-3)
 
@@ -92,3 +103,33 @@ def test_slice_forest_and_vote(slice_inputs):
         assert_same(got, want, f"forest/{algorithm}/{jump_mode}")
         assert_same(got, per_tree, f"forest/{algorithm}/{jump_mode} vs serial")
         assert_same(majority_vote(got, 7), jax_majority_vote(jnp.asarray(want), 7), "vote")
+
+
+@pytest.mark.parametrize("algorithm,jump_mode", MODES)
+def test_slice_cascade(slice_inputs, algorithm, jump_mode):
+    s = slice_inputs
+    forest, jax_forest, rec = s["forest"], s["jax_forest"], s["rec"]
+    rng = np.random.default_rng(1)               # the 90/10 mix of benchmarks/cascade_sweep.py
+    noise = rng.normal(loc=rec.mean(0), scale=rec.std(0) + 1e-6, size=rec.shape).astype(np.float32)
+    mix = rec.copy()
+    mix[rng.permutation(M)[: M // 10]] = noise[: M // 10]
+    per_tree = {
+        "records": np.stack([jax_eval_serial(jax_forest.tree(t), rec) for t in range(N_TREES)]),
+        "mix": np.stack([jax_eval_serial(jax_forest.tree(t), mix) for t in range(N_TREES)]),
+    }
+    for bound in (None, 1.0, 0.5):
+        plan = plan_cascade(forest, rec, n_classes=7, stages=2, bound=bound, device="cpu")
+        jax_plan = jax_plan_cascade(jax_forest, rec, n_classes=7, stages=2, bound=bound)
+        assert (plan.order, plan.stage_sizes) == (jax_plan.order, jax_plan.stage_sizes)
+        ev = CascadeEvaluator(forest, plan, n_classes=7, bound=bound, engine="cuda",
+                              algorithm=algorithm, jump_mode=jump_mode, device="cpu")
+        jax_ev = JaxCascadeEvaluator(jax_forest, jax_plan, n_classes=7, bound=bound, engine="jnp",
+                                     algorithm=algorithm, jump_mode=jump_mode)
+        for name, x in (("records", rec), ("mix", mix)):
+            got, want = ev(x), jax_ev(x)
+            for field in ("classes", "margin", "trees_evaluated", "exit_stage", "confidence"):
+                assert_same(getattr(got, field), getattr(want, field), f"{name}/{bound}/{field}")
+            assert got.stage_survivors == want.stage_survivors
+            if bound in (None, 1.0):
+                assert_same(got.classes, jax_majority_vote(jnp.asarray(per_tree[name]), 7),
+                            f"{name}/{bound} vs serial majority")
