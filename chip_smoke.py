@@ -11,13 +11,26 @@ Phases, each printing its own lines:
    onehot) and K4 on adversarial records (ties, ±inf, NaN) and trees of depth
    0–9 (one with N > 128), M ∈ {1, 7, 65,536}; K5 (gather, onehot) and K6 on
    the same records and forest at C = 7 and at C = 3 (so that classes outside
-   [0, C) occur); all compared with ``torch.equal``;
+   [0, C) occur); K7 and K8 on the same records, on the quantized layouts of
+   that forest (N 1,023, so ``child`` is int16 at least) and of its trees with
+   N ≤ 128 (int8 ``child``), in each threshold storage (bf16, f16, f32) and
+   every index width the tables fit in; all compared with ``torch.equal``;
 4. tree service — the paper's configuration: CART on the segmentation twin,
    five 256×256 images (65,536 records each) classified by ``ops.tree_eval``
    in all three modes, each equal to ``eval_serial``;
 5. forest service — a 16-tree bagged CART forest, the same images through
    ``ops.forest_eval_fused`` (all three modes) and ``majority_vote``, per-tree
    classes equal to stacked ``eval_serial``;
+5q. quantized forest service — the same forest in six quantized layouts
+   ((a) universal bf16 and f16, which store f32; (b) calibrated on the 4,409
+   train+test rows the images are tiled from, bf16 and f16, stored f32; (c)
+   its thresholds snapped to bf16, and to f16, then universal, which store
+   bf16 and f16), the same images through ``ops.forest_eval_fused_q`` (K7,
+   K8) and ``majority_vote``: per-tree classes equal to stacked
+   ``eval_serial`` of the forest each layout encodes (for (a) and (b) also of
+   the forest itself), votes equal to the host vote; each layout's bytes
+   beside ``PackedForest.nbytes``; per-image latency beside
+   ``forest_eval_fused``, timed in turns;
 6. cascade — the same forest planned by ``plan_cascade`` (trees ranked by K4
    on 512 records), then ``CascadeEvaluator`` (engine "cuda": K5/K6 stages,
    on-device compaction) in all three modes, 2 and 3 stages, bounds None, 1.0
@@ -32,20 +45,24 @@ Phases, each printing its own lines:
    main path's own tree, forest, cascade stage and image, checked equal to
    its plain version there and timed (device time from the profiler, record
    buffers rotated past the 50 MB L2), its plain version (CUDA events), and
-   its bound;
+   its bound; K7 and K8 in each threshold storage on the layouts of phase 5q
+   that store it, beside K3 gather and K4;
 8. the ``kernels`` JSON line, the card line, and the ``ok`` line.
 
-Kernel launches are counted from zero over phases 4–6 only, and every
-kernel must have launched there.  Any mismatch, missing launch or exception
+Kernel launches are counted from zero over phases 4–6 (5q included) only,
+and every kernel must have launched there.  Any mismatch, missing launch or exception
 exits non-zero.
 """
 
 from __future__ import annotations
 
 import json
+import multiprocessing
+import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -54,6 +71,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import (  # noqa: E402
+    BOTTOM,
     CartConfig,
     EncodedForest,
     Node,
@@ -71,17 +89,21 @@ from repro_torch.data import make_segmentation, replicated_dataset  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.tree_eval import (  # noqa: E402
     CascadeEvaluator,
+    QuantizedForest,
     cascade_ref_from_classes,
     kernel as K,
     ops,
     plan_cascade,
 )
+from repro_torch.kernels.tree_eval.quant import from_bits, to_bits  # noqa: E402
 
 N_ATTRS, N_CLASSES, M_IMAGE, N_IMAGES, N_TREES = 19, 7, 65_536, 5, 16
 MODES = (("speculative", "gather"), ("speculative", "onehot"), ("data_parallel", "gather"))
 CASCADE_STAGES = (2, 3)
 CASCADE_BOUNDS = (None, 1.0, 0.5)
 CASCADE_FIELDS = ("classes", "margin", "exit_stage", "trees_evaluated", "confidence")
+THR_STORAGES = ("bfloat16", "float16", "float32")
+INDEX_DTYPES = (torch.int8, torch.int16, torch.int32)
 # H100 SXM peaks from NVIDIA's data sheet: HBM3 bytes/s, and
 # float32 outside the tensor cores, the unit the compares run on.
 PEAK_BYTES_PER_S = 3.35e12
@@ -240,6 +262,87 @@ def phase_kernels(dev) -> dict:
     return errs
 
 
+def snapped(forest: EncodedForest, thr_dtype: str) -> EncodedForest:
+    """``forest`` with its split thresholds rounded to ``thr_dtype`` and back,
+    so that a universal quantized layout stores them narrow."""
+    thr = forest.threshold.copy()
+    split = forest.class_val == BOTTOM
+    thr[split] = from_bits(to_bits(thr[split], thr_dtype), thr_dtype)
+    return EncodedForest.from_arrays(forest.attr_idx, thr, forest.child, forest.class_val)
+
+
+def stored_as(forest: EncodedForest, storage: str, dev) -> QuantizedForest:
+    """A universal layout of ``forest`` whose thresholds are stored as ``storage``:
+    snapped to a narrow type, or left as they are (they then fall back to f32)."""
+    if storage == "float32":
+        q = QuantizedForest(forest, N_ATTRS, device=dev)
+    else:
+        q = QuantizedForest(snapped(forest, storage), N_ATTRS, thr_dtype=storage, device=dev)
+    check(q.thr_stored == storage, f"layout stores {q.thr_stored}, not {storage}")
+    return q
+
+
+def widths(table: torch.Tensor) -> list[torch.Tensor]:
+    """``table`` cast to every index dtype that holds its values."""
+    return [table.to(dt) for dt in INDEX_DTYPES if int(table.max()) <= torch.iinfo(dt).max]
+
+
+def quant_name(algorithm: str, storage: str) -> str:
+    """LAUNCHES key of K7/K8 for ``algorithm`` and a threshold storage."""
+    return f"fused_{algorithm}_q/{storage}"
+
+
+def run_quant(algorithm: str, rec, q, tables=None, block_m: int | None = None):
+    """K7 (speculative) or K8 on ``q``'s tables, or on ``tables`` (attr_idx,
+    child, class_val) cast to other widths; the plain version when ``block_m``
+    is None."""
+    attr, child, cls = tables or (q.attr_idx, q.child, q.class_val)
+    args = (rec, attr, q.threshold, child, cls)
+    if algorithm == "speculative":
+        kw = dict(total_jumps=ops._total_jumps(q.max_depth))
+        if block_m is None:
+            return K.fused_speculative_q_plain(*args, **kw)
+        return K.fused_speculative_q(*args, block_m=block_m, **kw)
+    kw = dict(max_depth=q.max_depth)
+    if block_m is None:
+        return K.fused_data_parallel_q_plain(*args, **kw)
+    return K.fused_data_parallel_q(*args, block_m=block_m, **kw)
+
+
+def phase_quant_kernels(dev) -> dict:
+    """K7/K8 against their plain versions in every storage and index width."""
+    errs: dict[str, int] = {}
+    trees = fixture_trees()
+    forests = {"N 1,023": EncodedForest(trees),
+               "N <= 128": EncodedForest([t for t in trees if t.n_nodes <= 128])}
+    layouts = [(label, stored_as(f, storage, dev)) for label, f in forests.items() for storage in THR_STORAGES]
+    for label, q in layouts[::3]:
+        print(f"[kernels] quantized fixture forest {label}: N = {q.n_nodes}, tables "
+              f"{ {k: v['dtype'] for k, v in q.bytes_report()['tables'].items()} } (narrowest)")
+    for m in (1, 7, M_IMAGE):
+        raw = torch.from_numpy(adversarial_records(m)).to(dev)
+        combos = 0
+        for label, q in layouts:
+            for algorithm in ops.ALGORITHMS:
+                name = quant_name(algorithm, q.thr_stored)
+                want = run_quant(algorithm, raw, q)
+                bm = ops.choose_block_m(q.n_nodes, N_ATTRS, algorithm=algorithm)
+                for attr in widths(q.attr_idx):
+                    for child in widths(q.child):
+                        for cls in widths(q.class_val):
+                            for block_m in sorted({bm, 1 if algorithm == "speculative" else 32}):
+                                got = run_quant(algorithm, raw, q, (attr, child, cls), block_m)
+                                torch.cuda.synchronize()
+                                check(torch.equal(got, want),
+                                      f"{name} != plain at M={m}, {label}, tables {attr.dtype}/"
+                                      f"{child.dtype}/{cls.dtype}, block_m={block_m}")
+                                errs[name] = max(errs.get(name, 0), max_abs_err(got, want))
+                                combos += 1
+        print(f"[kernels] M={m}: K7 and K8 equal to plain in {combos} launches "
+              f"(2 forests x 3 storages x index widths x 2 tiles)")
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # phases 4–5: the main path
 # ---------------------------------------------------------------------------
@@ -312,6 +415,113 @@ def phase_service(dev, images, labels, enc, forest):
         print(f"[service] image {i}: tree acc {acc:.4f}, forest vote acc "
               f"{float((want_vote == labels[i]).mean()):.4f}; classes equal eval_serial in all modes")
     return lat, per_trees
+
+
+# ---------------------------------------------------------------------------
+# phase 5q: the quantized forest service
+# ---------------------------------------------------------------------------
+
+
+def quant_layouts(forest: EncodedForest, rows: np.ndarray, dev) -> dict[str, QuantizedForest]:
+    layouts = {}
+    for thr_dtype in ("bfloat16", "float16"):
+        layouts[f"(a) universal {thr_dtype}"] = QuantizedForest(forest, N_ATTRS, thr_dtype=thr_dtype, device=dev)
+        layouts[f"(b) calibrated {thr_dtype}"] = QuantizedForest(
+            forest, N_ATTRS, thr_dtype=thr_dtype, calibration=rows, device=dev)
+        layouts[f"(c) snapped {thr_dtype}"] = stored_as(forest, thr_dtype, dev)
+    return layouts
+
+
+def host_tables(q: QuantizedForest) -> tuple[np.ndarray, ...]:
+    """The f32/int32 tables a quantized layout encodes, on the host."""
+    return (q.attr_idx.int().cpu().numpy(), q.threshold.float().cpu().numpy(),
+            q.child.int().cpu().numpy(), q.class_val.int().cpu().numpy())
+
+
+def serial_stack(job) -> np.ndarray:
+    """Stacked ``eval_serial`` classes of the forest ``tables`` on ``image``."""
+    tables, image = job
+    forest = EncodedForest.from_arrays(*tables)
+    return np.stack([eval_serial(forest.tree(t), image) for t in range(forest.n_trees)])
+
+
+def quant_oracle(layouts, forest, images, per_trees) -> dict[str, list[np.ndarray]]:
+    """Per layout and image, stacked ``eval_serial`` of the forest it encodes.
+
+    A layout whose tables are the forest's own reuses ``per_trees``; the
+    others are evaluated in worker processes (``eval_serial`` is a Python
+    loop, 0.5 s per tree and image), which the pool stops on exit.
+    """
+    own = (forest.attr_idx, forest.threshold, forest.child, forest.class_val)
+    tables = {name: host_tables(q) for name, q in layouts.items()}
+    todo = [name for name, t in tables.items() if not all(np.array_equal(a, b) for a, b in zip(t, own))]
+    jobs = [(tables[name], img) for name in todo for img in images]
+    workers = min(len(jobs), os.cpu_count() or 1) or 1
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        done = list(pool.map(serial_stack, jobs))
+    out = {name: list(per_trees) for name in tables}
+    for k, name in enumerate(todo):
+        out[name] = done[k * len(images):(k + 1) * len(images)]
+    return out
+
+
+def phase_quant_service(dev, images, forest, rows, per_trees, layouts) -> None:
+    packed = ops.PackedForest(forest, N_ATTRS, device=dev)
+    t0 = time.perf_counter()
+    oracle = quant_oracle(layouts, forest, images, per_trees)
+    print(f"[quant] stacked eval_serial of each layout's forest on {len(images)} images "
+          f"({time.perf_counter() - t0:.1f} s on host)")
+    for name, q in layouts.items():
+        r = q.bytes_report()
+        print(f"[quant] {name}: thr_stored {q.thr_stored}, fallback_nodes {q.fallback_nodes} of "
+              f"{int((forest.class_val == BOTTOM).sum())}, nbytes {q.nbytes} "
+              f"({packed.nbytes / q.nbytes:.1f}x smaller than PackedForest.nbytes {packed.nbytes}); "
+              f"{ {k: (v['dtype'], v['bytes']) for k, v in r['tables'].items()} }")
+        for i, img in enumerate(images):
+            want = oracle[name][i]
+            if name.startswith("(b)"):   # calibrated on every row the images are tiled from
+                check(np.array_equal(want, per_trees[i]), f"{name} changed the routing of image {i}")
+            for algorithm in ops.ALGORITHMS:
+                classes = ops.forest_eval_fused_q(torch.from_numpy(img).to(dev), q, algorithm=algorithm)
+                vote = majority_vote(classes, N_CLASSES).cpu().numpy()
+                check(np.array_equal(classes.cpu().numpy(), want),
+                      f"quantized {name} {algorithm} != stacked eval_serial, image {i}")
+                check(np.array_equal(vote, host_vote(want)), f"quantized {name} {algorithm}: vote differs, image {i}")
+    print(f"[quant] {len(layouts)} layouts x 2 algorithms x {len(images)} images: per-tree classes equal "
+          f"stacked eval_serial, votes equal the host vote")
+
+
+def timed_layouts(layouts) -> dict[str, QuantizedForest]:
+    """One layout per threshold storage: f32 from (a), bf16 and f16 from (c)."""
+    return {"float32": layouts["(a) universal bfloat16"], "bfloat16": layouts["(c) snapped bfloat16"],
+            "float16": layouts["(c) snapped float16"]}
+
+
+def phase_quant_latency(dev, images, forest, layouts, card) -> None:
+    """Per-image latency of ``forest_eval_fused_q`` + vote beside
+    ``forest_eval_fused`` (gather) + vote, in turns: fused, quant, quant, fused."""
+    packed = ops.PackedForest(forest, N_ATTRS, device=dev)
+    for algorithm in ops.ALGORITHMS:
+        for storage, q in timed_layouts(layouts).items():
+            def quant(img, q=q, algorithm=algorithm):
+                classes = ops.forest_eval_fused_q(torch.from_numpy(img).to(dev), q, algorithm=algorithm)
+                return majority_vote(classes, N_CLASSES).cpu()
+
+            def fused(img, algorithm=algorithm):
+                classes = ops.forest_eval_fused(torch.from_numpy(img).to(dev), packed, algorithm=algorithm)
+                return majority_vote(classes, N_CLASSES).cpu()
+
+            quant(images[0]), fused(images[0])               # warm up
+            calls = {"quant": quant, "fused": fused}
+            lat = {"quant": [], "fused": []}
+            for img in images:
+                for label in ("fused", "quant", "quant", "fused"):
+                    _, ms = timed(lambda: calls[label](img))
+                    lat[label].append(ms)
+            print(f"[quant] {card}: {algorithm} per-image ms (H2D + eval + vote + D2H, host clock, in turns, "
+                  f"{len(images)} images): forest_eval_fused_q ({storage} thresholds) mean "
+                  f"{np.mean(lat['quant']):.3f} min {min(lat['quant']):.3f}; forest_eval_fused mean "
+                  f"{np.mean(lat['fused']):.3f} min {min(lat['fused']):.3f}")
 
 
 # ---------------------------------------------------------------------------
@@ -449,7 +659,8 @@ def profiled_kernel_ms(fn, n_bufs: int, iters: int) -> tuple[float, int]:
     return sum(e.self_device_time_total for e in kernels) / 1e3 / count, count
 
 
-def bound(m: int, a: int, t: int, n: int, compares: int, out_bytes: int | None = None) -> tuple[float, str]:
+def bound(m: int, a: int, t: int, n: int, compares: int, out_bytes: int | None = None,
+          table_bytes: int | None = None) -> tuple[float, str]:
     """Least time the card could take to classify ``m`` records by ``t`` trees.
 
     Every mode of one shape computes the same function, so each gets the same
@@ -458,11 +669,14 @@ def bound(m: int, a: int, t: int, n: int, compares: int, out_bytes: int | None =
     classes, or ``out_bytes`` (the vote kernels' (m, C) counts); and make
     the ``compares`` this run's records need, one per level each descends.
     The speculative algorithm's extra node evaluations and the one-hot
-    form's FMAs are its own cost, not the function's.
+    form's FMAs are its own cost, not the function's.  ``table_bytes`` counts
+    the four tables at their stored widths (K7/K8); default 4 bytes a node each.
     """
     if out_bytes is None:
         out_bytes = t * m * 4
-    byte_ms = (m * a * 4 + t * n * 4 * 4 + out_bytes) / PEAK_BYTES_PER_S * 1e3
+    if table_bytes is None:
+        table_bytes = t * n * 4 * 4
+    byte_ms = (m * a * 4 + table_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
     op_ms = compares / PEAK_F32_OPS_PER_S * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
@@ -552,6 +766,45 @@ def phase_vote_timing(dev, image, forest, stage_trees, depth_sums, card):
     return rows
 
 
+def phase_quant_timing(dev, image, layouts, rows, card):
+    """K7 and K8 at the main-path shape in each threshold storage, beside
+    K3 gather and K4 (``rows``, timed on the same forest earlier in this run)."""
+    rec = torch.from_numpy(image).to(dev)
+    n_bufs = L2_BYTES // rec.nbytes + 2
+    raw = [rec.clone() for _ in range(n_bufs)]
+    m, a = rec.shape
+    beside = {r["name"]: r["ms"] for r in rows}
+    out = []
+    for storage, q in timed_layouts(layouts).items():
+        tree_depths = [int(observed_depths(EncodedForest.from_arrays(*host_tables(q)).tree(t), image).sum())
+                       for t in range(q.n_trees)]
+        table_bytes = sum(x.numel() * x.element_size() for x in (q.attr_idx, q.threshold, q.child, q.class_val))
+        for algorithm, yardstick in (("speculative", "fused_speculative/gather"),
+                                     ("data_parallel", "fused_data_parallel")):
+            bm = ops.choose_block_m(q.n_nodes, a, algorithm=algorithm)
+
+            def run(i, bm=bm, q=q, algorithm=algorithm):
+                return run_quant(algorithm, raw[i], q, block_m=bm)
+
+            def plain(i, q=q, algorithm=algorithm):
+                return run_quant(algorithm, raw[i], q)
+
+            name = quant_name(algorithm, storage)
+            got, want = run(0), plain(0)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"{name} != plain on the main-path inputs")
+            ms, n_events = profiled_kernel_ms(run, n_bufs, iters=200)
+            plain_ms = event_ms(plain, n_bufs, iters=10, warmup=1)
+            bound_ms, bound_by = bound(m, a, q.n_trees, q.n_nodes, sum(tree_depths), table_bytes=table_bytes)
+            print(f"[timing] {card}: {name:30s} M={m} N={q.n_nodes} T={q.n_trees} block_m={bm} "
+                  f"tables {table_bytes} B: kernel {ms:.4f} ms (profiler, {n_events} launches; "
+                  f"{yardstick} {beside[yardstick]:.4f} ms in this run), plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.5f} ms ({bound_by}), kernel at {bound_ms / ms:.1%} of bound")
+            out.append(dict(name=name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            max_abs_err=max_abs_err(got, want)))
+    return out
+
+
 def phase_breakdown(dev, image, enc, forest, plan, card) -> None:
     """Where one image's service time goes: host wall vs device busy, by kernel.
 
@@ -604,6 +857,8 @@ REPLACES = {
     "fused_data_parallel": "src/repro/kernels/tree_eval/kernel.py:618",
     "fused_votes_speculative": "src/repro/kernels/tree_eval/kernel.py:373",
     "fused_votes_data_parallel": "src/repro/kernels/tree_eval/kernel.py:431",
+    "fused_speculative_q": "src/repro/kernels/tree_eval/kernel.py:564",
+    "fused_data_parallel_q": "src/repro/kernels/tree_eval/kernel.py:581",
 }
 
 
@@ -624,6 +879,7 @@ def main() -> None:
             print(f"[build] {line.strip()}")
 
     errs = phase_kernels(dev)
+    errs |= phase_quant_kernels(dev)
 
     t0 = time.perf_counter()
     data = make_segmentation(seed=0)
@@ -631,6 +887,8 @@ def main() -> None:
         data.x_train, data.y_train, N_CLASSES,
         CartConfig(max_depth=12, min_samples_split=8, min_gain=4e-3)))
     forest = bagged_forest(data)
+    rows = np.concatenate([data.x_train, data.x_test])   # what the images are tiled from
+    layouts = quant_layouts(forest, rows, dev)
     pairs = [replicated_dataset(data, M_IMAGE, seed=i + 1) for i in range(N_IMAGES)]
     images, labels = [p[0] for p in pairs], [p[1] for p in pairs]
     depths = observed_depths(enc, images[0])
@@ -649,6 +907,8 @@ def main() -> None:
 
     K.reset_launches()
     lat, per_trees = phase_service(dev, images, labels, enc, forest)
+    phase_quant_service(dev, images, forest, rows, per_trees, layouts)
+    phase_quant_latency(dev, images, forest, layouts, card)
     phase_cascade(dev, images + [mix], per_trees + [mix_per_tree], forest, card)
     phase_cascade_latency(dev, images + [mix], forest, card)
     launches = dict(K.LAUNCHES)
@@ -662,11 +922,12 @@ def main() -> None:
 
     plan = cascade_plan(dev, forest, images[0], 2, 1.0)
     phase_breakdown(dev, images[0], enc, forest, plan, card)
-    rows = phase_timing(dev, images[0], enc, forest, int(depths.sum()), forest_depths, card)
-    rows += phase_vote_timing(dev, images[0], forest, plan.stage_trees(0), tree_depth_sums, card)
-    check(len(rows) == len(K.LAUNCHES), f"timed {len(rows)} kernels, not {len(K.LAUNCHES)}")
+    timings = phase_timing(dev, images[0], enc, forest, int(depths.sum()), forest_depths, card)
+    timings += phase_vote_timing(dev, images[0], forest, plan.stage_trees(0), tree_depth_sums, card)
+    timings += phase_quant_timing(dev, images[0], layouts, timings, card)
+    check(len(timings) == len(K.LAUNCHES), f"timed {len(timings)} kernels, not {len(K.LAUNCHES)}")
     kernels = []
-    for row in rows:
+    for row in timings:
         wrapper = row["name"].split("/")[0]
         kernels.append({
             "name": row["name"],

@@ -264,6 +264,21 @@ def validate_encoding(enc: EncodedTree) -> None:
         raise ValueError(f"nodes {bad + 1} do not have exactly one parent")
 
 
+def check_table_indices(attr_idx: np.ndarray, child: np.ndarray, class_val: np.ndarray, n_attrs: int):
+    """Every index the kernels follow must land inside its table.
+
+    The CUDA kernels index shared memory with ``attr_idx`` and ``child``
+    unchecked, so every packing of tables for them calls this first.
+    """
+    n = child.shape[-1]
+    child = np.asarray(child, np.int64)   # a narrow table's child + 1 must not wrap
+    if ((attr_idx < 0) | (attr_idx >= n_attrs)).any():
+        raise ValueError(f"attr_idx outside [0, {n_attrs})")
+    internal = class_val == BOTTOM
+    if ((child < 0) | (child + internal >= n)).any():
+        raise ValueError(f"child index outside the {n}-node table")
+
+
 # ---------------------------------------------------------------------------
 # Procedure-5 support tables
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-// Tree-evaluation kernels K1–K6 for Hopper (sm_90a), with a plain C interface
+// Tree-evaluation kernels K1–K8 for Hopper (sm_90a), with a plain C interface
 // that ``repro_torch/kernels/tree_eval/kernel.py`` loads through ctypes.
 //
 // Each kernel evaluates float32 records (M, A), row-major and contiguous,
@@ -6,7 +6,9 @@
 // threshold, child, class_val (and, for the one-hot form, attr_select
 // (A, N)).  K1/K2 write int32 classes (M,); the forest kernels take the same
 // tables stacked (T, N) / (T, A, N) and write per-tree classes (T, M) (K3/K4)
-// or the forest's int32 vote counts (M, C) (K5/K6).
+// or the forest's int32 vote counts (M, C) (K5/K6).  K7/K8 are K3 gather and
+// K4 on the quantized layout: the same (T, N) tables at their stored widths,
+// int8/int16/int32 indices and bf16/f16/f32 thresholds.
 //
 // Which TPU kernel each replaces (src/repro/kernels/tree_eval/kernel.py):
 //   K1 speculative_kernel              <- speculative_pallas / _speculative_compute
@@ -15,6 +17,9 @@
 //   K4 fused_data_parallel_kernel      <- fused_data_parallel_pallas
 //   K5 fused_votes_speculative_kernel  <- fused_votes_speculative_pallas (+ _accumulate_votes)
 //   K6 fused_votes_data_parallel_kernel <- fused_votes_data_parallel_pallas
+//   K7 fused_speculative_q_kernel<TT>   <- fused_speculative_q_pallas (_fused_q_pallas,
+//                                          _quant_speculative_compute)
+//   K8 fused_data_parallel_q_kernel<TT> <- fused_data_parallel_q_pallas
 //
 // Bound on this card.  The work is small integer and compare arithmetic over
 // data that is read once, so memory is the bound: at the paper shape
@@ -45,6 +50,19 @@
 // after the last tree the CTA writes the tile once, coalesced, as row-major
 // (M, C).  Each CTA owns its rows across all trees, so no atomics to device
 // memory are needed, and the (T, M) per-tree classes never reach it.
+//
+// The quantized kernels K7/K8.  Their tables are a few KB (4,192 B for the
+// paper's 16-tree forest in bf16), so they are bound by the same record and
+// class bytes as K3/K4 and narrowing them cannot move that bound.  They are
+// K3 gather's and K4's block functions with another table-loading policy
+// (``QuantTables``): each tree's tables are read from device memory at their
+// stored width, upcast in registers (sign extension; __half2float,
+// __bfloat162float, exact) and written to shared memory as int32/f32 once
+// per tree per CTA, so the inner loops are K3/K4's own.  No pass on the host
+// or the device widens the tables before the launch.  The threshold type is
+// a template parameter (three instantiations per kernel); the index widths
+// are runtime codes, read by a switch that is uniform across the CTA and
+// runs only while a tree is staged.
 
 // Shared memory.  The caller passes each launch's dynamic shared-memory bytes
 // (``smem``): kernel.py's ``smem_bytes`` is the one formula for the footprint
@@ -52,6 +70,8 @@
 // below, and the wrapper checks it against the card's limit before launching.
 // Nothing here computes a size of its own.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -98,6 +118,71 @@ struct VoteTally {
   }
 };
 
+// Table-loading policies of the block functions below.  ``stage`` copies
+// tree t's tables into shared memory as int32 attributes/children/classes
+// and f32 thresholds (and, for the one-hot form, f32 attr_select); the
+// caller synchronizes after it.
+
+// K1–K6: full-width tables, copied as they are.
+struct F32Tables {
+  const int* attr_idx;
+  const float* attr_select;
+  const float* threshold;
+  const int* child;
+  const int* class_val;
+  template <bool ONEHOT>
+  __device__ void stage(int t, int A, int N, int* s_attr, float* s_sel, float* s_thr,
+                        int* s_child, int* s_cls) const {
+    const long long tn = (long long)t * N;
+    if (ONEHOT) {
+      block_copy(s_sel, attr_select + tn * A, A * N);
+    } else {
+      block_copy(s_attr, attr_idx + tn, N);
+    }
+    block_copy(s_thr, threshold + tn, N);
+    block_copy(s_child, child + tn, N);
+    block_copy(s_cls, class_val + tn, N);
+  }
+};
+
+__device__ __forceinline__ float upcast(float x) { return x; }
+__device__ __forceinline__ float upcast(__half x) { return __half2float(x); }
+__device__ __forceinline__ float upcast(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Entry i of an index table stored ``bytes`` wide (1, 2 or 4), sign-extended.
+__device__ __forceinline__ int load_index(const void* table, int bytes, long long i) {
+  switch (bytes) {
+    case 1: return static_cast<const signed char*>(table)[i];
+    case 2: return static_cast<const short*>(table)[i];
+    default: return static_cast<const int*>(table)[i];
+  }
+}
+
+// K7/K8: the quantized layout, read at its stored widths and widened in
+// registers on the way into shared memory.
+template <typename TT>
+struct QuantTables {
+  const void* attr_idx;
+  const TT* threshold;
+  const void* child;
+  const void* class_val;
+  int attr_bytes;
+  int child_bytes;
+  int cls_bytes;
+  template <bool ONEHOT>
+  __device__ void stage(int t, int, int N, int* s_attr, float*, float* s_thr,
+                        int* s_child, int* s_cls) const {
+    static_assert(!ONEHOT, "the quantized layout has no attr_select");
+    const long long tn = (long long)t * N;
+    for (int i = threadIdx.x; i < N; i += blockDim.x) {
+      s_attr[i] = load_index(attr_idx, attr_bytes, tn + i);
+      s_thr[i] = upcast(threshold[tn + i]);
+      s_child[i] = load_index(child, child_bytes, tn + i);
+      s_cls[i] = load_index(class_val, cls_bytes, tn + i);
+    }
+  }
+};
+
 // Procedure 4/5 on one record tile and one tree held in shared memory.
 // Returns the buffer that holds the jumped paths; ends with a barrier.
 template <bool ONEHOT>
@@ -138,13 +223,8 @@ __device__ const int* speculative_tile(const float* rec, int rows, int A, int N,
 }
 
 // One CTA: record tile [m0, m0 + rows) against T trees, tile resident.
-template <bool ONEHOT, typename Out>
-__device__ void speculative_block(const float* __restrict__ records,
-                                  const int* __restrict__ attr_idx,
-                                  const float* __restrict__ attr_select,
-                                  const float* __restrict__ threshold,
-                                  const int* __restrict__ child,
-                                  const int* __restrict__ class_val,
+template <bool ONEHOT, typename Tables, typename Out>
+__device__ void speculative_block(const float* __restrict__ records, Tables tables,
                                   Out out, int M, int A, int N,
                                   int T, int bm, int jumps) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -162,15 +242,7 @@ __device__ void speculative_block(const float* __restrict__ records,
   out.begin(s_cls + N + (ONEHOT ? A * N : N), rows);
   block_copy(s_rec, records + m0 * A, rows * A);
   for (int t = 0; t < T; ++t) {
-    const long long tn = (long long)t * N;
-    if (ONEHOT) {
-      block_copy(s_sel, attr_select + tn * A, A * N);
-    } else {
-      block_copy(s_attr, attr_idx + tn, N);
-    }
-    block_copy(s_thr, threshold + tn, N);
-    block_copy(s_child, child + tn, N);
-    block_copy(s_cls, class_val + tn, N);
+    tables.template stage<ONEHOT>(t, A, N, s_attr, s_sel, s_thr, s_child, s_cls);
     __syncthreads();
     const int* p = speculative_tile<ONEHOT>(s_rec, rows, A, N, s_attr, s_sel,
                                             s_thr, s_child, s_p0, s_p1, jumps);
@@ -183,12 +255,8 @@ __device__ void speculative_block(const float* __restrict__ records,
 }
 
 // Procedure 3: one thread per record, max_depth dependent rounds.
-template <typename Out>
-__device__ void data_parallel_block(const float* __restrict__ records,
-                                    const int* __restrict__ attr_idx,
-                                    const float* __restrict__ threshold,
-                                    const int* __restrict__ child,
-                                    const int* __restrict__ class_val,
+template <typename Tables, typename Out>
+__device__ void data_parallel_block(const float* __restrict__ records, Tables tables,
                                     Out out, int M, int A, int N,
                                     int T, int bm, int max_depth) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -206,11 +274,7 @@ __device__ void data_parallel_block(const float* __restrict__ records,
   // Staged through shared memory so the row-major (M, A) reads coalesce.
   block_copy(s_rec, records + m0 * A, rows * A);
   for (int t = 0; t < T; ++t) {
-    const long long tn = (long long)t * N;
-    block_copy(s_attr, attr_idx + tn, N);
-    block_copy(s_thr, threshold + tn, N);
-    block_copy(s_child, child + tn, N);
-    block_copy(s_cls, class_val + tn, N);
+    tables.template stage<false>(t, A, N, s_attr, nullptr, s_thr, s_child, s_cls);
     __syncthreads();
     if (r < rows) {
       int idx = 0;
@@ -230,8 +294,9 @@ __global__ void __launch_bounds__(kSpecThreads)
 speculative_kernel(const float* records, const int* attr_idx, const float* attr_select,
                    const float* threshold, const int* child, const int* class_val,
                    int* out, int M, int A, int N, int bm, int jumps) {
-  speculative_block<ONEHOT>(records, attr_idx, attr_select, threshold, child,
-                            class_val, ClassStore{out, M}, M, A, N, 1, bm, jumps);
+  speculative_block<ONEHOT>(
+      records, F32Tables{attr_idx, attr_select, threshold, child, class_val},
+      ClassStore{out, M}, M, A, N, 1, bm, jumps);
 }
 
 // K3: the whole forest in one launch, the record tile resident across trees.
@@ -241,8 +306,9 @@ fused_speculative_kernel(const float* records, const int* attr_idx,
                          const float* attr_select, const float* threshold,
                          const int* child, const int* class_val, int* out,
                          int M, int A, int N, int T, int bm, int jumps) {
-  speculative_block<ONEHOT>(records, attr_idx, attr_select, threshold, child,
-                            class_val, ClassStore{out, M}, M, A, N, T, bm, jumps);
+  speculative_block<ONEHOT>(
+      records, F32Tables{attr_idx, attr_select, threshold, child, class_val},
+      ClassStore{out, M}, M, A, N, T, bm, jumps);
 }
 
 // K5: K3 with the forest's votes accumulated in shared memory, (M, C).
@@ -252,9 +318,9 @@ fused_votes_speculative_kernel(const float* records, const int* attr_idx,
                                const float* attr_select, const float* threshold,
                                const int* child, const int* class_val, int* out,
                                int M, int A, int N, int T, int C, int bm, int jumps) {
-  speculative_block<ONEHOT>(records, attr_idx, attr_select, threshold, child,
-                            class_val, VoteTally{out, C, nullptr}, M, A, N, T, bm,
-                            jumps);
+  speculative_block<ONEHOT>(
+      records, F32Tables{attr_idx, attr_select, threshold, child, class_val},
+      VoteTally{out, C, nullptr}, M, A, N, T, bm, jumps);
 }
 
 // K2: one tree.
@@ -262,7 +328,7 @@ __global__ void data_parallel_kernel(const float* records, const int* attr_idx,
                                      const float* threshold, const int* child,
                                      const int* class_val, int* out, int M, int A,
                                      int N, int bm, int max_depth) {
-  data_parallel_block(records, attr_idx, threshold, child, class_val,
+  data_parallel_block(records, F32Tables{attr_idx, nullptr, threshold, child, class_val},
                       ClassStore{out, M}, M, A, N, 1, bm, max_depth);
 }
 
@@ -271,7 +337,7 @@ __global__ void fused_data_parallel_kernel(const float* records, const int* attr
                                            const float* threshold, const int* child,
                                            const int* class_val, int* out, int M,
                                            int A, int N, int T, int bm, int max_depth) {
-  data_parallel_block(records, attr_idx, threshold, child, class_val,
+  data_parallel_block(records, F32Tables{attr_idx, nullptr, threshold, child, class_val},
                       ClassStore{out, M}, M, A, N, T, bm, max_depth);
 }
 
@@ -283,8 +349,24 @@ __global__ void fused_votes_data_parallel_kernel(const float* records,
                                                  const int* class_val, int* out,
                                                  int M, int A, int N, int T, int C,
                                                  int bm, int max_depth) {
-  data_parallel_block(records, attr_idx, threshold, child, class_val,
+  data_parallel_block(records, F32Tables{attr_idx, nullptr, threshold, child, class_val},
                       VoteTally{out, C, nullptr}, M, A, N, T, bm, max_depth);
+}
+
+// K7: K3 gather on the quantized layout.
+template <typename TT>
+__global__ void __launch_bounds__(kSpecThreads)
+fused_speculative_q_kernel(const float* records, QuantTables<TT> tables, int* out,
+                           int M, int A, int N, int T, int bm, int jumps) {
+  speculative_block<false>(records, tables, ClassStore{out, M}, M, A, N, T, bm, jumps);
+}
+
+// K8: K4 on the quantized layout.
+template <typename TT>
+__global__ void fused_data_parallel_q_kernel(const float* records, QuantTables<TT> tables,
+                                             int* out, int M, int A, int N, int T, int bm,
+                                             int max_depth) {
+  data_parallel_block(records, tables, ClassStore{out, M}, M, A, N, T, bm, max_depth);
 }
 
 template <typename... KArgs, typename... Args>
@@ -298,6 +380,55 @@ int launch(void (*kernel)(KArgs...), int M, int bm, int threads, int smem,
   const int grid = (M + bm - 1) / bm;
   kernel<<<grid, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// Threshold storage codes of kernel.py's THR_CODES.
+enum ThrCode { kThrF32 = 0, kThrF16 = 1, kThrBF16 = 2 };
+
+bool valid_index_bytes(int b) { return b == 1 || b == 2 || b == 4; }
+
+// K7 (SPEC) or K8 with the threshold type chosen by ``thr_code``.
+template <bool SPEC, typename TT>
+int launch_q(const float* records, const void* attr_idx, const void* threshold,
+             const void* child, const void* class_val, int* out, int M, int A, int N,
+             int T, int bm, int depth_arg, int attr_bytes, int child_bytes, int cls_bytes,
+             int smem, cudaStream_t stream) {
+  const QuantTables<TT> tables{attr_idx, static_cast<const TT*>(threshold), child,
+                               class_val, attr_bytes, child_bytes, cls_bytes};
+  if (SPEC) {
+    return launch(fused_speculative_q_kernel<TT>, M, bm, kSpecThreads, smem, stream,
+                  records, tables, out, M, A, N, T, bm, depth_arg);
+  }
+  return launch(fused_data_parallel_q_kernel<TT>, M, bm, bm, smem, stream, records,
+                tables, out, M, A, N, T, bm, depth_arg);
+}
+
+template <bool SPEC>
+int dispatch_q(const float* records, const void* attr_idx, const void* threshold,
+               const void* child, const void* class_val, int* out, int M, int A, int N,
+               int T, int bm, int depth_arg, int thr_code, int attr_bytes,
+               int child_bytes, int cls_bytes, int smem, void* stream) {
+  if (!valid_index_bytes(attr_bytes) || !valid_index_bytes(child_bytes) ||
+      !valid_index_bytes(cls_bytes)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (thr_code) {
+    case kThrF32:
+      return launch_q<SPEC, float>(records, attr_idx, threshold, child, class_val, out, M,
+                                   A, N, T, bm, depth_arg, attr_bytes, child_bytes,
+                                   cls_bytes, smem, s);
+    case kThrF16:
+      return launch_q<SPEC, __half>(records, attr_idx, threshold, child, class_val, out,
+                                    M, A, N, T, bm, depth_arg, attr_bytes, child_bytes,
+                                    cls_bytes, smem, s);
+    case kThrBF16:
+      return launch_q<SPEC, __nv_bfloat16>(records, attr_idx, threshold, child, class_val,
+                                           out, M, A, N, T, bm, depth_arg, attr_bytes,
+                                           child_bytes, cls_bytes, smem, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -376,6 +507,26 @@ int k6_fused_votes_data_parallel(const float* records, const int* attr_idx,
   return launch(fused_votes_data_parallel_kernel, M, bm, bm, smem,
                 static_cast<cudaStream_t>(stream), records, attr_idx, threshold,
                 child, class_val, out, M, A, N, T, C, bm, max_depth);
+}
+
+int k7_fused_speculative_q(const float* records, const void* attr_idx,
+                           const void* threshold, const void* child,
+                           const void* class_val, int* out, int M, int A, int N, int T,
+                           int bm, int jumps, int thr_code, int attr_bytes,
+                           int child_bytes, int cls_bytes, int smem, void* stream) {
+  return dispatch_q<true>(records, attr_idx, threshold, child, class_val, out, M, A, N, T,
+                          bm, jumps, thr_code, attr_bytes, child_bytes, cls_bytes, smem,
+                          stream);
+}
+
+int k8_fused_data_parallel_q(const float* records, const void* attr_idx,
+                             const void* threshold, const void* child,
+                             const void* class_val, int* out, int M, int A, int N,
+                             int T, int bm, int max_depth, int thr_code, int attr_bytes,
+                             int child_bytes, int cls_bytes, int smem, void* stream) {
+  return dispatch_q<false>(records, attr_idx, threshold, child, class_val, out, M, A, N,
+                           T, bm, max_depth, thr_code, attr_bytes, child_bytes, cls_bytes,
+                           smem, stream);
 }
 
 const char* tree_eval_error_string(int code) {

@@ -1,4 +1,4 @@
-"""CUDA kernels K1–K6 for classification-tree evaluation, with their plain versions.
+"""CUDA kernels K1–K8 for classification-tree evaluation, with their plain versions.
 
 The kernels live in ``csrc/tree_eval.cu`` (see its header for the bound and
 the design); this module builds and loads that library at first launch and
@@ -13,10 +13,15 @@ wraps each kernel:
  K4     ``fused_data_parallel``        ``fused_data_parallel_pallas`` (forest, one launch)
  K5     ``fused_votes_speculative``    ``fused_votes_speculative_pallas`` (forest votes)
  K6     ``fused_votes_data_parallel``  ``fused_votes_data_parallel_pallas`` (forest votes)
+ K7     ``fused_speculative_q``        ``fused_speculative_q_pallas`` (K3 gather, narrow tables)
+ K8     ``fused_data_parallel_q``      ``fused_data_parallel_q_pallas`` (K4, narrow tables)
 =====  =============================  ==============================================
 
 K5/K6 return the forest's (M, C) int32 vote counts instead of the (T, M)
-per-tree classes; a class outside ``[0, C)`` casts no vote.
+per-tree classes; a class outside ``[0, C)`` casts no vote.  K7/K8 read the
+quantized layout (``quant.QuantizedForest``) at its stored widths: int8,
+int16 or int32 ``attr_idx``/``child``/``class_val`` and bf16, f16 or f32
+thresholds, upcast as each tree's tables are staged into shared memory.
 
 A wrapper given CPU tensors returns its plain torch version (``*_plain``);
 given CUDA tensors it checks them, allocates the output, launches the kernel
@@ -26,7 +31,8 @@ no fallback: a failed build or launch raises.
 The speculative kernels' ``onehot`` form computes ``records @ attr_select``;
 it is exact only on records passed through
 ``core.eval_speculative.sanitize_records`` (``ops`` does so before every
-speculative launch, in both jump modes).
+speculative launch of K1/K3/K5, in both jump modes).  K7 only gathers, so it
+takes raw records, ±inf and NaN included, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -60,7 +66,17 @@ LAUNCHES = {
     "fused_votes_speculative/gather": 0,
     "fused_votes_speculative/onehot": 0,
     "fused_votes_data_parallel": 0,
+    "fused_speculative_q/bfloat16": 0,
+    "fused_speculative_q/float16": 0,
+    "fused_speculative_q/float32": 0,
+    "fused_data_parallel_q/bfloat16": 0,
+    "fused_data_parallel_q/float16": 0,
+    "fused_data_parallel_q/float32": 0,
 }
+
+# K7/K8's threshold storages: LAUNCHES suffix and the code the launch takes.
+THR_CODES = {torch.float32: ("float32", 0), torch.float16: ("float16", 1), torch.bfloat16: ("bfloat16", 2)}
+INDEX_DTYPES = (torch.int8, torch.int16, torch.int32)
 
 
 def reset_launches() -> None:
@@ -79,6 +95,11 @@ def smem_bytes(
     tile, path buffers and tables out of it in this order, then the vote
     kernels' (block_m, n_classes) int32 vote tile (``n_classes`` = 0 for the
     class kernels).
+
+    The quantized kernels K7/K8 take the ``gather`` footprint of K3/K4:
+    their narrow tables are widened to 4 bytes a node as they are staged
+    into shared memory (off the inner loop), so a node costs what it does
+    in K3 gather/K4 whatever its stored width.
     """
     votes = block_m * n_classes
     if algorithm == "data_parallel":
@@ -95,6 +116,8 @@ _SIGNATURES = {
     "k4_fused_data_parallel": [_P] * 6 + [_I] * 7 + [_P],
     "k5_fused_votes_speculative": [_P] * 7 + [_I] * 9 + [_P],
     "k6_fused_votes_data_parallel": [_P] * 6 + [_I] * 8 + [_P],
+    "k7_fused_speculative_q": [_P] * 6 + [_I] * 11 + [_P],
+    "k8_fused_data_parallel_q": [_P] * 6 + [_I] * 11 + [_P],
 }
 
 
@@ -124,12 +147,13 @@ def _check(
     m, a = records.shape
     if m > 2**31 - 1 - MAX_THREADS:
         raise ValueError(f"{m} records exceed one launch's int32 record count")
-    for name, (t, dtype, shape) in tables.items():
+    for name, (t, dtypes, shape) in tables.items():
         if t.device != records.device:
             raise ValueError(f"{name} is on {t.device}, records on {records.device}")
-        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+        if t.dtype not in dtypes or tuple(t.shape) != shape or not t.is_contiguous():
+            want = " or ".join(str(d) for d in dtypes)
             raise ValueError(
-                f"{name} must be contiguous {dtype} {shape}, got {t.dtype} {tuple(t.shape)}"
+                f"{name} must be contiguous {want} {shape}, got {t.dtype} {tuple(t.shape)}"
             )
     n = tables["threshold"][2][-1]
     return m, a, n, _tile_smem(algorithm, block_m, a, n, jump_mode, n_classes)
@@ -167,17 +191,28 @@ def _launch(c_name: str, counter: str, tensors, ints) -> None:
 
 
 def _tables(attr_idx, threshold, child, class_val, lead, attr_select=None, n_attrs=0):
-    """What ``_check`` expects of each table: (tensor, dtype, shape)."""
+    """What ``_check`` expects of each table: (tensor, allowed dtypes, shape)."""
     n = threshold.shape[-1]
     tables = {
-        "attr_idx": (attr_idx, torch.int32, lead + (n,)),
-        "threshold": (threshold, torch.float32, lead + (n,)),
-        "child": (child, torch.int32, lead + (n,)),
-        "class_val": (class_val, torch.int32, lead + (n,)),
+        "attr_idx": (attr_idx, (torch.int32,), lead + (n,)),
+        "threshold": (threshold, (torch.float32,), lead + (n,)),
+        "child": (child, (torch.int32,), lead + (n,)),
+        "class_val": (class_val, (torch.int32,), lead + (n,)),
     }
     if attr_select is not None:
-        tables["attr_select"] = (attr_select, torch.float32, lead + (n_attrs, n))
+        tables["attr_select"] = (attr_select, (torch.float32,), lead + (n_attrs, n))
     return tables
+
+
+def _q_tables(attr_idx, threshold, child, class_val):
+    """What ``_check`` expects of K7/K8's (T, N) tables, at any stored width."""
+    shape = tuple(threshold.shape)
+    return {
+        "attr_idx": (attr_idx, INDEX_DTYPES, shape),
+        "threshold": (threshold, tuple(THR_CODES), shape),
+        "child": (child, INDEX_DTYPES, shape),
+        "class_val": (class_val, INDEX_DTYPES, shape),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -239,6 +274,25 @@ def fused_votes_data_parallel_plain(
         records, attr_idx, threshold, child, class_val, max_depth=max_depth
     )
     return vote_counts(per_tree, n_classes)
+
+
+def fused_speculative_q_plain(
+    records, attr_idx, threshold, child, class_val, *, total_jumps: int
+) -> torch.Tensor:
+    """K7's function in plain torch: upcast the narrow tables, then K3 gather's."""
+    return fused_speculative_plain(
+        records, attr_idx.int(), None, threshold.float(), child.int(), class_val.int(),
+        total_jumps=total_jumps, jump_mode="gather",
+    )
+
+
+def fused_data_parallel_q_plain(
+    records, attr_idx, threshold, child, class_val, *, max_depth: int
+) -> torch.Tensor:
+    """K8's function in plain torch: upcast the narrow tables, then K4's descent."""
+    return fused_data_parallel_plain(
+        records, attr_idx.int(), threshold.float(), child.int(), class_val.int(), max_depth=max_depth
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -374,3 +428,45 @@ def fused_votes_data_parallel(
         (m, a, n, t, n_classes, block_m, max_depth, smem),
     )
     return out
+
+
+def _launch_q(c_name: str, counter: str, records, attr_idx, threshold, child, class_val,
+              algorithm: str, block_m: int, depth_arg: int) -> torch.Tensor:
+    """Check and launch K7 or K8; ``depth_arg`` is K7's jumps or K8's depth."""
+    tables = _q_tables(attr_idx, threshold, child, class_val)
+    m, a, n, smem = _check(records, tables, algorithm, block_m, "gather")
+    t = threshold.shape[0]
+    out = torch.empty((t, m), dtype=torch.int32, device=records.device)
+    if m and t:
+        storage, code = THR_CODES[threshold.dtype]
+        _launch(
+            c_name, f"{counter}/{storage}",
+            (records, attr_idx, threshold, child, class_val, out),
+            (m, a, n, t, block_m, depth_arg, code, attr_idx.element_size(),
+             child.element_size(), class_val.element_size(), smem),
+        )
+    return out
+
+
+def fused_speculative_q(
+    records, attr_idx, threshold, child, class_val, *, total_jumps: int, block_m: int
+) -> torch.Tensor:
+    """K7: K3 gather on narrow (T, N) tables, read at their stored widths. (T, M) int32."""
+    if records.device.type == "cpu":
+        return fused_speculative_q_plain(
+            records, attr_idx, threshold, child, class_val, total_jumps=total_jumps
+        )
+    return _launch_q("k7_fused_speculative_q", "fused_speculative_q", records, attr_idx,
+                     threshold, child, class_val, "speculative", block_m, total_jumps)
+
+
+def fused_data_parallel_q(
+    records, attr_idx, threshold, child, class_val, *, max_depth: int, block_m: int
+) -> torch.Tensor:
+    """K8: K4 on narrow (T, N) tables, read at their stored widths. (T, M) int32."""
+    if records.device.type == "cpu":
+        return fused_data_parallel_q_plain(
+            records, attr_idx, threshold, child, class_val, max_depth=max_depth
+        )
+    return _launch_q("k8_fused_data_parallel_q", "fused_data_parallel_q", records, attr_idx,
+                     threshold, child, class_val, "data_parallel", block_m, max_depth)

@@ -1,7 +1,8 @@
 """Public wrappers for the tree-evaluation CUDA kernels.
 
 Handle what the raw kernels assume away: moving the host-side encodings to
-the device once (``PackedTree`` / ``PackedForest``), checking that every
+the device once (``PackedTree`` / ``PackedForest``, or the narrow tables of
+``quant.QuantizedForest``), checking that every
 table index stays inside its table (the kernels index shared memory with
 them), record upcast and sanitizing, and sizing the record tile from the
 kernels' shared-memory footprint.  The kernels mask the ragged record edge
@@ -24,8 +25,9 @@ from repro_torch.core.eval_speculative import (
     eval_speculative_tree,
     sanitize_records,
 )
-from repro_torch.core.tree import BOTTOM, EncodedTree, attr_select_matrix, tree_depth
+from repro_torch.core.tree import EncodedTree, attr_select_matrix, check_table_indices, tree_depth
 from repro_torch.kernels.tree_eval import kernel as _k
+from repro_torch.kernels.tree_eval.quant import QuantizedForest, packed_forest_nbytes
 
 SMEM_TARGET = 48 * 1024   # a tile this small needs no opt-in and leaves room
                           # for several CTAs on one SM
@@ -49,7 +51,9 @@ def choose_block_m(
     The speculative footprint grows as ``block_m·N·8`` (two path buffers),
     plus ``A·N·4`` for the one-hot form's ``attr_select``.  The vote
     kernels (K5/K6) add their (block_m, C) int32 vote tile, ``block_m·C·4``:
-    pass ``n_classes`` for them, 0 for the class kernels.
+    pass ``n_classes`` for them, 0 for the class kernels.  The quantized
+    kernels (K7/K8) widen their tables as they stage them, so their tile is
+    sized as the ``gather`` form's.
     """
     top = DATA_PARALLEL_BM_MAX if algorithm == "data_parallel" else SPECULATIVE_BM_MAX
     for budget in (SMEM_TARGET, _k.SMEM_MAX):
@@ -69,16 +73,6 @@ def _check_args(algorithm: str, jump_mode: str) -> None:
         raise ValueError(f"unknown algorithm {algorithm!r}")
     if jump_mode not in _k.JUMP_MODES:
         raise ValueError(f"unknown jump_mode {jump_mode!r}")
-
-
-def _check_indices(attr_idx: np.ndarray, child: np.ndarray, class_val: np.ndarray, n_attrs: int):
-    """Every index the kernels follow must land inside its table."""
-    n = child.shape[-1]
-    if ((attr_idx < 0) | (attr_idx >= n_attrs)).any():
-        raise ValueError(f"attr_idx outside [0, {n_attrs})")
-    internal = class_val == BOTTOM
-    if ((child < 0) | (child + internal >= n)).any():
-        raise ValueError(f"child index outside the {n}-node table")
 
 
 def _total_jumps(max_depth: int) -> int:
@@ -101,7 +95,7 @@ class PackedTree:
     """
 
     def __init__(self, enc: EncodedTree, n_attrs: int, *, max_depth: int | None = None, device=None):
-        _check_indices(enc.attr_idx, enc.child, enc.class_val, n_attrs)
+        check_table_indices(enc.attr_idx, enc.child, enc.class_val, n_attrs)
         dev = _device.resolve(None, device)
         self.n_nodes = enc.n_nodes
         self.n_attrs = n_attrs
@@ -180,7 +174,7 @@ class PackedForest:
     """
 
     def __init__(self, forest, n_attrs: int, *, max_depth: int | None = None, device=None):
-        _check_indices(forest.attr_idx, forest.child, forest.class_val, n_attrs)
+        check_table_indices(forest.attr_idx, forest.child, forest.class_val, n_attrs)
         dev = _device.resolve(None, device)
         self.n_trees = int(forest.n_trees)
         self.n_nodes = int(forest.n_nodes)
@@ -194,6 +188,12 @@ class PackedForest:
         self.child = _device.as_tensor(forest.child, torch.int32, dev)
         self.class_val = _device.as_tensor(forest.class_val, torch.int32, dev)
         self.device = self.threshold.device
+
+    @property
+    def nbytes(self) -> int:
+        """Node-table bytes, ``attr_select`` included: the full-width layout
+        the quantized one is measured against."""
+        return packed_forest_nbytes(self)
 
 
 def forest_eval_fused(
@@ -287,6 +287,54 @@ def forest_votes_fused(
         forest.child, forest.class_val, n_classes=n_classes,
         total_jumps=_total_jumps(forest.max_depth), jump_mode=jump_mode, block_m=block_m,
     )
+
+
+def forest_eval_fused_q(
+    records,
+    forest: "QuantizedForest | object",
+    *,
+    n_attrs: int | None = None,
+    algorithm: str = "speculative",
+    thr_dtype: str = "bfloat16",
+    calibration=None,
+    block_m: int | None = None,
+    device=None,
+) -> torch.Tensor:
+    """Evaluate a whole forest with one fused launch over quantized tables (K7 or K8).
+
+    The compact-layout dual of :func:`forest_eval_fused`: the node tables
+    arrive as int8/int16 indices and bf16/f16 split-safe thresholds (see
+    :mod:`repro_torch.kernels.tree_eval.quant`), and node evaluation gathers
+    each record's attribute, so records are compared as given (no
+    sanitizing: NaN goes left, ±inf compares as itself).
+
+    Args:
+      records: (M, A) float array or tensor (compared in f32 after upcast).
+      forest: a prebuilt :class:`QuantizedForest` on the device the records
+        go to, or an ``EncodedForest`` quantized here (``thr_dtype`` and
+        ``calibration`` control the rounding; ``calibration=None``, the
+        default, quantizes only thresholds whose cast round-trips exactly,
+        so results are bit-exact for any input).
+      algorithm: "speculative" (K7) or "data_parallel" (K8).
+      block_m: records per CTA; default from the shared-memory model.
+      device: where to run; default: where ``records`` lies, else CUDA.
+
+    Returns:
+      (T, M) int32 per-tree class assignments.
+    """
+    _check_args(algorithm, "gather")
+    if not isinstance(forest, QuantizedForest):
+        if n_attrs is None:
+            n_attrs = int(np.shape(records)[-1])
+        forest = QuantizedForest(forest, n_attrs, thr_dtype=thr_dtype, calibration=calibration,
+                                 device=_device.resolve(records, device))
+    records = _records(records, forest, forest.n_attrs, device)
+    if block_m is None:
+        block_m = choose_block_m(forest.n_nodes, forest.n_attrs, algorithm=algorithm)
+    tables = (records, forest.attr_idx, forest.threshold, forest.child, forest.class_val)
+    if algorithm == "data_parallel":
+        return _k.fused_data_parallel_q(*tables, max_depth=forest.max_depth, block_m=block_m)
+    return _k.fused_speculative_q(*tables, total_jumps=_total_jumps(forest.max_depth), block_m=block_m)
 
 
 # ---------------------------------------------------------------------------
@@ -419,9 +467,10 @@ for _alg, _jm in _ALGORITHM_MODES:
 #
 #     fn(records, forest, *, max_depth: int, **params) -> (T, M) int32
 #
-# Family "fused" is one kernel launch (K3/K4) with the record tile resident
-# across trees; family "batched" is the plain tensor evaluators with the
-# tree axis as a batch dimension (the JAX package's "vmap" family).
+# Family "fused" is one kernel launch (K3/K4, or K7/K8 on the quantized
+# layout) with the record tile resident across trees; family "batched" is
+# the plain tensor evaluators with the tree axis as a batch dimension (the
+# JAX package's "vmap" family).
 
 
 @dataclasses.dataclass(frozen=True)
@@ -437,6 +486,10 @@ class ForestVariantSpec:
       jump_mode: "gather" | "onehot".
       tunables: names of the free parameters, e.g. ("block_m",).
       fn: the evaluator callable (uniform signature above).
+      layout: node-table layout family: "f32" (the full-width
+        :class:`PackedForest` tables) or "quant" (the compact
+        :class:`QuantizedForest` layout, whose ``thr_dtype`` tunable is
+        consumed when the tables are packed, not by the kernel).
     """
 
     name: str
@@ -446,6 +499,7 @@ class ForestVariantSpec:
     jump_mode: str
     tunables: tuple[str, ...]
     fn: Callable
+    layout: str = "f32"
 
 
 FOREST_VARIANTS: dict[str, ForestVariantSpec] = {}
@@ -510,6 +564,32 @@ def _fused_fn(algorithm: str, jump_mode: str) -> Callable:
         )
 
     return fn
+
+
+def _fused_q_fn(algorithm: str) -> Callable:
+    def fn(records, forest, *, max_depth=None, **params):
+        del max_depth  # QuantizedForest derives it from the encodings
+        return forest_eval_fused_q(
+            records, forest, algorithm=algorithm,
+            thr_dtype=params.get("thr_dtype", "bfloat16"), block_m=params.get("block_m"),
+        )
+
+    return fn
+
+
+for _alg in ALGORITHMS:
+    register_forest_variant(
+        ForestVariantSpec(
+            name=f"forest_fused_{_alg}_q",
+            family="fused",
+            algorithm=_alg,
+            engine="cuda",
+            jump_mode="gather",
+            tunables=("block_m", "thr_dtype"),
+            fn=_fused_q_fn(_alg),
+            layout="quant",
+        )
+    )
 
 
 for _alg, _jm in _ALGORITHM_MODES:

@@ -27,14 +27,17 @@ from repro_torch.core import (
     sanitize_records,
     vote_winner,
 )
-from repro_torch.kernels.tree_eval import CascadeEvaluator, plan_cascade
+from repro_torch.kernels.tree_eval import CascadeEvaluator, QuantizedForest, plan_cascade
 from repro_torch.kernels.tree_eval import kernel as K
 from repro_torch.kernels.tree_eval import ops
+from repro_torch.kernels.tree_eval.quant import from_bits, to_bits
 from repro_torch.kernels.tree_eval.ref import forest_eval_ref, tree_eval_ref
 
 REPO = Path(__file__).resolve().parents[1]
 MODES = [("speculative", "gather"), ("speculative", "onehot"), ("data_parallel", "gather")]
-FORBIDDEN_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+FORBIDDEN_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\.|\s|$)", re.M)
+THR_STORAGES = ["bfloat16", "float16", "float32"]
+INDEX_DTYPES = (torch.int8, torch.int16, torch.int32)
 
 
 def _tree(depth: int, seed: int, balance: float = 1.0):
@@ -43,6 +46,21 @@ def _tree(depth: int, seed: int, balance: float = 1.0):
     return breadth_first_encode(
         random_tree(n_attrs=19, n_classes=7, max_depth=depth, seed=seed, balance=balance)
     )
+
+
+def _quant_forest(thr_stored: str, depths=(0, 1, 3, 5, 7), device=None) -> QuantizedForest:
+    """A universal quantized forest stored as ``thr_stored``; a tree of depth
+    7 is perfect (N = 255, so ``child`` needs int16).  For a narrow storage
+    the thresholds are first snapped to it (so every node round-trips); for
+    f32 they are left as drawn (so nodes fall back)."""
+    forest = EncodedForest([_tree(d, seed=d, balance=1.0 if d == 7 else 0.7) for d in depths])
+    thr_dtype = "bfloat16" if thr_stored == "float32" else thr_stored
+    if thr_stored != "float32":
+        internal = forest.class_val == -1
+        forest.threshold[internal] = from_bits(to_bits(forest.threshold[internal], thr_dtype), thr_dtype)
+    q = QuantizedForest(forest, 19, thr_dtype=thr_dtype, device=device)
+    assert q.thr_stored == thr_stored
+    return q
 
 
 def _records(m: int, seed: int = 3) -> np.ndarray:
@@ -72,7 +90,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_forbidden_import_pattern_catches_what_it_should():
-    for line in ("import jax", "from jax.numpy import x", "import repro.core", "  from repro import a"):
+    for line in ("import jax", "from jax.numpy import x", "import repro.core", "  from repro import a",
+                 "import ml_dtypes", "from ml_dtypes import bfloat16"):
         assert FORBIDDEN_IMPORT.search(line), line
     for line in ("import repro_torch", "from repro_torch.core import x", "import jaxlib_like_name_x"):
         assert not FORBIDDEN_IMPORT.search(line), line
@@ -178,6 +197,10 @@ def test_ops_on_card_launch_each_kernel_once_and_match_ref(cuda_device):
     want_forest = forest_eval_ref(rec, forest.attr_idx, forest.threshold, forest.child,
                                   forest.class_val, max_depth=forest.max_depth, device="cpu")
     want_winner = majority_vote(want_forest, 7)
+    quant = {s: _quant_forest(s, depths=(1, 4, 6), device=cuda_device) for s in THR_STORAGES}
+    want_quant = {s: forest_eval_ref(rec, q.attr_idx.cpu(), q.threshold.float().cpu(), q.child.cpu(),
+                                     q.class_val.cpu(), max_depth=q.max_depth, device="cpu")
+                  for s, q in quant.items()}
     K.reset_launches()
     for algorithm, jump_mode in MODES:
         got = ops.tree_eval(rec, enc, algorithm=algorithm, jump_mode=jump_mode)
@@ -188,6 +211,10 @@ def test_ops_on_card_launch_each_kernel_once_and_match_ref(cuda_device):
         votes = ops.forest_votes_fused(rec, forest, n_classes=7, algorithm=algorithm, jump_mode=jump_mode)
         assert votes.device.type == "cuda" and votes.shape == (500, 7)
         assert torch.equal(vote_winner(votes).cpu(), want_winner), (algorithm, jump_mode)
+    for algorithm in ops.ALGORITHMS:
+        for storage, q in quant.items():
+            got = ops.forest_eval_fused_q(rec, q, algorithm=algorithm)
+            assert torch.equal(got.cpu(), want_quant[storage]), (algorithm, storage)
     assert all(v == 1 for v in K.LAUNCHES.values()), K.LAUNCHES
 
 
@@ -225,3 +252,45 @@ def test_bad_tiles_and_tables_raise_on_card(cuda_device):
     with pytest.raises(ValueError, match="block_m=2048"):
         K.data_parallel(rec, packed.attr_idx, packed.threshold, packed.child, packed.class_val,
                         max_depth=3, block_m=2048)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 7, 65_536])
+@pytest.mark.parametrize("block_m", [None, 1, 32])
+@pytest.mark.parametrize("thr_stored", THR_STORAGES)
+def test_quantized_kernels_equal_plain_on_card(cuda_device, m, block_m, thr_stored):
+    """K7/K8 on every index width the tables fit in, in each threshold storage."""
+    raw = torch.from_numpy(_records(m)).to(cuda_device)
+    q = _quant_forest(thr_stored, device=cuda_device)
+    jumps = _jumps(q.max_depth)
+    spec_want = K.fused_speculative_q_plain(raw, q.attr_idx, q.threshold, q.child, q.class_val,
+                                            total_jumps=jumps)
+    dp_want = K.fused_data_parallel_q_plain(raw, q.attr_idx, q.threshold, q.child, q.class_val,
+                                            max_depth=q.max_depth)
+    widths = [[t.to(dt) for dt in INDEX_DTYPES if int(t.max()) <= torch.iinfo(dt).max]
+              for t in (q.attr_idx, q.child, q.class_val)]
+    for attr in widths[0]:
+        for child in widths[1]:
+            for cls in widths[2]:
+                key = (attr.dtype, child.dtype, cls.dtype)
+                bm = block_m or ops.choose_block_m(q.n_nodes, 19, algorithm="speculative")
+                got = K.fused_speculative_q(raw, attr, q.threshold, child, cls, total_jumps=jumps, block_m=bm)
+                assert torch.equal(got, spec_want), key
+                got = K.fused_data_parallel_q(raw, attr, q.threshold, child, cls, max_depth=q.max_depth,
+                                              block_m=block_m or 256)
+                assert torch.equal(got, dp_want), key
+
+
+@pytest.mark.gpu
+def test_quantized_kernels_refuse_bad_tables_on_card(cuda_device):
+    q = _quant_forest("bfloat16", device=cuda_device)
+    rec = torch.zeros((10, 19), device=cuda_device)
+    with pytest.raises(ValueError, match="threshold must be contiguous"):
+        K.fused_speculative_q(rec, q.attr_idx, q.threshold.double(), q.child, q.class_val,
+                              total_jumps=3, block_m=8)
+    with pytest.raises(ValueError, match="child must be contiguous"):
+        K.fused_data_parallel_q(rec, q.attr_idx, q.threshold, q.child.long(), q.class_val,
+                                max_depth=3, block_m=32)
+    with pytest.raises(ValueError, match="block_m=2048"):
+        K.fused_data_parallel_q(rec, q.attr_idx, q.threshold, q.child, q.class_val,
+                                max_depth=3, block_m=2048)

@@ -152,7 +152,9 @@ def test_registries_mirror_jax_families():
         "cuda_data_parallel", "cuda_speculative_gather", "cuda_speculative_onehot"]
     assert len(ops.list_variants(algorithm="speculative")) == 4
     assert {s.family for s in ops.list_forest_variants()} == {"fused", "batched"}
-    assert len(ops.list_forest_variants(engine="cuda", family="fused")) == 3
+    assert len(ops.list_forest_variants(engine="cuda", family="fused")) == 5
+    assert sorted(s.name for s in ops.list_forest_variants() if s.layout == "quant") == [
+        "forest_fused_data_parallel_q", "forest_fused_speculative_q"]
     with pytest.raises(KeyError, match="unknown variant"):
         ops.get_variant("pallas_speculative_gather")
     with pytest.raises(KeyError, match="unknown forest variant"):

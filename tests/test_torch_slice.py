@@ -2,10 +2,11 @@
 
 The paper's pipeline: the segmentation twin, CART, the branchless encoding,
 then one tree (``ops.tree_eval``, three modes), a bagged forest
-(``ops.forest_eval_fused``, three modes, then ``majority_vote``) and the
+(``ops.forest_eval_fused``, three modes, then ``majority_vote``), the
 early-exit cascade over that forest (``CascadeEvaluator``, three modes, on
-the records and on a 90/10 mix of them with noise) — each stage fed the same
-numpy inputs in both packages and compared exactly.
+the records and on a 90/10 mix of them with noise) and the same forest in
+its quantized layouts (``ops.forest_eval_fused_q``, both algorithms) — each
+stage fed the same numpy inputs in both packages and compared exactly.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ from repro.core import train_cart as jax_train_cart
 from repro.data.segmentation import make_segmentation as jax_make_segmentation
 from repro.data.segmentation import replicated_dataset as jax_replicated_dataset
 from repro.kernels.tree_eval import CascadeEvaluator as JaxCascadeEvaluator
+from repro.kernels.tree_eval import QuantizedForest as JaxQuantizedForest
 from repro.kernels.tree_eval import forest_eval_fused as jax_forest_eval_fused
+from repro.kernels.tree_eval import forest_eval_fused_q as jax_forest_eval_fused_q
 from repro.kernels.tree_eval import plan_cascade as jax_plan_cascade
 from repro.kernels.tree_eval import tree_eval as jax_tree_eval
 from repro_torch.core import (
@@ -40,7 +43,9 @@ from repro_torch.kernels.tree_eval import (
     CascadeEvaluator,
     PackedForest,
     PackedTree,
+    QuantizedForest,
     forest_eval_fused,
+    forest_eval_fused_q,
     plan_cascade,
     tree_eval,
 )
@@ -72,7 +77,7 @@ def slice_inputs():
     jax_rec, _ = jax_replicated_dataset(jax_data, M, seed=1)
     assert_same(rec, jax_rec, "records")
     return dict(enc=enc, jax_enc=jax_enc, forest=EncodedForest(trees), jax_forest=JaxForest(jax_trees),
-                rec=rec, labels=labels)
+                rec=rec, labels=labels, rows=np.concatenate([data.x_train, data.x_test]))
 
 
 def test_slice_tree(slice_inputs):
@@ -133,3 +138,21 @@ def test_slice_cascade(slice_inputs, algorithm, jump_mode):
             if bound in (None, 1.0):
                 assert_same(got.classes, jax_majority_vote(jnp.asarray(per_tree[name]), 7),
                             f"{name}/{bound} vs serial majority")
+
+
+@pytest.mark.parametrize("thr_dtype", ["bfloat16", "float16"])
+def test_slice_quantized_forest(slice_inputs, thr_dtype):
+    """Universal and calibrated (on the train+test rows the records are tiled
+    from) layouts: classes equal the JAX package's and the serial oracle's."""
+    s = slice_inputs
+    forest, jax_forest, rec = s["forest"], s["jax_forest"], s["rec"]
+    per_tree = np.stack([jax_eval_serial(jax_forest.tree(t), rec) for t in range(N_TREES)])
+    for calibration in (None, s["rows"]):
+        q = QuantizedForest(forest, 19, thr_dtype=thr_dtype, calibration=calibration, device="cpu")
+        jax_q = JaxQuantizedForest(jax_forest, 19, thr_dtype=thr_dtype, calibration=calibration)
+        assert (q.thr_stored, q.fallback_nodes) == (jax_q.thr_stored, jax_q.fallback_nodes)
+        for algorithm in ("speculative", "data_parallel"):
+            got = forest_eval_fused_q(rec, q, algorithm=algorithm, device="cpu")
+            label = f"quant/{thr_dtype}/{algorithm}/calibrated={calibration is not None}"
+            assert_same(got, jax_forest_eval_fused_q(rec, jax_q, algorithm=algorithm), label)
+            assert_same(got, per_tree, label + " vs serial")
