@@ -46,8 +46,16 @@ Phases, each printing its own lines:
    its plain version there and timed (device time from the profiler, record
    buffers rotated past the 50 MB L2), its plain version (CUDA events), and
    its bound; K7 and K8 in each threshold storage on the layouts of phase 5q
-   that store it, beside K3 gather and K4;
+   that store it, beside K3 gather and K4; each speculative row names the
+   jump path it took (registers or shared memory) and its table chunk; then
+   K3 at N on both sides of the path cut-offs (32, 64) on random forests;
 8. the ``kernels`` JSON line, the card line, and the ``ok`` line.
+
+    python3 chip_smoke.py --parent DIR
+
+also times the speculative kernels K1/K3/K5/K7 of the checkout at DIR (an
+unpacked earlier commit) in turns with this tree's, on phase 7's inputs:
+parent, this, this, parent; their outputs must be equal.
 
 Kernel launches are counted from zero over phases 4–6 (5q included) only,
 and every kernel must have launched there.  Any mismatch, missing launch or exception
@@ -56,9 +64,12 @@ exits non-zero.
 
 from __future__ import annotations
 
+import argparse
+import importlib.util
 import json
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -215,6 +226,23 @@ def kernel_vs_plain(fused: bool, algorithm: str, jump_mode: str, rec, tabs, bloc
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
+SPEC_IDS = {"speculative": 1, "fused_speculative": 3, "fused_votes_speculative": 5, "fused_speculative_q": 7}
+
+
+def jump_path(name: str, m: int, n: int, a: int, block_m: int, n_classes: int = 0, n_trees: int = 1) -> str:
+    """The jump path, table chunk and grid of the speculative launch ``name``."""
+    wrapper, form = name.split("/")
+    jump_mode = "onehot" if form == "onehot" else "gather"
+    variant = K.THR_CODES[getattr(torch, form)][1] if wrapper.endswith("_q") else int(form == "onehot")
+    slots = K.jump_slots(n, a, jump_mode)
+    path = f"registers ({slots} slot{'s' * (slots > 1)} a lane)" if slots else "shared memory"
+    chunk = K.table_chunk(block_m, a, n, jump_mode, n_classes, n_trees)
+    grid, per_sm = K.speculative_grid(SPEC_IDS[wrapper], variant, m, block_m, a, n, jump_mode,
+                                      n_classes, n_trees)
+    return (f"path {path}, {K.spec_warps(block_m)} warps, tables {chunk} of {n_trees} trees a chunk, "
+            f"grid {grid} CTAs ({per_sm} a SM)")
 
 
 def phase_kernels(dev) -> dict:
@@ -636,27 +664,37 @@ def event_ms(fn, n_bufs: int, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled_kernel_ms(fn, n_bufs: int, iters: int) -> tuple[float, int]:
-    """Mean device time of the kernels ``fn(i)`` launches, from the profiler.
+def profiled_ms(runs, n_bufs: int, iters: int) -> dict[str, tuple[float, int]]:
+    """Mean device time of the kernel that each ``fn(i)`` of ``runs`` launches, by label.
 
-    Timed this way because a wrapper call costs the host more than these
-    kernels cost the card, so events around back-to-back calls would time the
-    host.  Returns (mean ms of the kernel events seen, their number); fails
-    the run if the profiler saw no kernel, rather than report host time.
+    ``runs`` is a list of (label, fn); a label may come back (turns), and each
+    label's kernel has a name no other label's has.  Timed with the profiler
+    because a wrapper call costs the host more than these kernels cost the
+    card, so events around back-to-back calls would time the host; in one
+    profiler session, because a process's later sessions can lose kernels.
+    Returns {label: (mean ms, kernels seen)}; fails the run if a label's
+    kernel was not seen, rather than report host time.
     """
     from torch.profiler import ProfilerActivity, profile
 
-    for i in range(3):
-        fn(i % n_bufs)
+    labels = list(dict.fromkeys(label for label, _ in runs))
+    for _, fn in runs:
+        for i in range(3):
+            fn(i % n_bufs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i % n_bufs)
+        for _, fn in runs:
+            for i in range(iters):
+                fn(i % n_bufs)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    count = sum(e.count for e in kernels)
-    check(count > 0, "the profiler saw no kernel on the card: no device time to report")
-    return sum(e.self_device_time_total for e in kernels) / 1e3 / count, count
+    names = []   # kernel names in the order of their first launch
+    for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in names:
+            names.append(e.key)
+    check(len(names) == len(labels), f"the profiler saw kernels {names} for {labels}")
+    seen = {e.key: e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
+    return {label: (seen[n].self_device_time_total / 1e3 / seen[n].count, seen[n].count)
+            for label, n in zip(labels, names)}
 
 
 def bound(m: int, a: int, t: int, n: int, compares: int, out_bytes: int | None = None,
@@ -691,7 +729,7 @@ def phase_timing(dev, image, enc, forest, depth_sum_tree, depth_sum_forest, card
     tree = ops.PackedTree(enc, N_ATTRS, device=dev)
     packed = ops.PackedForest(forest, N_ATTRS, device=dev)
     m, a = rec.shape
-    rows = []
+    rows, runs = [], []
     for fused, tabs, depth_sum in ((False, tree, depth_sum_tree), (True, packed, depth_sum_forest)):
         t = packed.n_trees if fused else 1
         n = tabs.n_nodes
@@ -699,31 +737,35 @@ def phase_timing(dev, image, enc, forest, depth_sum_tree, depth_sum_forest, card
             bufs = clean if algorithm == "speculative" else raw
             bm = ops.choose_block_m(n, a, algorithm=algorithm, jump_mode=jump_mode)
             if algorithm == "speculative":
-                def run(i, bm=bm, bufs=bufs, jump_mode=jump_mode):
+                def run(i, bm=bm, bufs=bufs, jump_mode=jump_mode, fused=fused, tabs=tabs):
                     return run_speculative(fused, bufs[i], tabs, jump_mode, bm)
 
-                def plain(i, bufs=bufs, jump_mode=jump_mode):
+                def plain(i, bufs=bufs, jump_mode=jump_mode, fused=fused, tabs=tabs):
                     return run_speculative(fused, bufs[i], tabs, jump_mode)
             else:
-                def run(i, bm=bm, bufs=bufs):
+                def run(i, bm=bm, bufs=bufs, fused=fused, tabs=tabs):
                     return run_data_parallel(fused, bufs[i], tabs, bm)
 
-                def plain(i, bufs=bufs):
+                def plain(i, bufs=bufs, fused=fused, tabs=tabs):
                     return run_data_parallel(fused, bufs[i], tabs)
             name = kernel_name(fused, algorithm, jump_mode)
             got, want = run(0), plain(0)
             torch.cuda.synchronize()
             check(torch.equal(got, want), f"{name} != plain on the main-path inputs")
-            call_ms = event_ms(run, n_bufs, iters=200)
-            ms, n_events = profiled_kernel_ms(run, n_bufs, iters=200)
-            plain_ms = event_ms(plain, n_bufs, iters=10, warmup=1)
             bound_ms, bound_by = bound(m, a, t, n, depth_sum)
-            print(f"[timing] {card}: {name:25s} M={m} N={n} T={t} block_m={bm}: kernel {ms:.4f} ms "
-                  f"(profiler, {n_events} launches; {call_ms:.4f} ms per wrapper call by events), "
-                  f"plain {plain_ms:.4f} ms, "
-                  f"bound {bound_ms:.5f} ms ({bound_by}), kernel at {bound_ms / ms:.1%} of bound")
-            rows.append(dict(name=name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             max_abs_err=max_abs_err(got, want)))
+            how = f"; {jump_path(name, m, n, a, bm, 0, t)}" if algorithm == "speculative" else ""
+            runs.append((name, run))
+            rows.append(dict(name=name, call_ms=event_ms(run, n_bufs, iters=200),
+                             plain_ms=event_ms(plain, n_bufs, iters=10, warmup=1), bound_ms=bound_ms,
+                             bound_by=bound_by, max_abs_err=max_abs_err(got, want),
+                             shape=f"M={m} N={n} T={t} block_m={bm}", how=how))
+    times = profiled_ms(runs, n_bufs, iters=200)
+    for row in rows:
+        row["ms"], n_events = times[row["name"]]
+        print(f"[timing] {card}: {row['name']:25s} {row.pop('shape')}: kernel {row['ms']:.4f} ms "
+              f"(profiler, {n_events} launches; {row.pop('call_ms'):.4f} ms per wrapper call by events), "
+              f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}), "
+              f"kernel at {row['bound_ms'] / row['ms']:.1%} of bound{row.pop('how')}")
     return rows
 
 
@@ -740,6 +782,7 @@ def phase_vote_timing(dev, image, forest, stage_trees, depth_sums, card):
         tabs = ops.PackedForest(EncodedForest([forest.tree(i) for i in ids]), N_ATTRS,
                                 max_depth=forest.max_depth, device=dev)
         t, n = tabs.n_trees, tabs.n_nodes
+        runs, lines = [], []
         for algorithm, jump_mode in MODES:
             bufs = clean if algorithm == "speculative" else raw
             bm = ops.choose_block_m(n, a, algorithm=algorithm, jump_mode=jump_mode, n_classes=N_CLASSES)
@@ -754,15 +797,21 @@ def phase_vote_timing(dev, image, forest, stage_trees, depth_sums, card):
             got, want = run(0), plain(0)
             torch.cuda.synchronize()
             check(torch.equal(got, want), f"{name} != plain on the {label} inputs")
-            ms, n_events = profiled_kernel_ms(run, n_bufs, iters=200)
-            plain_ms = event_ms(plain, n_bufs, iters=10, warmup=1)
             bound_ms, bound_by = bound(m, a, t, n, sum(depth_sums[i] for i in ids), out_bytes=m * N_CLASSES * 4)
-            print(f"[timing] {card}: {name:32s} {label}: M={m} N={n} T={t} C={N_CLASSES} block_m={bm}: "
-                  f"kernel {ms:.4f} ms (profiler, {n_events} launches), plain {plain_ms:.4f} ms, "
-                  f"bound {bound_ms:.5f} ms ({bound_by}), kernel at {bound_ms / ms:.1%} of bound")
-            if label == "first stage":
-                rows.append(dict(name=name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                 max_abs_err=max_abs_err(got, want)))
+            how = f"; {jump_path(name, m, n, a, bm, N_CLASSES, t)}" if algorithm == "speculative" else ""
+            runs.append((name, run))
+            lines.append(dict(name=name, plain_ms=event_ms(plain, n_bufs, iters=10, warmup=1),
+                              bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_abs_err(got, want),
+                              shape=f"M={m} N={n} T={t} C={N_CLASSES} block_m={bm}", how=how))
+        times = profiled_ms(runs, n_bufs, iters=200)
+        for row in lines:
+            row["ms"], n_events = times[row["name"]]
+            print(f"[timing] {card}: {row['name']:32s} {label}: {row.pop('shape')}: kernel {row['ms']:.4f} ms "
+                  f"(profiler, {n_events} launches), plain {row['plain_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.5f} ms ({row['bound_by']}), kernel at {row['bound_ms'] / row['ms']:.1%} "
+                  f"of bound{row.pop('how')}")
+        if label == "first stage":
+            rows += lines
     return rows
 
 
@@ -774,7 +823,7 @@ def phase_quant_timing(dev, image, layouts, rows, card):
     raw = [rec.clone() for _ in range(n_bufs)]
     m, a = rec.shape
     beside = {r["name"]: r["ms"] for r in rows}
-    out = []
+    out, runs = [], []
     for storage, q in timed_layouts(layouts).items():
         tree_depths = [int(observed_depths(EncodedForest.from_arrays(*host_tables(q)).tree(t), image).sum())
                        for t in range(q.n_trees)]
@@ -793,16 +842,150 @@ def phase_quant_timing(dev, image, layouts, rows, card):
             got, want = run(0), plain(0)
             torch.cuda.synchronize()
             check(torch.equal(got, want), f"{name} != plain on the main-path inputs")
-            ms, n_events = profiled_kernel_ms(run, n_bufs, iters=200)
-            plain_ms = event_ms(plain, n_bufs, iters=10, warmup=1)
             bound_ms, bound_by = bound(m, a, q.n_trees, q.n_nodes, sum(tree_depths), table_bytes=table_bytes)
-            print(f"[timing] {card}: {name:30s} M={m} N={q.n_nodes} T={q.n_trees} block_m={bm} "
-                  f"tables {table_bytes} B: kernel {ms:.4f} ms (profiler, {n_events} launches; "
-                  f"{yardstick} {beside[yardstick]:.4f} ms in this run), plain {plain_ms:.4f} ms, "
-                  f"bound {bound_ms:.5f} ms ({bound_by}), kernel at {bound_ms / ms:.1%} of bound")
-            out.append(dict(name=name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                            max_abs_err=max_abs_err(got, want)))
+            how = f"; {jump_path(name, m, q.n_nodes, a, bm, 0, q.n_trees)}" if algorithm == "speculative" else ""
+            runs.append((name, run))
+            out.append(dict(name=name, plain_ms=event_ms(plain, n_bufs, iters=10, warmup=1), bound_ms=bound_ms,
+                            bound_by=bound_by, max_abs_err=max_abs_err(got, want), yardstick=yardstick,
+                            shape=f"M={m} N={q.n_nodes} T={q.n_trees} block_m={bm} tables {table_bytes} B",
+                            how=how))
+    times = profiled_ms(runs, n_bufs, iters=200)
+    for row in out:
+        row["ms"], n_events = times[row["name"]]
+        yardstick = row.pop("yardstick")
+        print(f"[timing] {card}: {row['name']:30s} {row.pop('shape')}: kernel {row['ms']:.4f} ms (profiler, "
+              f"{n_events} launches; {yardstick} {beside[yardstick]:.4f} ms in this run), plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}), kernel at "
+              f"{row['bound_ms'] / row['ms']:.1%} of bound{row.pop('how')}")
     return out
+
+
+def bfs_forest(n_nodes: int, n_trees: int, seed: int) -> EncodedForest:
+    """Random breadth-first trees of exactly ``n_nodes`` nodes (unreachable
+    self-looping leaves pad one that stops short; tree 0 splits every node)."""
+    rng = np.random.default_rng(seed)
+    attr = np.zeros((n_trees, n_nodes), np.int32)
+    thr = np.full((n_trees, n_nodes), np.inf, np.float32)
+    child = np.tile(np.arange(n_nodes, dtype=np.int32), (n_trees, 1))
+    cls = rng.integers(0, N_CLASSES, (n_trees, n_nodes)).astype(np.int32)
+    for t in range(n_trees):
+        queue, nxt = [0], 1
+        while queue and nxt + 2 <= n_nodes:
+            node = queue.pop(0)
+            if t and rng.random() < 0.2:
+                continue
+            attr[t, node], thr[t, node] = rng.integers(0, N_ATTRS), rng.normal()
+            child[t, node], cls[t, node] = nxt, BOTTOM
+            queue += [nxt, nxt + 1]
+            nxt += 2
+    return EncodedForest.from_arrays(attr, thr, child, cls)
+
+
+def phase_cutoff(dev, image, card) -> None:
+    """K3 at M 65,536 and T 16 on random forests of N on both sides of the jump
+    paths' cut-offs: device time per (record, tree) and per node slot a lane.
+    One profiler session per group of N whose instantiations differ."""
+    rec = torch.from_numpy(image).to(dev)
+    n_bufs = L2_BYTES // rec.nbytes + 2
+    raw = [rec.clone() for _ in range(n_bufs)]
+    clean = [sanitize_records(r) for r in raw]
+    m, a = rec.shape
+    for group in ((32, 33, 65), (64, 96), (128,)):
+        runs, lines = [], []
+        for n in group:
+            tabs = ops.PackedForest(bfs_forest(n, N_TREES, seed=n), N_ATTRS, device=dev)
+            for jump_mode, bufs in (("gather", raw), ("onehot", clean)):
+                bm = ops.choose_block_m(n, a, jump_mode=jump_mode)
+
+                def run(i, bm=bm, bufs=bufs, jump_mode=jump_mode, tabs=tabs):
+                    return run_speculative(True, bufs[i], tabs, jump_mode, bm)
+
+                name = f"fused_speculative/{jump_mode}"
+                check(torch.equal(run(0), run_speculative(True, bufs[0], tabs, jump_mode)),
+                      f"{name} != plain at N={n}")
+                runs.append(((n, jump_mode), run))
+                lines.append(((n, jump_mode), f"{name:24s} M={m} T={N_TREES} N={n} depth {tabs.max_depth} "
+                              f"jumps {ops._total_jumps(tabs.max_depth)}", jump_path(name, m, n, a, bm, 0, N_TREES)))
+        times = profiled_ms(runs, n_bufs, iters=100)
+        for key, text, how in lines:
+            ms = times[key][0]
+            per = ms * 1e6 / (m * N_TREES)
+            print(f"[cutoff] {card}: {text}: kernel {ms:.4f} ms, {per:.3f} ns a (record, tree), "
+                  f"{per / -(-key[0] // 32):.3f} ns a node slot; {how}")
+
+
+def load_parent(root: Path):
+    """The kernel and ops modules of the checkout at ``root``, loaded beside
+    this tree's: its ops module is bound to its own kernel module, and both
+    use this tree's unchanged helpers (core, build, reference)."""
+    base = root / "src" / "repro_torch" / "kernels" / "tree_eval"
+
+    def load(name, path):
+        spec = importlib.util.spec_from_file_location(name, path)
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+        return module
+
+    pk = load("parent_tree_eval_kernel", base / "kernel.py")
+    package = sys.modules["repro_torch.kernels.tree_eval"]
+    saved = package.kernel
+    package.kernel = pk
+    try:
+        po = load("parent_tree_eval_ops", base / "ops.py")
+    finally:
+        package.kernel = saved
+    return pk, po
+
+
+def phase_parent(dev, image, enc, forest, stage_trees, layouts, root: Path, card) -> None:
+    """K1, K3, K5 (both forms) and K7 (three storages) of the checkout at
+    ``root`` against this tree's on phase 7's inputs, timed in turns: parent,
+    this, this, parent (profiler device time, record buffers rotated past L2)."""
+    pk, po = load_parent(root)
+    rec = torch.from_numpy(image).to(dev)
+    n_bufs = L2_BYTES // rec.nbytes + 2
+    raw = [rec.clone() for _ in range(n_bufs)]
+    clean = [sanitize_records(r) for r in raw]
+    m, a = rec.shape
+    tree = ops.PackedTree(enc, N_ATTRS, device=dev)
+    packed = ops.PackedForest(forest, N_ATTRS, device=dev)
+    stage = ops.PackedForest(EncodedForest([forest.tree(i) for i in stage_trees]), N_ATTRS,
+                             max_depth=forest.max_depth, device=dev)
+    cases = []
+    for jump_mode in ("gather", "onehot"):
+        bufs = clean if jump_mode == "onehot" else raw
+        for label, fn, tabs, extra, c in (("speculative", "speculative", tree, {}, 0),
+                                          ("fused_speculative", "fused_speculative", packed, {}, 0),
+                                          ("fused_votes_speculative", "fused_votes_speculative", stage,
+                                           {"n_classes": N_CLASSES}, N_CLASSES)):
+            args = (tabs.attr_idx, tabs.attr_select, tabs.threshold, tabs.child, tabs.class_val)
+            kw = dict(total_jumps=ops._total_jumps(tabs.max_depth), jump_mode=jump_mode, **extra)
+            sizes = (tabs.n_nodes, a)
+            cases.append((f"{label}/{jump_mode}", bufs, args, kw, fn,
+                          ops.choose_block_m(*sizes, jump_mode=jump_mode, n_classes=c),
+                          po.choose_block_m(*sizes, jump_mode=jump_mode, n_classes=c),
+                          f"N={tabs.n_nodes} T={getattr(tabs, 'n_trees', 1)}"))
+    for storage, q in timed_layouts(layouts).items():
+        cases.append((f"fused_speculative_q/{storage}", raw, (q.attr_idx, q.threshold, q.child, q.class_val),
+                      dict(total_jumps=ops._total_jumps(q.max_depth)), "fused_speculative_q",
+                      ops.choose_block_m(q.n_nodes, a), po.choose_block_m(q.n_nodes, a),
+                      f"N={q.n_nodes} T={q.n_trees}"))
+    runs, lines = [], []
+    for name, bufs, args, kw, fn, bm, parent_bm, shape in cases:
+        this = lambda i, fn=fn, bufs=bufs, args=args, kw=kw, bm=bm: getattr(K, fn)(bufs[i], *args, block_m=bm, **kw)
+        parent = lambda i, fn=fn, bufs=bufs, args=args, kw=kw, bm=parent_bm: getattr(pk, fn)(
+            bufs[i], *args, block_m=bm, **kw)
+        check(torch.equal(this(0), parent(0)), f"{name}: this tree's kernel and the parent's disagree")
+        runs += [((name, "parent"), parent), ((name, "this"), this), ((name, "this"), this),
+                 ((name, "parent"), parent)]
+        lines.append((name, shape, bm, parent_bm))
+    times = profiled_ms(runs, n_bufs, iters=100)
+    for name, shape, bm, parent_bm in lines:
+        p_ms, t_ms = times[(name, "parent")][0], times[(name, "this")][0]
+        print(f"[parent] {card}: {name:32s} M={m} {shape}: parent {p_ms:.4f} ms (block_m {parent_bm}), "
+              f"this tree {t_ms:.4f} ms (block_m {bm}); parent / this {p_ms / t_ms:.2f}x "
+              f"(profiler, 200 launches each in turns parent, this, this, parent); outputs equal")
 
 
 def phase_breakdown(dev, image, enc, forest, plan, card) -> None:
@@ -862,7 +1045,23 @@ REPLACES = {
 }
 
 
+def ptxas_lines(report: str) -> list[str]:
+    """Registers, shared memory and spills of each kernel in an ``-Xptxas -v``
+    report, with the kernel names demangled where a demangler is installed."""
+    lines = [line.strip() for line in report.splitlines()
+             if "registers" in line or "Compiling entry" in line or "spill" in line]
+    demangler = shutil.which("cu++filt") or shutil.which("c++filt")
+    if demangler:
+        out = subprocess.run([demangler], input="\n".join(lines), capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(lines):
+            return out.stdout.splitlines()
+    return lines
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", type=Path, help="an earlier checkout whose speculative kernels to time in turns")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         raise SystemExit(2)
@@ -874,9 +1073,8 @@ def main() -> None:
     t0 = time.perf_counter()
     report = _build.ptxas_report(K.SOURCE)
     print(f"[build] {_build.library_path(K.SOURCE).name} in {time.perf_counter() - t0:.1f} s on the host of {card}")
-    for line in report.splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    for line in ptxas_lines(report):
+        print(f"[build] {line}")
 
     errs = phase_kernels(dev)
     errs |= phase_quant_kernels(dev)
@@ -925,6 +1123,9 @@ def main() -> None:
     timings = phase_timing(dev, images[0], enc, forest, int(depths.sum()), forest_depths, card)
     timings += phase_vote_timing(dev, images[0], forest, plan.stage_trees(0), tree_depth_sums, card)
     timings += phase_quant_timing(dev, images[0], layouts, timings, card)
+    phase_cutoff(dev, images[0], card)
+    if args.parent:
+        phase_parent(dev, images[0], enc, forest, plan.stage_trees(0), layouts, args.parent, card)
     check(len(timings) == len(K.LAUNCHES), f"timed {len(timings)} kernels, not {len(K.LAUNCHES)}")
     kernels = []
     for row in timings:

@@ -28,6 +28,13 @@ given CUDA tensors it checks them, allocates the output, launches the kernel
 on the current stream and adds one to its entry of ``LAUNCHES``.  There is
 no fallback: a failed build or launch raises.
 
+The speculative kernels K1/K3/K5/K7 give each record to one warp, with node
+``n`` in slot ``n // 32`` of lane ``n % 32``: ``jump_slots`` says whether a
+lane holds its nodes and their path in registers (N ≤ 64, jumps by warp
+shuffles) or the warp keeps the path in shared memory.  ``smem_bytes`` sizes
+the tile that follows from it, and the tree tables are staged once per CTA,
+in chunks of trees when the whole forest does not fit (``table_chunk``).
+
 The speculative kernels' ``onehot`` form computes ``records @ attr_select``;
 it is exact only on records passed through
 ``core.eval_speculative.sanitize_records`` (``ops`` does so before every
@@ -51,7 +58,11 @@ from repro_torch.kernels.tree_eval.ref import forest_eval_ref, tree_eval_ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "tree_eval.cu"
 
 SMEM_MAX = 232_448        # bytes of shared memory one CTA may opt into on sm_90
+SMEM_TARGET = 48 * 1024   # needs no opt-in and leaves room for several CTAs an SM
 MAX_THREADS = 1024        # threads of a CTA; the data-parallel CTA has block_m
+SPEC_WARPS = 8            # warps of a speculative CTA (csrc kSpecThreads = 32·8)
+REGISTER_SLOTS = 2        # node slots a lane holds on the register path (N ≤ 64)
+SELECT_REGISTERS = 40     # attr_select floats a lane holds there (csrc kSelectRegisters)
 JUMP_MODES = ("gather", "onehot")
 
 # Launches per kernel instantiation since the last reset_launches(): a run
@@ -84,39 +95,91 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def jump_slots(n_nodes: int, n_attrs: int, jump_mode: str = "gather") -> int:
+    """Register slots a lane of a speculative kernel holds, or 0 for the shared path.
+
+    A warp evaluates one record at a time, node ``n`` in slot ``n // 32`` of
+    lane ``n % 32``.  Up to ``REGISTER_SLOTS`` slots (N ≤ 64) a lane keeps
+    its nodes' tables and path in registers and a pointer jump is ``k·k``
+    warp shuffles; beyond, the path lives in shared memory (``2·k`` accesses
+    a round and record), which is cheaper from k = 3 on.  The one-hot form also holds
+    its ``k`` attr_select columns, ``A·k ≤ SELECT_REGISTERS`` floats.
+    """
+    k = max(1, -(-n_nodes // 32))
+    if k > REGISTER_SLOTS or (jump_mode == "onehot" and n_attrs * k > SELECT_REGISTERS):
+        return 0
+    return k
+
+
+def spec_warps(block_m: int) -> int:
+    """Warps of a speculative CTA: one per record of the tile, ``SPEC_WARPS`` at most."""
+    return min(SPEC_WARPS, block_m)
+
+
+def _spec_words(block_m: int, n_attrs: int, n_nodes: int, jump_mode: str, n_classes: int):
+    """(words outside the tables, words of one tree's tables) of a speculative tile."""
+    a4 = -(-n_attrs // 4) * 4           # record rows padded to 16 bytes
+    paths = 0 if jump_slots(n_nodes, n_attrs, jump_mode) else 4 * n_nodes * spec_warps(block_m)
+    fixed = block_m * a4 + paths + block_m * n_classes
+    tree = n_nodes * (3 + (n_attrs if jump_mode == "onehot" else 1))
+    return fixed, tree
+
+
+def table_chunk(
+    block_m: int, n_attrs: int, n_nodes: int, jump_mode: str = "gather", n_classes: int = 0,
+    n_trees: int = 1,
+) -> int:
+    """Trees whose tables a speculative CTA stages at once.
+
+    All ``n_trees`` when they fit beside the rest of the tile in
+    ``SMEM_TARGET`` (staged once per CTA); else the fewest equal chunks that
+    do, one tree at least.
+    """
+    fixed, tree = _spec_words(block_m, n_attrs, n_nodes, jump_mode, n_classes)
+    fit = max(1, (SMEM_TARGET // 4 - fixed) // tree)
+    n_trees = max(1, n_trees)
+    chunks = -(-n_trees // fit)
+    return -(-n_trees // chunks)
+
+
 def smem_bytes(
     algorithm: str, block_m: int, n_attrs: int, n_nodes: int, jump_mode: str = "gather",
-    n_classes: int = 0,
+    n_classes: int = 0, n_trees: int = 1,
 ) -> int:
     """Dynamic shared memory of one CTA, in bytes.
 
     The one formula for it: the wrappers pass this count to the launch
-    functions of ``csrc/tree_eval.cu``, whose kernels carve their record
-    tile, path buffers and tables out of it in this order, then the vote
-    kernels' (block_m, n_classes) int32 vote tile (``n_classes`` = 0 for the
-    class kernels).
+    functions of ``csrc/tree_eval.cu``, whose kernels carve their layout
+    out of it in this order.  Data-parallel: the (block_m, A) record tile,
+    one tree's four tables, then the vote kernel's (block_m, n_classes) int32
+    vote tile (``n_classes`` = 0 for the class kernels).  Speculative: the
+    record tile with rows padded to a multiple of 4 floats, the tables of
+    ``table_chunk`` trees (threshold, child, class_val, and attr_idx or the
+    one-hot form's (A, N) attr_select), on the shared path (``jump_slots``
+    0) two double-buffered N-int paths (two records a step) for each of
+    ``spec_warps`` warps, then the vote tile.
 
     The quantized kernels K7/K8 take the ``gather`` footprint of K3/K4:
     their narrow tables are widened to 4 bytes a node as they are staged
     into shared memory (off the inner loop), so a node costs what it does
     in K3 gather/K4 whatever its stored width.
     """
-    votes = block_m * n_classes
     if algorithm == "data_parallel":
-        return 4 * (block_m * n_attrs + 4 * n_nodes + votes)
-    select = n_attrs * n_nodes if jump_mode == "onehot" else n_nodes
-    return 4 * (block_m * n_attrs + 2 * block_m * n_nodes + 3 * n_nodes + select + votes)
+        return 4 * (block_m * n_attrs + 4 * n_nodes + block_m * n_classes)
+    fixed, tree = _spec_words(block_m, n_attrs, n_nodes, jump_mode, n_classes)
+    chunk = table_chunk(block_m, n_attrs, n_nodes, jump_mode, n_classes, n_trees)
+    return 4 * (fixed + chunk * tree)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "k1_speculative": [_P] * 7 + [_I] * 7 + [_P],
+    "k1_speculative": [_P] * 7 + [_I] * 9 + [_P],
     "k2_data_parallel": [_P] * 6 + [_I] * 6 + [_P],
-    "k3_fused_speculative": [_P] * 7 + [_I] * 8 + [_P],
+    "k3_fused_speculative": [_P] * 7 + [_I] * 11 + [_P],
     "k4_fused_data_parallel": [_P] * 6 + [_I] * 7 + [_P],
-    "k5_fused_votes_speculative": [_P] * 7 + [_I] * 9 + [_P],
+    "k5_fused_votes_speculative": [_P] * 7 + [_I] * 12 + [_P],
     "k6_fused_votes_data_parallel": [_P] * 6 + [_I] * 8 + [_P],
-    "k7_fused_speculative_q": [_P] * 6 + [_I] * 11 + [_P],
+    "k7_fused_speculative_q": [_P] * 6 + [_I] * 14 + [_P],
     "k8_fused_data_parallel_q": [_P] * 6 + [_I] * 11 + [_P],
 }
 
@@ -128,6 +191,8 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.tree_eval_speculative_per_sm.argtypes = [_I] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.tree_eval_speculative_per_sm.restype = ctypes.c_int
     lib.tree_eval_error_string.argtypes = [ctypes.c_int]
     lib.tree_eval_error_string.restype = ctypes.c_char_p
     return lib
@@ -155,12 +220,14 @@ def _check(
             raise ValueError(
                 f"{name} must be contiguous {want} {shape}, got {t.dtype} {tuple(t.shape)}"
             )
-    n = tables["threshold"][2][-1]
-    return m, a, n, _tile_smem(algorithm, block_m, a, n, jump_mode, n_classes)
+    lead = tables["threshold"][2]
+    n, n_trees = lead[-1], (lead[0] if len(lead) == 2 else 1)
+    return m, a, n, _tile_smem(algorithm, block_m, a, n, jump_mode, n_classes, n_trees)
 
 
 def _tile_smem(
-    algorithm: str, block_m: int, n_attrs: int, n_nodes: int, jump_mode: str, n_classes: int = 0
+    algorithm: str, block_m: int, n_attrs: int, n_nodes: int, jump_mode: str, n_classes: int = 0,
+    n_trees: int = 1,
 ) -> int:
     """Shared-memory bytes of a launchable tile; raises for a tile no CTA can hold."""
     if jump_mode not in JUMP_MODES:
@@ -169,13 +236,38 @@ def _tile_smem(
         raise ValueError(f"block_m={block_m} is not a valid {algorithm} tile")
     if n_classes < 0:
         raise ValueError(f"n_classes={n_classes} is negative")
-    need = smem_bytes(algorithm, block_m, n_attrs, n_nodes, jump_mode, n_classes)
+    need = smem_bytes(algorithm, block_m, n_attrs, n_nodes, jump_mode, n_classes, n_trees)
     if need > SMEM_MAX:
         raise ValueError(
             f"block_m={block_m} needs {need} B of shared memory for N={n_nodes}, "
             f"A={n_attrs}, C={n_classes}; a CTA has {SMEM_MAX} B"
         )
     return need
+
+
+def _spec_launch(block_m: int, a: int, n: int, jump_mode: str, n_classes: int = 0, n_trees: int = 1):
+    """(trees a chunk, warps a CTA, register slots) of a speculative launch."""
+    return (table_chunk(block_m, a, n, jump_mode, n_classes, n_trees), spec_warps(block_m),
+            jump_slots(n, a, jump_mode))
+
+
+def speculative_grid(
+    kernel: int, variant: int, m: int, block_m: int, n_attrs: int, n_nodes: int,
+    jump_mode: str = "gather", n_classes: int = 0, n_trees: int = 1,
+) -> tuple[int, int]:
+    """(CTAs, CTAs a SM) of a launch of speculative kernel K``kernel`` (1, 3,
+    5 or 7; ``variant`` is the one-hot flag, or K7's threshold code) on the
+    current card: the SMs times the CTAs one SM holds with this footprint,
+    and at most one CTA per ``spec_warps`` records, each CTA taking an equal
+    run of the ``m`` records."""
+    smem = smem_bytes("speculative", block_m, n_attrs, n_nodes, jump_mode, n_classes, n_trees)
+    _, warps, slots = _spec_launch(block_m, n_attrs, n_nodes, jump_mode, n_classes, n_trees)
+    per_sm = ctypes.c_int(0)
+    err = _library().tree_eval_speculative_per_sm(kernel, variant, slots, warps, smem, ctypes.byref(per_sm))
+    if err != 0:
+        raise RuntimeError(f"occupancy of K{kernel} failed: CUDA error {err}")
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    return min(sms * max(per_sm.value, 1), -(-m // warps)), per_sm.value
 
 
 def _launch(c_name: str, counter: str, tensors, ints) -> None:
@@ -312,12 +404,13 @@ def speculative(
         )
     tables = _tables(attr_idx, threshold, child, class_val, (), attr_select, records.shape[-1])
     m, a, n, smem = _check(records, tables, "speculative", block_m, jump_mode)
+    _, warps, slots = _spec_launch(block_m, a, n, jump_mode)
     out = torch.empty((m,), dtype=torch.int32, device=records.device)
     if m:
         _launch(
             "k1_speculative", f"speculative/{jump_mode}",
             (records, attr_idx, attr_select, threshold, child, class_val, out),
-            (m, a, n, block_m, total_jumps, int(jump_mode == "onehot"), smem),
+            (m, a, n, block_m, total_jumps, int(jump_mode == "onehot"), warps, slots, smem),
         )
     return out
 
@@ -353,12 +446,13 @@ def fused_speculative(
     t = threshold.shape[0]
     tables = _tables(attr_idx, threshold, child, class_val, (t,), attr_select, records.shape[-1])
     m, a, n, smem = _check(records, tables, "speculative", block_m, jump_mode)
+    chunk, warps, slots = _spec_launch(block_m, a, n, jump_mode, 0, t)
     out = torch.empty((t, m), dtype=torch.int32, device=records.device)
     if m and t:
         _launch(
             "k3_fused_speculative", f"fused_speculative/{jump_mode}",
             (records, attr_idx, attr_select, threshold, child, class_val, out),
-            (m, a, n, t, block_m, total_jumps, int(jump_mode == "onehot"), smem),
+            (m, a, n, t, block_m, chunk, total_jumps, int(jump_mode == "onehot"), warps, slots, smem),
         )
     return out
 
@@ -399,11 +493,13 @@ def fused_votes_speculative(
     m, a, n, smem = _check(records, tables, "speculative", block_m, jump_mode, n_classes)
     if not (m and t and n_classes):
         return torch.zeros((m, n_classes), dtype=torch.int32, device=records.device)
+    chunk, warps, slots = _spec_launch(block_m, a, n, jump_mode, n_classes, t)
     out = torch.empty((m, n_classes), dtype=torch.int32, device=records.device)
     _launch(
         "k5_fused_votes_speculative", f"fused_votes_speculative/{jump_mode}",
         (records, attr_idx, attr_select, threshold, child, class_val, out),
-        (m, a, n, t, n_classes, block_m, total_jumps, int(jump_mode == "onehot"), smem),
+        (m, a, n, t, n_classes, block_m, chunk, total_jumps, int(jump_mode == "onehot"),
+         warps, slots, smem),
     )
     return out
 
@@ -439,12 +535,14 @@ def _launch_q(c_name: str, counter: str, records, attr_idx, threshold, child, cl
     out = torch.empty((t, m), dtype=torch.int32, device=records.device)
     if m and t:
         storage, code = THR_CODES[threshold.dtype]
-        _launch(
-            c_name, f"{counter}/{storage}",
-            (records, attr_idx, threshold, child, class_val, out),
-            (m, a, n, t, block_m, depth_arg, code, attr_idx.element_size(),
-             child.element_size(), class_val.element_size(), smem),
-        )
+        widths = (code, attr_idx.element_size(), child.element_size(), class_val.element_size())
+        if algorithm == "speculative":
+            chunk, warps, slots = _spec_launch(block_m, a, n, "gather", 0, t)
+            ints = (m, a, n, t, block_m, chunk, depth_arg, *widths, warps, slots, smem)
+        else:
+            ints = (m, a, n, t, block_m, depth_arg, *widths, smem)
+        _launch(c_name, f"{counter}/{storage}", (records, attr_idx, threshold, child, class_val, out),
+                ints)
     return out
 
 

@@ -29,9 +29,9 @@ from repro_torch.core.tree import EncodedTree, attr_select_matrix, check_table_i
 from repro_torch.kernels.tree_eval import kernel as _k
 from repro_torch.kernels.tree_eval.quant import QuantizedForest, packed_forest_nbytes
 
-SMEM_TARGET = 48 * 1024   # a tile this small needs no opt-in and leaves room
-                          # for several CTAs on one SM
-SPECULATIVE_BM_MAX = 64   # records per speculative CTA (256 threads)
+SMEM_TARGET = _k.SMEM_TARGET   # a tile this small needs no opt-in and leaves room
+                               # for several CTAs on one SM
+SPECULATIVE_BM_MAX = 128  # records per speculative tile (8 warps, whole records each)
 DATA_PARALLEL_BM_MAX = 256  # records (= threads) per data-parallel CTA
 ALGORITHMS = ("speculative", "data_parallel")
 
@@ -48,12 +48,15 @@ def choose_block_m(
 
     The largest power of two up to the algorithm's cap whose tile fits in
     ``SMEM_TARGET``; failing that, in all a CTA may opt into (``SMEM_MAX``).
-    The speculative footprint grows as ``block_m·N·8`` (two path buffers),
-    plus ``A·N·4`` for the one-hot form's ``attr_select``.  The vote
-    kernels (K5/K6) add their (block_m, C) int32 vote tile, ``block_m·C·4``:
-    pass ``n_classes`` for them, 0 for the class kernels.  The quantized
-    kernels (K7/K8) widen their tables as they stage them, so their tile is
-    sized as the ``gather`` form's.
+    The speculative footprint is the record tile (``block_m·A`` floats,
+    rows padded to 4), one tree's tables at least (``N·4`` words, or
+    ``N·(3 + A)`` for the one-hot form's ``attr_select``) and, for N > 64,
+    each warp's ``4·N`` ints of paths; the kernel stages as many more trees as
+    fit (``kernel.table_chunk``), so the forest's size does not change the
+    tile.  The vote kernels (K5/K6) add their (block_m, C) int32 vote tile,
+    ``block_m·C·4``: pass ``n_classes`` for them, 0 for the class kernels.
+    The quantized kernels (K7/K8) widen their tables as they stage them, so
+    their tile is sized as the ``gather`` form's.
     """
     top = DATA_PARALLEL_BM_MAX if algorithm == "data_parallel" else SPECULATIVE_BM_MAX
     for budget in (SMEM_TARGET, _k.SMEM_MAX):

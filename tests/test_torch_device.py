@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from repro_torch.core import (
+    BOTTOM,
     EncodedForest,
     Node,
     breadth_first_encode,
@@ -30,6 +31,7 @@ from repro_torch.core import (
 from repro_torch.kernels.tree_eval import CascadeEvaluator, QuantizedForest, plan_cascade
 from repro_torch.kernels.tree_eval import kernel as K
 from repro_torch.kernels.tree_eval import ops
+from repro_torch.core.forest import vote_counts
 from repro_torch.kernels.tree_eval.quant import from_bits, to_bits
 from repro_torch.kernels.tree_eval.ref import forest_eval_ref, tree_eval_ref
 
@@ -240,13 +242,116 @@ def test_cascade_on_card_equals_cascade_on_cpu(cuda_device, algorithm, jump_mode
         assert (got.stages_run, got.stage_survivors) == (want.stages_run, want.stage_survivors)
 
 
+def _bfs_forest(n_nodes: int, n_trees: int, seed: int, n_attrs: int = 19, n_classes: int = 7):
+    """(T, N) int32/f32 tables of random breadth-first trees of exactly
+    ``n_nodes`` nodes (unreachable self-looping leaves pad a tree that stops
+    short), and the forest's depth.  Tree 0 splits every node it can (the
+    deepest); the others stop at random.  Thresholds are multiples of 1/8
+    (exact in bf16 and f16; 0.5 ties the adversarial records), and leaf
+    classes are drawn from [0, n_classes], one past the vote kernels' C."""
+    rng = np.random.default_rng(seed)
+    attr = np.zeros((n_trees, n_nodes), np.int32)
+    thr = np.full((n_trees, n_nodes), np.inf, np.float32)
+    child = np.tile(np.arange(n_nodes, dtype=np.int32), (n_trees, 1))
+    cls = rng.integers(0, n_classes + 1, (n_trees, n_nodes)).astype(np.int32)
+    depth = 0
+    for t in range(n_trees):
+        level, queue, nxt = {0: 0}, [0], 1
+        while queue and nxt + 2 <= n_nodes:
+            node = queue.pop(0)
+            if t and rng.random() < 0.2:
+                continue                      # a leaf
+            attr[t, node] = rng.integers(0, n_attrs)
+            thr[t, node] = rng.integers(-16, 17) / 8
+            child[t, node], cls[t, node] = nxt, BOTTOM
+            for c in (nxt, nxt + 1):
+                level[c] = level[node] + 1
+                queue.append(c)
+            nxt += 2
+        depth = max(depth, max(level.values()))
+    return attr, thr, child, cls, depth
+
+
+def _select(attr: torch.Tensor, n_attrs: int) -> torch.Tensor:
+    """The one-hot form's (T, A, N) attr_select of (T, N) attribute indices."""
+    return torch.nn.functional.one_hot(attr.long(), n_attrs).transpose(-1, -2).float().contiguous()
+
+
+def _narrowest(table: torch.Tensor) -> torch.Tensor:
+    return next(table.to(dt) for dt in INDEX_DTYPES if int(table.max()) <= torch.iinfo(dt).max)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_nodes", [1, 31, 32, 33, 63, 64, 65, 1023])
+@pytest.mark.parametrize("n_trees", [1, 9, 16])
+def test_speculative_kernels_across_cut_offs_on_card(cuda_device, n_nodes, n_trees):
+    """K1 (T = 1), K3 and K5 in both forms and K7 in every threshold storage
+    against their plain versions, on both sides of the register slots' cut-off
+    (N 32) and of the register/shared one (N 64), for every jump count up to
+    the forest's, M with full and partial tiles (the default tile and one of
+    3 rows), and C ∈ {2, 7} with classes outside [0, C)."""
+    attr, thr, child, cls, depth = _bfs_forest(n_nodes, n_trees, seed=n_nodes * 100 + n_trees)
+    attr, thr, child, cls = (torch.from_numpy(x).to(cuda_device) for x in (attr, thr, child, cls))
+    sel = _select(attr, 19)
+    narrow = (_narrowest(attr), _narrowest(child), _narrowest(cls))
+    for m in (1, 7, 1000, 65_536):
+        raw = torch.from_numpy(_records(m)).to(cuda_device)
+        for mode, rec in (("gather", raw), ("onehot", sanitize_records(raw))):
+            args = (rec, attr, sel, thr, child, cls)
+            for jumps in range(_jumps(depth) + 1):
+                want = K.fused_speculative_plain(*args, total_jumps=jumps, jump_mode=mode)
+                for tile in (None, 3):
+                    key = (m, mode, jumps, tile)
+                    bm = tile or ops.choose_block_m(n_nodes, 19, jump_mode=mode)
+                    got = K.fused_speculative(*args, total_jumps=jumps, jump_mode=mode, block_m=bm)
+                    assert torch.equal(got, want), ("K3", *key)
+                    if n_trees == 1:
+                        tree = (rec, *(x[0] for x in args[1:]))
+                        got = K.speculative(*tree, total_jumps=jumps, jump_mode=mode, block_m=bm)
+                        plain = K.speculative_plain(*tree, total_jumps=jumps, jump_mode=mode)
+                        assert torch.equal(got, plain), ("K1", *key)
+                    for c in (2, 7):
+                        bm = tile or ops.choose_block_m(n_nodes, 19, jump_mode=mode, n_classes=c)
+                        got = K.fused_votes_speculative(*args, n_classes=c, total_jumps=jumps,
+                                                        jump_mode=mode, block_m=bm)
+                        # K5's plain version is vote_counts of K3's
+                        assert torch.equal(got, vote_counts(want, c)), ("K5", c, *key)
+                    if mode == "gather":
+                        bm = tile or ops.choose_block_m(n_nodes, 19)
+                        for storage in THR_STORAGES:
+                            q_thr = thr.to(getattr(torch, storage))
+                            got = K.fused_speculative_q(raw, narrow[0], q_thr, *narrow[1:],
+                                                        total_jumps=jumps, block_m=bm)
+                            assert torch.equal(got, want), ("K7", storage, *key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_attrs", [1, 20, 21, 40, 41])
+@pytest.mark.parametrize("n_nodes", [32, 51, 64])
+def test_onehot_select_register_cut_off_on_card(cuda_device, n_attrs, n_nodes):
+    """The one-hot form keeps a lane's attr_select columns in registers while
+    A·slots ≤ 40 and takes the shared path beyond; both sides equal the plain
+    version (sanitized records with ±inf and NaN rows, 5 trees)."""
+    attr, thr, child, cls, depth = _bfs_forest(n_nodes, 5, seed=n_attrs + n_nodes, n_attrs=n_attrs)
+    attr, thr, child, cls = (torch.from_numpy(x).to(cuda_device) for x in (attr, thr, child, cls))
+    rec = np.random.default_rng(n_attrs).normal(size=(3000, n_attrs)).astype(np.float32)
+    rec[0], rec[1, ::2], rec[2] = np.inf, -np.inf, np.nan
+    rec = sanitize_records(torch.from_numpy(rec).to(cuda_device))
+    args = (rec, attr, _select(attr, n_attrs), thr, child, cls)
+    for jumps in range(_jumps(depth) + 1):
+        want = K.fused_speculative_plain(*args, total_jumps=jumps, jump_mode="onehot")
+        bm = ops.choose_block_m(n_nodes, n_attrs, jump_mode="onehot")
+        got = K.fused_speculative(*args, total_jumps=jumps, jump_mode="onehot", block_m=bm)
+        assert torch.equal(got, want), (jumps, K.jump_slots(n_nodes, n_attrs, "onehot"))
+
+
 @pytest.mark.gpu
 def test_bad_tiles_and_tables_raise_on_card(cuda_device):
     packed = ops.PackedTree(_tree(8, seed=5), 19, device=cuda_device)
     rec = torch.zeros((10, 19), device=cuda_device)
     args = (rec, packed.attr_idx, packed.attr_select, packed.threshold, packed.child, packed.class_val)
     with pytest.raises(ValueError, match="shared memory"):
-        K.speculative(*args, total_jumps=3, jump_mode="onehot", block_m=64)
+        K.speculative(*args, total_jumps=3, jump_mode="onehot", block_m=4096)
     with pytest.raises(ValueError, match="attr_idx must be contiguous"):
         K.speculative(rec, packed.attr_idx.double(), *args[2:], total_jumps=3, jump_mode="gather", block_m=4)
     with pytest.raises(ValueError, match="block_m=2048"):

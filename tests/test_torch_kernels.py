@@ -179,10 +179,12 @@ def test_choose_block_m_fits_shared_memory(algorithm, jump_mode, n_nodes):
         assert bm >= 1 and bm & (bm - 1) == 0
         need = K.smem_bytes(algorithm, bm, 19, n_nodes, jump_mode, c)
         assert need <= K.SMEM_MAX
+        budget = ops.SMEM_TARGET if need <= ops.SMEM_TARGET else K.SMEM_MAX
         cap = ops.DATA_PARALLEL_BM_MAX if algorithm == "data_parallel" else ops.SPECULATIVE_BM_MAX
         if bm < cap:   # the next larger tile must not fit the budget that was used
-            budget = ops.SMEM_TARGET if need <= ops.SMEM_TARGET else K.SMEM_MAX
             assert K.smem_bytes(algorithm, 2 * bm, 19, n_nodes, jump_mode, c) > budget
+        # a whole forest's tables go in chunks that keep the tile in the same budget
+        assert K.smem_bytes(algorithm, bm, 19, n_nodes, jump_mode, c, n_trees=16) <= budget
 
 
 def test_choose_block_m_raises_when_no_tile_fits():
@@ -216,6 +218,62 @@ def test_launch_shared_memory_is_the_checked_footprint(algorithm, jump_mode):
         K._tile_smem(algorithm, 0, 19, 511, jump_mode)
     with pytest.raises(ValueError, match="unknown jump_mode"):
         K._tile_smem(algorithm, bm, 19, 511, "scan")
+    # a forest: the speculative tile holds the tables of ``table_chunk`` trees
+    for n in (51, 511):
+        bm = ops.choose_block_m(n, 19, algorithm=algorithm, jump_mode=jump_mode)
+        for t in (1, 9, 16):
+            need = K._tile_smem(algorithm, bm, 19, n, jump_mode, 0, t)
+            assert need == K.smem_bytes(algorithm, bm, 19, n, jump_mode, 0, t)
+            if algorithm == "data_parallel":
+                assert need == K.smem_bytes(algorithm, bm, 19, n, jump_mode)   # one tree at a time
+            else:
+                words = n * (3 + (19 if jump_mode == "onehot" else 1))
+                chunk = K.table_chunk(bm, 19, n, jump_mode, 0, t)
+                assert need == K.smem_bytes(algorithm, bm, 19, n, jump_mode) + 4 * (chunk - 1) * words
+
+
+@pytest.mark.parametrize("n_nodes,n_attrs,jump_mode,slots", [
+    (1, 19, "gather", 1), (31, 19, "gather", 1), (32, 19, "gather", 1), (33, 19, "gather", 2),
+    (51, 19, "gather", 2), (63, 19, "gather", 2), (64, 19, "gather", 2), (65, 19, "gather", 0),
+    (75, 19, "gather", 0), (1023, 19, "gather", 0), (51, 19, "onehot", 2), (32, 40, "onehot", 1),
+    (32, 41, "onehot", 0), (64, 20, "onehot", 2), (64, 21, "onehot", 0), (65, 1, "onehot", 0),
+])
+def test_jump_slots_cut_offs(n_nodes, n_attrs, jump_mode, slots):
+    """A lane holds node n in slot n // 32: registers up to 2 slots (and, one-hot,
+    A·slots ≤ 40 attr_select floats), else the warp's paths in shared memory,
+    which alone add two double-buffered N-int paths per warp to the tile."""
+    assert K.jump_slots(n_nodes, n_attrs, jump_mode) == slots
+    a4 = -(-n_attrs // 4) * 4
+    tree = n_nodes * (3 + (n_attrs if jump_mode == "onehot" else 1))
+    for bm in (1, 3, 8, 64):
+        paths = 0 if slots else 4 * n_nodes * min(bm, K.SPEC_WARPS)
+        assert K.smem_bytes("speculative", bm, n_attrs, n_nodes, jump_mode) == 4 * (bm * a4 + paths + tree)
+
+
+def test_table_chunk_stages_the_forest_once_or_in_equal_chunks():
+    """The paper's 16-tree forest (N 51, A 19): the gather form stages all its
+    tables once per CTA; the one-hot form's attr_select makes a tree 51·22
+    words, so they go in the fewest equal chunks that fit ``SMEM_TARGET``."""
+    bm = ops.choose_block_m(51, 19)
+    assert bm == ops.SPECULATIVE_BM_MAX == 128
+    assert K.table_chunk(bm, 19, 51, "gather", 0, 16) == 16
+    assert K.smem_bytes("speculative", bm, 19, 51, "gather", 0, 16) == 4 * (128 * 20 + 16 * 51 * 4)
+    assert K.table_chunk(bm, 19, 51, "onehot", 0, 16) == 8
+    assert K.table_chunk(bm, 19, 51, "onehot", 7, 9) == 5     # chunks of 5 and 4, not 8 and 1
+    for mode in ("gather", "onehot"):
+        for c in (0, 7):
+            fixed, tree = K._spec_words(bm, 19, 51, mode, c)
+            for t in (1, 2, 9, 16, 100):
+                chunk = K.table_chunk(bm, 19, 51, mode, c, t)
+                n_chunks = -(-t // chunk)
+                assert 1 <= chunk <= t and chunk == -(-t // n_chunks)            # equal chunks
+                assert K.smem_bytes("speculative", bm, 19, 51, mode, c, t) == 4 * (fixed + chunk * tree)
+                assert 4 * (fixed + chunk * tree) <= ops.SMEM_TARGET
+                if n_chunks > 1:   # one chunk fewer would not fit
+                    assert 4 * (fixed + -(-t // (n_chunks - 1)) * tree) > ops.SMEM_TARGET
+    # a tree too big for SMEM_TARGET is staged alone, in what a CTA may opt into
+    assert K.table_chunk(1, 19, 2047, "onehot", 0, 16) == 1
+    assert ops.SMEM_TARGET < K.smem_bytes("speculative", 1, 19, 2047, "onehot", 0, 16) <= K.SMEM_MAX
 
 
 def test_packing_rejects_out_of_range_indices():
