@@ -46,16 +46,21 @@ Phases, each printing its own lines:
    its plain version there and timed (device time from the profiler, record
    buffers rotated past the 50 MB L2), its plain version (CUDA events), and
    its bound; K7 and K8 in each threshold storage on the layouts of phase 5q
-   that store it, beside K3 gather and K4; each speculative row names the
-   jump path it took (registers or shared memory) and its table chunk; then
+   that store it, beside K3 gather and K4; K5 and K6 also at the whole forest
+   and at the cascade's second stage (the records of image 0 that its first
+   stage leaves); each row names its CTA, table chunk and grid, and each
+   speculative row the jump path it took (registers or shared memory); then
    K3 at N on both sides of the path cut-offs (32, 64) on random forests;
 8. the ``kernels`` JSON line, the card line, and the ``ok`` line.
 
-    python3 chip_smoke.py --parent DIR
+    python3 chip_smoke.py --parent DIR [DIR ...]
 
-also times the speculative kernels K1/K3/K5/K7 of the checkout at DIR (an
-unpacked earlier commit) in turns with this tree's, on phase 7's inputs:
-parent, this, this, parent; their outputs must be equal.
+also times the kernels of each checkout DIR (an unpacked earlier commit) in
+turns with this tree's, on phase 7's inputs: parent, this, this, parent;
+their outputs must be equal.  K1/K3/K5 in both forms, K7 and K8 in each
+threshold storage, K2, K4, and K6 at the cascade's first stage, at the whole
+forest and at its second stage; each at its own checkout's tile
+(``choose_block_m``), the data-parallel rows with both grids.
 
 Kernel launches are counted from zero over phases 4–6 (5q included) only,
 and every kernel must have launched there.  Any mismatch, missing launch or exception
@@ -228,21 +233,34 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
 
 
-SPEC_IDS = {"speculative": 1, "fused_speculative": 3, "fused_votes_speculative": 5, "fused_speculative_q": 7}
+KERNEL_IDS = {"speculative": 1, "data_parallel": 2, "fused_speculative": 3, "fused_data_parallel": 4,
+              "fused_votes_speculative": 5, "fused_votes_data_parallel": 6, "fused_speculative_q": 7,
+              "fused_data_parallel_q": 8}
 
 
-def jump_path(name: str, m: int, n: int, a: int, block_m: int, n_classes: int = 0, n_trees: int = 1) -> str:
-    """The jump path, table chunk and grid of the speculative launch ``name``."""
-    wrapper, form = name.split("/")
+def kernel_id(name: str) -> tuple[int, int, str]:
+    """(kernel number, variant, jump_mode) of the LAUNCHES key ``name``, as
+    ``kernel.launch_grid`` takes them."""
+    wrapper, _, form = name.partition("/")
     jump_mode = "onehot" if form == "onehot" else "gather"
     variant = K.THR_CODES[getattr(torch, form)][1] if wrapper.endswith("_q") else int(form == "onehot")
-    slots = K.jump_slots(n, a, jump_mode)
-    path = f"registers ({slots} slot{'s' * (slots > 1)} a lane)" if slots else "shared memory"
-    chunk = K.table_chunk(block_m, a, n, jump_mode, n_classes, n_trees)
-    grid, per_sm = K.speculative_grid(SPEC_IDS[wrapper], variant, m, block_m, a, n, jump_mode,
-                                      n_classes, n_trees)
-    return (f"path {path}, {K.spec_warps(block_m)} warps, tables {chunk} of {n_trees} trees a chunk, "
-            f"grid {grid} CTAs ({per_sm} a SM)")
+    return KERNEL_IDS[wrapper], variant, jump_mode
+
+
+def launch_shape(name: str, m: int, n: int, a: int, block_m: int, n_classes: int = 0, n_trees: int = 1) -> str:
+    """The CTA, table chunk and grid of the launch ``name``; for a speculative
+    kernel also its jump path."""
+    kernel, variant, jump_mode = kernel_id(name)
+    algorithm = "speculative" if kernel % 2 else "data_parallel"
+    if algorithm == "speculative":
+        slots = K.jump_slots(n, a, jump_mode)
+        path = f"registers ({slots} slot{'s' * (slots > 1)} a lane)" if slots else "shared memory"
+        cta = f"path {path}, {K.spec_warps(block_m)} warps"
+    else:
+        cta = f"{K.dp_threads(block_m)} threads"
+    chunk = K.table_chunk(block_m, a, n, jump_mode, n_classes, n_trees, algorithm)
+    grid, per_sm = K.launch_grid(kernel, variant, m, block_m, a, n, jump_mode, n_classes, n_trees)
+    return f"{cta}, tables {chunk} of {n_trees} trees a chunk, grid {grid} CTAs ({per_sm} a SM)"
 
 
 def phase_kernels(dev) -> dict:
@@ -668,16 +686,23 @@ def profiled_ms(runs, n_bufs: int, iters: int) -> dict[str, tuple[float, int]]:
     """Mean device time of the kernel that each ``fn(i)`` of ``runs`` launches, by label.
 
     ``runs`` is a list of (label, fn); a label may come back (turns), and each
-    label's kernel has a name no other label's has.  Timed with the profiler
-    because a wrapper call costs the host more than these kernels cost the
-    card, so events around back-to-back calls would time the host; in one
-    profiler session, because a process's later sessions can lose kernels.
-    Returns {label: (mean ms, kernels seen)}; fails the run if a label's
-    kernel was not seen, rather than report host time.
+    call launches one kernel.  A fill of a one-element tensor follows each
+    run as a marker, so the device's kernels, in the order they ran, split
+    into the runs in the order they were made (two labels may launch
+    kernels of one name, and a kernel the profiler loses shortens its run
+    only).  Timed with the profiler because a wrapper call costs the host
+    more than these kernels cost the card, so events around back-to-back
+    calls would time the host; in one profiler session, because a process's
+    later sessions can lose kernels.  Returns {label: (mean ms, kernels
+    seen)}; fails the run unless every run and marker was seen, and unless
+    each run is kernels of one name, at most ``iters`` of them and more than
+    half (the profiler loses a few: 2 of 200 once on the H100), so that the
+    mean per kernel is the mean per call: a second kernel a call (a copy, a
+    memset, a second launch) would otherwise divide it unseen.
     """
     from torch.profiler import ProfilerActivity, profile
 
-    labels = list(dict.fromkeys(label for label, _ in runs))
+    marker = torch.zeros(1, device="cuda")
     for _, fn in runs:
         for i in range(3):
             fn(i % n_bufs)
@@ -686,15 +711,28 @@ def profiled_ms(runs, n_bufs: int, iters: int) -> dict[str, tuple[float, int]]:
         for _, fn in runs:
             for i in range(iters):
                 fn(i % n_bufs)
+            marker.fill_(0)
         torch.cuda.synchronize()
-    names = []   # kernel names in the order of their first launch
+    blocks, block = [], []
     for e in sorted(prof.events(), key=lambda e: e.time_range.start):
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in names:
-            names.append(e.key)
-    check(len(names) == len(labels), f"the profiler saw kernels {names} for {labels}")
-    seen = {e.key: e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
-    return {label: (seen[n].self_device_time_total / 1e3 / seen[n].count, seen[n].count)
-            for label, n in zip(labels, names)}
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "Fill" in e.key:
+            blocks.append(block)
+            block = []
+        else:
+            block.append(e)
+    check(len(blocks) == len(runs) and all(blocks),
+          f"the profiler saw {[len(b) for b in blocks]} kernels between markers for {len(runs)} runs")
+    for (label, _), block in zip(runs, blocks):
+        names = {e.key for e in block}
+        check(len(names) == 1 and iters // 2 < len(block) <= iters,
+              f"{label}: {len(block)} kernels named {sorted(names)} for {iters} calls of one kernel each")
+    total: dict = {}
+    for (label, _), block in zip(runs, blocks):
+        us, n = total.get(label, (0.0, 0))
+        total[label] = (us + sum(e.time_range.elapsed_us() for e in block), n + len(block))
+    return {label: (us / 1e3 / n, n) for label, (us, n) in total.items()}
 
 
 def bound(m: int, a: int, t: int, n: int, compares: int, out_bytes: int | None = None,
@@ -753,7 +791,7 @@ def phase_timing(dev, image, enc, forest, depth_sum_tree, depth_sum_forest, card
             torch.cuda.synchronize()
             check(torch.equal(got, want), f"{name} != plain on the main-path inputs")
             bound_ms, bound_by = bound(m, a, t, n, depth_sum)
-            how = f"; {jump_path(name, m, n, a, bm, 0, t)}" if algorithm == "speculative" else ""
+            how = f"; {launch_shape(name, m, n, a, bm, 0, t)}"
             runs.append((name, run))
             rows.append(dict(name=name, call_ms=event_ms(run, n_bufs, iters=200),
                              plain_ms=event_ms(plain, n_bufs, iters=10, warmup=1), bound_ms=bound_ms,
@@ -769,15 +807,19 @@ def phase_timing(dev, image, enc, forest, depth_sum_tree, depth_sum_forest, card
     return rows
 
 
-def phase_vote_timing(dev, image, forest, stage_trees, depth_sums, card):
-    """K5 and K6 at the cascade's first-stage shape and at the whole forest."""
-    rec = torch.from_numpy(image).to(dev)
-    n_bufs = L2_BYTES // rec.nbytes + 2
-    raw = [rec.clone() for _ in range(n_bufs)]
-    clean = [sanitize_records(r) for r in raw]
-    m, a = rec.shape
+def phase_vote_timing(dev, image, forest, plan, depth_sums, second, card):
+    """K5 and K6 at the cascade's first-stage shape, at the whole forest, and
+    at its second stage (``second``: the records that survive the first)."""
     rows = []
-    for label, ids in (("first stage", stage_trees), ("whole forest", tuple(range(forest.n_trees)))):
+    for label, img, ids in (("first stage", image, plan.stage_trees(0)),
+                            ("whole forest", image, tuple(range(forest.n_trees))),
+                            ("second stage", second, plan.stage_trees(1))):
+        rec = torch.from_numpy(img).to(dev)
+        n_bufs = L2_BYTES // rec.nbytes + 2
+        raw = [rec.clone() for _ in range(n_bufs)]
+        clean = [sanitize_records(r) for r in raw]
+        m, a = rec.shape
+        sums = depth_sums if img is image else {i: int(observed_depths(forest.tree(i), img).sum()) for i in ids}
         # The cascade packs a stage with the whole forest's depth, as here.
         tabs = ops.PackedForest(EncodedForest([forest.tree(i) for i in ids]), N_ATTRS,
                                 max_depth=forest.max_depth, device=dev)
@@ -797,8 +839,8 @@ def phase_vote_timing(dev, image, forest, stage_trees, depth_sums, card):
             got, want = run(0), plain(0)
             torch.cuda.synchronize()
             check(torch.equal(got, want), f"{name} != plain on the {label} inputs")
-            bound_ms, bound_by = bound(m, a, t, n, sum(depth_sums[i] for i in ids), out_bytes=m * N_CLASSES * 4)
-            how = f"; {jump_path(name, m, n, a, bm, N_CLASSES, t)}" if algorithm == "speculative" else ""
+            bound_ms, bound_by = bound(m, a, t, n, sum(sums[i] for i in ids), out_bytes=m * N_CLASSES * 4)
+            how = f"; {launch_shape(name, m, n, a, bm, N_CLASSES, t)}"
             runs.append((name, run))
             lines.append(dict(name=name, plain_ms=event_ms(plain, n_bufs, iters=10, warmup=1),
                               bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_abs_err(got, want),
@@ -843,7 +885,7 @@ def phase_quant_timing(dev, image, layouts, rows, card):
             torch.cuda.synchronize()
             check(torch.equal(got, want), f"{name} != plain on the main-path inputs")
             bound_ms, bound_by = bound(m, a, q.n_trees, q.n_nodes, sum(tree_depths), table_bytes=table_bytes)
-            how = f"; {jump_path(name, m, q.n_nodes, a, bm, 0, q.n_trees)}" if algorithm == "speculative" else ""
+            how = f"; {launch_shape(name, m, q.n_nodes, a, bm, 0, q.n_trees)}"
             runs.append((name, run))
             out.append(dict(name=name, plain_ms=event_ms(plain, n_bufs, iters=10, warmup=1), bound_ms=bound_ms,
                             bound_by=bound_by, max_abs_err=max_abs_err(got, want), yardstick=yardstick,
@@ -905,7 +947,7 @@ def phase_cutoff(dev, image, card) -> None:
                       f"{name} != plain at N={n}")
                 runs.append(((n, jump_mode), run))
                 lines.append(((n, jump_mode), f"{name:24s} M={m} T={N_TREES} N={n} depth {tabs.max_depth} "
-                              f"jumps {ops._total_jumps(tabs.max_depth)}", jump_path(name, m, n, a, bm, 0, N_TREES)))
+                              f"jumps {ops._total_jumps(tabs.max_depth)}", launch_shape(name, m, n, a, bm, 0, N_TREES)))
         times = profiled_ms(runs, n_bufs, iters=100)
         for key, text, how in lines:
             ms = times[key][0]
@@ -938,54 +980,92 @@ def load_parent(root: Path):
     return pk, po
 
 
-def phase_parent(dev, image, enc, forest, stage_trees, layouts, root: Path, card) -> None:
-    """K1, K3, K5 (both forms) and K7 (three storages) of the checkout at
-    ``root`` against this tree's on phase 7's inputs, timed in turns: parent,
-    this, this, parent (profiler device time, record buffers rotated past L2)."""
+def phase_parent(dev, image, enc, forest, plan, second, layouts, root: Path, card) -> None:
+    """The kernels of the checkout at ``root`` against this tree's on phase
+    7's inputs, timed in turns: parent, this, this, parent (profiler device
+    time, record buffers rotated past L2).  Speculative: K1, K3, K5 (both
+    forms) and K7 (three storages); data-parallel: K2, K4, K6 at the
+    cascade's first stage, at the whole forest and at its second stage (on
+    ``second``, the records that survive the first), and K8 (three
+    storages).  The parent's tile is its own ``choose_block_m``'s."""
     pk, po = load_parent(root)
-    rec = torch.from_numpy(image).to(dev)
-    n_bufs = L2_BYTES // rec.nbytes + 2
-    raw = [rec.clone() for _ in range(n_bufs)]
-    clean = [sanitize_records(r) for r in raw]
-    m, a = rec.shape
+    bufs = {}
+    for key, img in (("image", image), ("second", second)):
+        rec = torch.from_numpy(img).to(dev)
+        n_bufs = L2_BYTES // rec.nbytes + 2   # each set overflows L2 on its own
+        bufs[key, "raw"] = [rec.clone() for _ in range(n_bufs)]
+        bufs[key, "clean"] = [sanitize_records(r) for r in bufs[key, "raw"]]
+    a = image.shape[1]
     tree = ops.PackedTree(enc, N_ATTRS, device=dev)
     packed = ops.PackedForest(forest, N_ATTRS, device=dev)
-    stage = ops.PackedForest(EncodedForest([forest.tree(i) for i in stage_trees]), N_ATTRS,
-                             max_depth=forest.max_depth, device=dev)
-    cases = []
+
+    def stage(s):
+        return ops.PackedForest(EncodedForest([forest.tree(i) for i in plan.stage_trees(s)]), N_ATTRS,
+                                max_depth=forest.max_depth, device=dev)
+
+    first, last = stage(0), stage(1)
+    cases = []   # (name, record buffers, tables, kwargs, wrapper, this block_m, parent block_m, C, T)
+
+    def add(name, recs, args, kw, fn, n, c, t, algorithm="speculative", jump_mode="gather"):
+        sizes = dict(algorithm=algorithm, jump_mode=jump_mode, n_classes=c)
+        cases.append((name, recs, args, kw, fn, ops.choose_block_m(n, a, **sizes),
+                      po.choose_block_m(n, a, **sizes), c, t))
+
     for jump_mode in ("gather", "onehot"):
-        bufs = clean if jump_mode == "onehot" else raw
-        for label, fn, tabs, extra, c in (("speculative", "speculative", tree, {}, 0),
-                                          ("fused_speculative", "fused_speculative", packed, {}, 0),
-                                          ("fused_votes_speculative", "fused_votes_speculative", stage,
-                                           {"n_classes": N_CLASSES}, N_CLASSES)):
+        recs = bufs["image", "clean" if jump_mode == "onehot" else "raw"]
+        for fn, tabs, c in (("speculative", tree, 0), ("fused_speculative", packed, 0),
+                            ("fused_votes_speculative", first, N_CLASSES)):
             args = (tabs.attr_idx, tabs.attr_select, tabs.threshold, tabs.child, tabs.class_val)
-            kw = dict(total_jumps=ops._total_jumps(tabs.max_depth), jump_mode=jump_mode, **extra)
-            sizes = (tabs.n_nodes, a)
-            cases.append((f"{label}/{jump_mode}", bufs, args, kw, fn,
-                          ops.choose_block_m(*sizes, jump_mode=jump_mode, n_classes=c),
-                          po.choose_block_m(*sizes, jump_mode=jump_mode, n_classes=c),
-                          f"N={tabs.n_nodes} T={getattr(tabs, 'n_trees', 1)}"))
+            kw = dict(total_jumps=ops._total_jumps(tabs.max_depth), jump_mode=jump_mode)
+            if c:
+                kw["n_classes"] = c
+            add(f"{fn}/{jump_mode}", recs, args, kw, fn, tabs.n_nodes, c, getattr(tabs, "n_trees", 1),
+                jump_mode=jump_mode)
+    raw = bufs["image", "raw"]
+    for label, fn, tabs, c, recs in (("data_parallel", "data_parallel", tree, 0, raw),
+                                     ("fused_data_parallel", "fused_data_parallel", packed, 0, raw),
+                                     ("fused_votes_data_parallel first stage", "fused_votes_data_parallel",
+                                      first, N_CLASSES, raw),
+                                     ("fused_votes_data_parallel whole forest", "fused_votes_data_parallel",
+                                      packed, N_CLASSES, raw),
+                                     ("fused_votes_data_parallel second stage", "fused_votes_data_parallel",
+                                      last, N_CLASSES, bufs["second", "raw"])):
+        kw = dict(max_depth=tabs.max_depth) | ({"n_classes": c} if c else {})
+        add(label, recs, (tabs.attr_idx, tabs.threshold, tabs.child, tabs.class_val), kw, fn, tabs.n_nodes,
+            c, getattr(tabs, "n_trees", 1), algorithm="data_parallel")
     for storage, q in timed_layouts(layouts).items():
-        cases.append((f"fused_speculative_q/{storage}", raw, (q.attr_idx, q.threshold, q.child, q.class_val),
-                      dict(total_jumps=ops._total_jumps(q.max_depth)), "fused_speculative_q",
-                      ops.choose_block_m(q.n_nodes, a), po.choose_block_m(q.n_nodes, a),
-                      f"N={q.n_nodes} T={q.n_trees}"))
+        args = (q.attr_idx, q.threshold, q.child, q.class_val)
+        add(f"fused_speculative_q/{storage}", raw, args, dict(total_jumps=ops._total_jumps(q.max_depth)),
+            "fused_speculative_q", q.n_nodes, 0, q.n_trees)
+        add(f"fused_data_parallel_q/{storage}", raw, args, dict(max_depth=q.max_depth),
+            "fused_data_parallel_q", q.n_nodes, 0, q.n_trees, algorithm="data_parallel")
     runs, lines = [], []
-    for name, bufs, args, kw, fn, bm, parent_bm, shape in cases:
-        this = lambda i, fn=fn, bufs=bufs, args=args, kw=kw, bm=bm: getattr(K, fn)(bufs[i], *args, block_m=bm, **kw)
-        parent = lambda i, fn=fn, bufs=bufs, args=args, kw=kw, bm=parent_bm: getattr(pk, fn)(
-            bufs[i], *args, block_m=bm, **kw)
+    for name, recs, args, kw, fn, bm, parent_bm, c, t in cases:
+        this = lambda i, fn=fn, recs=recs, args=args, kw=kw, bm=bm: getattr(K, fn)(
+            recs[i % len(recs)], *args, block_m=bm, **kw)
+        parent = lambda i, fn=fn, recs=recs, args=args, kw=kw, bm=parent_bm: getattr(pk, fn)(
+            recs[i % len(recs)], *args, block_m=bm, **kw)
         check(torch.equal(this(0), parent(0)), f"{name}: this tree's kernel and the parent's disagree")
         runs += [((name, "parent"), parent), ((name, "this"), this), ((name, "this"), this),
                  ((name, "parent"), parent)]
-        lines.append((name, shape, bm, parent_bm))
-    times = profiled_ms(runs, n_bufs, iters=100)
-    for name, shape, bm, parent_bm in lines:
+        m, n = recs[0].shape[0], args[0].shape[-1]
+        shape = f"M={m} N={n} T={t}" + (f" C={c}" if c else "")
+        key = name.split(" ")[0]
+        grid = launch_shape(key, m, n, a, bm, c, t)
+        kernel, variant, jump_mode = kernel_id(key)
+        if kernel % 2 == 0:
+            if hasattr(pk, "launch_grid"):
+                parent_grid = pk.launch_grid(kernel, variant, m, parent_bm, a, n, jump_mode, c, t)[0]
+            else:   # a checkout without launch_grid launches one data-parallel CTA per tile
+                parent_grid = -(-m // parent_bm)
+            grid += f"; parent grid {parent_grid} CTAs"
+        lines.append((name, shape, bm, parent_bm, grid))
+    times = profiled_ms(runs, max(len(b) for b in bufs.values()), iters=100)
+    for name, shape, bm, parent_bm, grid in lines:
         p_ms, t_ms = times[(name, "parent")][0], times[(name, "this")][0]
-        print(f"[parent] {card}: {name:32s} M={m} {shape}: parent {p_ms:.4f} ms (block_m {parent_bm}), "
+        print(f"[parent] {card}: {name:40s} {shape}: parent {p_ms:.4f} ms (block_m {parent_bm}), "
               f"this tree {t_ms:.4f} ms (block_m {bm}); parent / this {p_ms / t_ms:.2f}x "
-              f"(profiler, 200 launches each in turns parent, this, this, parent); outputs equal")
+              f"(profiler, 200 launches each in turns parent, this, this, parent); outputs equal; {grid}")
 
 
 def phase_breakdown(dev, image, enc, forest, plan, card) -> None:
@@ -1060,7 +1140,8 @@ def ptxas_lines(report: str) -> list[str]:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--parent", type=Path, help="an earlier checkout whose speculative kernels to time in turns")
+    parser.add_argument("--parent", type=Path, nargs="+", default=[],
+                        help="earlier checkouts whose kernels to time in turns with this tree's, one after another")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -1121,11 +1202,17 @@ def main() -> None:
     plan = cascade_plan(dev, forest, images[0], 2, 1.0)
     phase_breakdown(dev, images[0], enc, forest, plan, card)
     timings = phase_timing(dev, images[0], enc, forest, int(depths.sum()), forest_depths, card)
-    timings += phase_vote_timing(dev, images[0], forest, plan.stage_trees(0), tree_depth_sums, card)
+    ref = cascade_ref_from_classes(per_trees[0], order=plan.order, stage_sizes=plan.stage_sizes,
+                                   n_classes=N_CLASSES, bound=1.0)
+    second = images[0][ref.exit_stage != 0]    # the records the first stage leaves to the second
+    print(f"[setup] cascade 2 stages bound 1.0 on image 0: {len(second)} records reach stage 1 "
+          f"({plan.stage_sizes[1]} trees)")
+    timings += phase_vote_timing(dev, images[0], forest, plan, tree_depth_sums, second, card)
     timings += phase_quant_timing(dev, images[0], layouts, timings, card)
     phase_cutoff(dev, images[0], card)
-    if args.parent:
-        phase_parent(dev, images[0], enc, forest, plan.stage_trees(0), layouts, args.parent, card)
+    for root in args.parent:
+        print(f"[parent] {root}")
+        phase_parent(dev, images[0], enc, forest, plan, second, layouts, root, card)
     check(len(timings) == len(K.LAUNCHES), f"timed {len(timings)} kernels, not {len(K.LAUNCHES)}")
     kernels = []
     for row in timings:

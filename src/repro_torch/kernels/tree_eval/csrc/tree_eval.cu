@@ -26,7 +26,8 @@
 // classes, about 1.6 us at 3.35 TB/s; K3/K4 at T = 16 also write 4.19 MB of
 // per-tree classes, about 2.7 us; K5/K6 write 65,536·C·4 B of votes instead,
 // about 2.0 us at C = 7.  The tree tables (a few KB) are negligible.  The
-// data-parallel kernels come near that; the speculative ones cannot, since
+// data-parallel kernels come within 3–4x of that (launch, the first load of
+// the records and max_depth dependent rounds); the speculative ones cannot, since
 // Procedures 4/5 evaluate all N nodes of a tree for every record and then
 // run ``jumps`` pointer-jump rounds over them: N·(1 + jumps) shared-memory
 // accesses or warp shuffles per (record, tree), where a descent makes d_µ
@@ -75,30 +76,60 @@
 // more attributes it takes the shared path, which reads the columns from
 // shared memory.
 //
-// The data-parallel kernels K2/K4/K6/K8 (data_parallel_block): one thread per
-// record descends max_depth levels; each CTA stages its record tile once,
-// coalesced, and streams the trees' tables through shared memory, one tree
-// at a time.  K6's vote tile is zeroed before tree 0, the thread that owns
-// row r adds one at [r][cls] after each tree, and the CTA writes the tile
-// once as (M, C), so no atomics reach device memory.
-//
+// The data-parallel kernels K2/K4/K6/K8 (data_parallel_block): a descent is
+// max_depth dependent rounds idx = child + (x[attr] > threshold), each two
+// shared-memory loads, and what bounds these kernels is the latency of
+// those chains and how many are in flight.  A CTA has ceil(block_m / 2)
+// threads (kDpThreads, 512, at most: the tile has at most 1,024 rows) and
+// takes an equal run of the M records, starting at a multiple of 4, tile by
+// tile (block_m rows); thread i owns rows i, i + threads, ... of a tile for
+// every tree, so the tree loop has no CTA barrier.  With the grid below, a
+// thread of K4/K6/K8 owns one row while the card is not full (at M 65,536
+// and the default 256-row tile: 512 CTAs of 128 threads, each tile's second
+// half reserved but empty) and its second only where a CTA's run is longer
+// than its threads; K2's CTAs take two rows a thread.  A thread walks several
+// of its (row, tree) descents at once, in straight-line rounds that issue
+// all their node loads, then all their record loads, so that the chains'
+// latencies overlap: K2 two rows, K4/K8 four trees of a row (kDpChains), K6
+// three (kDpVoteChains); the last nk·T mod R descents take one step of
+// their own, so no slot is idle.  A node is 8 bytes, {attr | child << 16,
+// threshold bits} (both indices fit in 16 bits, since a record row and a
+// tree's tables must fit in a CTA's shared memory), so a round is one
+// 8-byte load (a half-warp a wavefront; lanes on one node share a
+// broadcast, and distinct nodes conflict only in one bank pair) and one
+// 4-byte record load; the record rows have an odd stride (A | 1), so lanes
+// on the same attribute never conflict.  The class table is read once a
+// descent.  The record tile is copied with cp.async, 16 bytes at a time,
+// when A is odd and the contiguous rows·A span is 16-byte aligned (else
+// one float at a time), while the forest's tables are staged: once per
+// CTA, by one loop that loads kStageBatch nodes a thread before it stores
+// them, the whole forest when it fits beside the tile in 48 KB (9.8 KB for
+// the paper's 16 trees), else in equal chunks of trees (kernel.py's
+// ``table_chunk``), one barrier a chunk.  K6's vote tile (rows, C) is zeroed
+// and added to by the thread that owns each row, and written once a tile,
+// coalesced, as (M, C), so no atomics reach device memory.  The grid is as
+// many CTAs as the card holds at once with this footprint and at most one per
+// ``threads`` records (K2: per 2·threads, so that both its rows are live), so
+// a cascade stage of a few thousand records still spreads over the SMs.
+
 // The quantized kernels K7/K8.  Their tables are a few KB (4,192 B for the
 // paper's 16-tree forest in bf16), so narrowing them cannot move the bound.
 // They are K3 gather's and K4's block functions with another table-loading
 // policy (``QuantTables``): the tables are read from device memory at their
 // stored width, upcast in registers (sign extension; __half2float,
-// __bfloat162float, exact) and written to shared memory as int32/f32, so the
-// inner loops are K3's and K4's own.  The threshold type is a template
-// parameter; the index widths are runtime codes, read by a switch that is
-// uniform across the CTA and runs only while tables are staged.
+// __bfloat162float, exact) and written to shared memory at full width (or
+// packed into K4's 8-byte nodes), so the inner loops are K3's and K4's own.
+// The threshold type is a template parameter; the index widths are runtime
+// codes, read by a switch that is uniform across the CTA and runs only while
+// tables are staged.
 
 // Shared memory and the tile.  The caller passes each launch's dynamic
-// shared-memory bytes (``smem``) and, for the speculative kernels, its warps
-// a CTA, trees a table chunk and register slots a lane: kernel.py's
-// ``smem_bytes`` is the one formula for the footprint of the layout that
-// speculative_block and data_parallel_block carve out below, and the wrapper
-// checks it against the card's limit before launching.  Nothing here
-// computes a size of its own.
+// shared-memory bytes (``smem``), its trees a table chunk and its threads
+// (speculative: warps) a CTA, and for the speculative kernels register slots
+// a lane: kernel.py's ``smem_bytes`` is the one formula for the footprint of
+// the layout that speculative_block and data_parallel_block carve out below,
+// and the wrapper checks it against the card's limit before launching.
+// Nothing here computes a size of its own.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -107,33 +138,34 @@
 namespace {
 
 constexpr int kSpecThreads = 256;          // most threads of a speculative CTA (8 warps)
+constexpr int kDpThreads = 512;            // most threads of a data-parallel CTA (tile ≤ 1,024 rows)
+constexpr int kDpChains = 4;               // descents a thread of K4/K8 walks at once
+constexpr int kDpVoteChains = 3;           // the same for K6 (at 4 it spills; measured faster at 3)
+constexpr int kStageBatch = 4;             // nodes a thread loads at once while staging tables
 constexpr int kDefaultSmem = 48 * 1024;    // above this a launch must opt in
 constexpr int kSelectRegisters = 40;       // attr_select floats a lane holds (one-hot register path)
 constexpr unsigned kFullWarp = 0xffffffffu;
 
-template <typename T>
-__device__ void block_copy(T* dst, const T* __restrict__ src, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-}
-
-// Output policies of the block functions below.  data_parallel_block calls
-// ``begin`` with the end of its shared-memory layout (where a policy may
-// keep a tile) before the first barrier, ``put`` from the thread that owns
-// row r, and ``finish`` after the last tree's barrier.  speculative_block
-// calls ``bind`` with the end of its layout, ``warp_begin``/``warp_finish``
-// from each warp around its rows [rb, rb + nr) of a tile, and ``put`` from
-// the lane that holds row r's class of tree t.
+// Output policies of the block functions below.  Both call ``bind`` with the
+// end of their shared-memory layout (where a policy may keep a tile) and
+// ``put`` from the thread or lane that holds row r's class of tree t.
+// data_parallel_block calls ``row_begin`` from the thread that owns row r
+// before its first tree, and, where ``kTile`` says the policy keeps a tile,
+// ``tile_finish`` from every thread after a barrier that follows the last
+// tree.  speculative_block calls ``warp_begin``/``warp_finish`` from each
+// warp around its rows [rb, rb + nr) of a tile.
 
 // K1–K4, K7/K8: the per-tree class of each record, at out[t·M + m0 + r].
 struct ClassStore {
+  static constexpr bool kTile = false;
   int* out;
   int M;
-  __device__ void begin(int*, int) {}
   __device__ void put(int t, long long m0, int r, int cls) {
     out[(long long)t * M + m0 + r] = cls;
   }
-  __device__ void finish(long long, int) {}
   __device__ void bind(int*) {}
+  __device__ void row_begin(int) {}
+  __device__ void tile_finish(long long, int) {}
   __device__ void warp_begin(int, int) {}
   __device__ void warp_finish(long long, int, int) {}
 };
@@ -141,20 +173,20 @@ struct ClassStore {
 // K5/K6: one vote per tree into a (rows, C) tile, written once as (M, C).
 // A class outside [0, C) casts no vote.
 struct VoteTally {
+  static constexpr bool kTile = true;
   int* out;
   int C;
   int* tile;
-  __device__ void begin(int* smem_end, int rows) {
-    tile = smem_end;
-    for (int i = threadIdx.x; i < rows * C; i += blockDim.x) tile[i] = 0;
-  }
   __device__ void put(int, long long, int r, int cls) {
     if (cls >= 0 && cls < C) tile[r * C + cls] += 1;
   }
-  __device__ void finish(long long m0, int rows) {
+  __device__ void bind(int* smem_end) { tile = smem_end; }
+  __device__ void row_begin(int r) {
+    for (int c = 0; c < C; ++c) tile[r * C + c] = 0;
+  }
+  __device__ void tile_finish(long long m0, int rows) {
     for (int i = threadIdx.x; i < rows * C; i += blockDim.x) out[m0 * C + i] = tile[i];
   }
-  __device__ void bind(int* smem_end) { tile = smem_end; }
   __device__ void warp_begin(int rb, int nr) {
     for (int i = threadIdx.x & 31; i < nr * C; i += 32) tile[rb * C + i] = 0;
     __syncwarp();
@@ -165,11 +197,10 @@ struct VoteTally {
   }
 };
 
-// Table-loading policies of the block functions below.  ``stage`` copies
-// tree t's tables into shared memory as int32 attributes/children/classes
-// and f32 thresholds (data_parallel_block); ``stage_trees`` copies trees
-// [t0, t0 + tn) the same way in one loop, and for the one-hot form also
-// their f32 attr_select (speculative_block).  The caller synchronizes after.
+// Table-loading policies of the block functions below: ``node`` reads node
+// i of the stacked (T, N) tables, widened to int32 indices and an f32
+// threshold.  The staging loops that use them follow the policies; the
+// one-hot form also reads F32Tables' (T, A, N) attr_select.
 
 // K1–K6: full-width tables, copied as they are.
 struct F32Tables {
@@ -178,34 +209,11 @@ struct F32Tables {
   const float* threshold;
   const int* child;
   const int* class_val;
-  template <bool ONEHOT>
-  __device__ void stage(int t, int A, int N, int* s_attr, float* s_sel, float* s_thr,
-                        int* s_child, int* s_cls) const {
-    const long long tn = (long long)t * N;
-    if (ONEHOT) {
-      block_copy(s_sel, attr_select + tn * A, A * N);
-    } else {
-      block_copy(s_attr, attr_idx + tn, N);
-    }
-    block_copy(s_thr, threshold + tn, N);
-    block_copy(s_child, child + tn, N);
-    block_copy(s_cls, class_val + tn, N);
-  }
-  template <bool ONEHOT>
-  __device__ void stage_trees(int t0, int tn, int A, int N, int* s_attr, float* s_sel,
-                              float* s_thr, int* s_child, int* s_cls) const {
-    const long long base = (long long)t0 * N;
-    const int nodes = tn * N;
-    const int total = ONEHOT ? nodes * A : nodes;
-    for (int i = threadIdx.x; i < total; i += blockDim.x) {
-      if (ONEHOT) s_sel[i] = attr_select[base * A + i];
-      if (i < nodes) {
-        if (!ONEHOT) s_attr[i] = attr_idx[base + i];
-        s_thr[i] = threshold[base + i];
-        s_child[i] = child[base + i];
-        s_cls[i] = class_val[base + i];
-      }
-    }
+  __device__ void node(long long i, int& attr, float& thr, int& chd, int& cls) const {
+    attr = attr_idx[i];
+    thr = threshold[i];
+    chd = child[i];
+    cls = class_val[i];
   }
 };
 
@@ -234,31 +242,62 @@ struct QuantTables {
   int attr_bytes;
   int child_bytes;
   int cls_bytes;
-  template <bool ONEHOT>
-  __device__ void stage(int t, int, int N, int* s_attr, float*, float* s_thr,
-                        int* s_child, int* s_cls) const {
-    static_assert(!ONEHOT, "the quantized layout has no attr_select");
-    const long long tn = (long long)t * N;
-    for (int i = threadIdx.x; i < N; i += blockDim.x) {
-      s_attr[i] = load_index(attr_idx, attr_bytes, tn + i);
-      s_thr[i] = upcast(threshold[tn + i]);
-      s_child[i] = load_index(child, child_bytes, tn + i);
-      s_cls[i] = load_index(class_val, cls_bytes, tn + i);
-    }
-  }
-  template <bool ONEHOT>
-  __device__ void stage_trees(int t0, int tn, int, int N, int* s_attr, float*, float* s_thr,
-                              int* s_child, int* s_cls) const {
-    static_assert(!ONEHOT, "the quantized layout has no attr_select");
-    const long long base = (long long)t0 * N;
-    for (int i = threadIdx.x; i < tn * N; i += blockDim.x) {
-      s_attr[i] = load_index(attr_idx, attr_bytes, base + i);
-      s_thr[i] = upcast(threshold[base + i]);
-      s_child[i] = load_index(child, child_bytes, base + i);
-      s_cls[i] = load_index(class_val, cls_bytes, base + i);
-    }
+  __device__ void node(long long i, int& attr, float& thr, int& chd, int& cls) const {
+    attr = load_index(attr_idx, attr_bytes, i);
+    thr = upcast(threshold[i]);
+    chd = load_index(child, child_bytes, i);
+    cls = load_index(class_val, cls_bytes, i);
   }
 };
+
+// Trees [t0, t0 + tn) of ``tables`` into speculative_block's shared-memory
+// tables, in one loop that issues all their loads together: int32
+// attributes (gather form) or the f32 attr_select (one-hot form, which
+// shares that space), f32 thresholds, int32 children and classes.  The
+// caller synchronizes after.
+template <bool ONEHOT, typename Tables>
+__device__ void stage_trees(const Tables& tables, int t0, int tn, int A, int N, int* s_attr,
+                            float* s_sel, float* s_thr, int* s_child, int* s_cls) {
+  const long long base = (long long)t0 * N;
+  const int nodes = tn * N;
+  const int total = ONEHOT ? nodes * A : nodes;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    if constexpr (ONEHOT) s_sel[i] = tables.attr_select[base * A + i];
+    if (i < nodes) {
+      int attr;
+      tables.node(base + i, attr, s_thr[i], s_child[i], s_cls[i]);
+      if (!ONEHOT) s_attr[i] = attr;
+    }
+  }
+}
+
+// Trees [t0, t0 + tn) of ``tables`` into data_parallel_block's node table:
+// node i is {attr | child << 16, threshold bits}, its class in s_cls[i].
+// A thread loads kStageBatch nodes before it stores any, so that their
+// loads are in flight together.  The caller synchronizes after.
+template <typename Tables>
+__device__ void stage_nodes(const Tables& tables, int t0, int tn, int N, uint2* s_node,
+                            int* s_cls) {
+  const long long base = (long long)t0 * N;
+  const int n = tn * N;
+  for (int i0 = threadIdx.x; i0 < n; i0 += kStageBatch * blockDim.x) {
+    int attr[kStageBatch], chd[kStageBatch], cls[kStageBatch];
+    float thr[kStageBatch];
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < n) tables.node(base + i, attr[u], thr[u], chd[u], cls[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < n) {
+        s_node[i] = make_uint2((unsigned)attr[u] | ((unsigned)chd[u] << 16), __float_as_uint(thr[u]));
+        s_cls[i] = cls[u];
+      }
+    }
+  }
+}
 
 // path[src] of a path held K slots a lane (node n in slot n >> 5 of lane
 // n & 31): one shuffle per slot, kept where src >> 5 names it.  Only
@@ -528,7 +567,7 @@ __device__ void speculative_block(const float* __restrict__ records, Tables tabl
       const int tn = min(chunk, T - t0);
       if (!staged || chunk < T) {  // the whole forest stays staged across tiles
         if (t0 > 0) __syncthreads();  // the last chunk is no longer read
-        tables.template stage_trees<ONEHOT>(t0, tn, A, N, s_attr, s_sel, s_thr, s_child, s_cls);
+        stage_trees<ONEHOT>(tables, t0, tn, A, N, s_attr, s_sel, s_thr, s_child, s_cls);
         staged = true;
       }
       __syncthreads();
@@ -544,38 +583,142 @@ __device__ void speculative_block(const float* __restrict__ records, Tables tabl
   }
 }
 
-// Procedure 3: one thread per record, max_depth dependent rounds.
-template <typename Tables, typename Out>
-__device__ void data_parallel_block(const float* __restrict__ records, Tables tables,
-                                    Out out, int M, int A, int N,
-                                    int T, int bm, int max_depth) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* s_rec = reinterpret_cast<float*>(smem);
-  int* s_attr = reinterpret_cast<int*>(s_rec + (size_t)bm * A);
-  float* s_thr = reinterpret_cast<float*>(s_attr + N);
-  int* s_child = reinterpret_cast<int*>(s_thr + N);
-  int* s_cls = s_child + N;
+// 16 bytes from device memory to shared memory, asynchronously (cp.async):
+// a thread issues all its copies before it waits for any.
+__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
 
-  const long long m0 = (long long)blockIdx.x * bm;
-  const int rows = (int)(M - m0 < bm ? M - m0 : bm);
-  const int r = threadIdx.x;
-  const float* x = s_rec + r * A;
-  out.begin(s_cls + N, rows);
-  // Staged through shared memory so the row-major (M, A) reads coalesce.
-  block_copy(s_rec, records + m0 * A, rows * A);
-  for (int t = 0; t < T; ++t) {
-    tables.template stage<false>(t, A, N, s_attr, nullptr, s_thr, s_child, s_cls);
-    __syncthreads();
-    if (r < rows) {
-      int idx = 0;
-      for (int d = 0; d < max_depth; ++d) {
-        idx = s_child[idx] + (x[s_attr[idx]] > s_thr[idx] ? 1 : 0);
-      }
-      out.put(t, m0, r, s_cls[idx]);
-    }
-    __syncthreads();  // the next tree overwrites the tables
+// Waits for this thread's copy16_async copies; a barrier makes them visible.
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Rows [m0, m0 + rows) of the (M, A) records into the tile ``s_rec``, rows
+// ``As`` floats apart.  When the tile keeps the rows as they lie (A odd) and
+// the contiguous span is 16-byte aligned, the span goes by copy16_async (the
+// caller must copy_async_wait() before its barrier); the rest, and any other
+// tile, one float at a time.
+__device__ void stage_records(float* s_rec, const float* __restrict__ records, long long m0,
+                              int rows, int A, int As) {
+  const float* src = records + m0 * A;
+  const int n = rows * A;
+  const int pad = As - A;
+  int done = 0;
+  if (pad == 0 && (reinterpret_cast<unsigned long long>(src) & 15) == 0) {
+    done = n & ~3;
+    for (int q = threadIdx.x; q < (n >> 2); q += blockDim.x) copy16_async(s_rec + 4 * q, src + 4 * q);
   }
-  out.finish(m0, rows);
+  for (int e = done + threadIdx.x; e < n; e += blockDim.x) s_rec[e + (e / A) * pad] = src[e];
+}
+
+// R of one thread's descents at once, from the cursor (row tid + k·threads,
+// tree tl of the staged chunk of ``tn``), which it advances: R independent
+// chains of max_depth rounds.  The rounds are straight-line code, all R node
+// loads, then all R record loads, so the chains' latencies overlap (a branch
+// around a chain would make the warp wait on each chain in turn).
+template <int R, typename Out>
+__device__ __forceinline__ void descend_step(const float* s_rec, int As, const uint2* s_node,
+                                             const int* s_cls, int N, int tn, int t0,
+                                             long long m0, int max_depth, int& k, int& tl,
+                                             Out& out) {
+  const float* x[R];
+  const uint2* node[R];
+  int row[R], tree[R], idx[R];
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    row[s] = threadIdx.x + k * blockDim.x;
+    tree[s] = tl;
+    x[s] = s_rec + row[s] * As;
+    node[s] = s_node + tl * N;
+    idx[s] = 0;
+    if (++tl == tn) {
+      tl = 0;
+      ++k;
+    }
+  }
+  for (int d = 0; d < max_depth; ++d) {
+    uint2 nd[R];
+    float v[R];
+#pragma unroll
+    for (int s = 0; s < R; ++s) nd[s] = node[s][idx[s]];
+#pragma unroll
+    for (int s = 0; s < R; ++s) v[s] = x[s][nd[s].x & 0xffffu];
+#pragma unroll
+    for (int s = 0; s < R; ++s) idx[s] = (int)(nd[s].x >> 16) + (v[s] > __uint_as_float(nd[s].y) ? 1 : 0);
+  }
+#pragma unroll
+  for (int s = 0; s < R; ++s) out.put(t0 + tree[s], m0, row[s], s_cls[tree[s] * N + idx[s]]);
+}
+
+// One thread's descents through the staged chunk of ``tn`` trees: its pairs
+// (row tid + k·threads, tree tl) for k < nk, in the order k·tn + tl, R at a
+// time, and the last (nk·tn mod R, at most 3) in one step of their own.
+template <int R, typename Out>
+__device__ __forceinline__ void descend(const float* s_rec, int As, const uint2* s_node,
+                                        const int* s_cls, int N, int tn, int t0, long long m0,
+                                        int nk, int max_depth, Out& out) {
+  static_assert(R >= 1 && R <= 4, "the remainder takes at most three chains");
+  const int items = nk * tn;
+  int k = 0, tl = 0, j = 0;
+  for (; j + R <= items; j += R) {
+    descend_step<R>(s_rec, As, s_node, s_cls, N, tn, t0, m0, max_depth, k, tl, out);
+  }
+  switch (items - j) {
+    case 3:
+      if constexpr (R > 3) descend_step<3>(s_rec, As, s_node, s_cls, N, tn, t0, m0, max_depth, k, tl, out);
+      break;
+    case 2:
+      if constexpr (R > 2) descend_step<2>(s_rec, As, s_node, s_cls, N, tn, t0, m0, max_depth, k, tl, out);
+      break;
+    case 1:
+      if constexpr (R > 1) descend_step<1>(s_rec, As, s_node, s_cls, N, tn, t0, m0, max_depth, k, tl, out);
+      break;
+  }
+}
+
+// Procedure 3.  One CTA: an equal run of the M records (starting at a
+// multiple of 4), tile by tile (``bm`` rows at most), against T trees
+// staged ``chunk`` at a time; R chains a thread.
+template <int R, typename Tables, typename Out>
+__device__ void data_parallel_block(const float* __restrict__ records, Tables tables,
+                                    Out out, int M, int A, int N, int T, int bm, int chunk,
+                                    int max_depth) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int As = A | 1;  // odd row stride: lanes on one attribute hit distinct banks
+  const int cn = chunk * N;
+  float* s_rec = reinterpret_cast<float*>(smem);
+  uint2* s_node = reinterpret_cast<uint2*>(s_rec + ((bm * As + 3) & ~3));
+  int* s_cls = reinterpret_cast<int*>(s_node + cn);
+  out.bind(s_cls + cn);
+
+  const long long quads = ((long long)M + 3) / 4;
+  const long long lo = min((long long)M, 4 * (quads * blockIdx.x / gridDim.x));
+  const long long hi = min((long long)M, 4 * (quads * (blockIdx.x + 1) / gridDim.x));
+  bool staged = false;
+  for (long long m0 = lo; m0 < hi; m0 += bm) {
+    const int rows = (int)min((long long)bm, hi - m0);
+    if (m0 != lo) __syncthreads();  // the last tile is no longer read
+    stage_records(s_rec, records, m0, rows, A, As);
+    const int nk = (int)threadIdx.x < rows ? (rows - 1 - (int)threadIdx.x) / (int)blockDim.x + 1 : 0;
+    for (int k = 0; k < nk; ++k) out.row_begin(threadIdx.x + k * blockDim.x);
+    for (int t0 = 0; t0 < T; t0 += chunk) {
+      const int tn = min(chunk, T - t0);
+      if (!staged || chunk < T) {  // the whole forest stays staged across tiles
+        if (t0 > 0) __syncthreads();  // the last chunk is no longer read
+        stage_nodes(tables, t0, tn, N, s_node, s_cls);
+        staged = true;
+      }
+      copy_async_wait();  // this tile's records, copied while the tables were staged
+      __syncthreads();
+      descend<R>(s_rec, As, s_node, s_cls, N, tn, t0, m0, nk, max_depth, out);
+    }
+    if (Out::kTile) {
+      __syncthreads();
+      out.tile_finish(m0, rows);
+    }
+  }
 }
 
 // CTAs a SM that each speculative instantiation is compiled for: ptxas then
@@ -622,34 +765,32 @@ fused_votes_speculative_kernel(const float* records, const int* attr_idx,
       VoteTally{out, C, nullptr}, M, A, N, T, bm, chunk, jumps);
 }
 
-// K2: one tree.
-__global__ void data_parallel_kernel(const float* records, const int* attr_idx,
-                                     const float* threshold, const int* child,
-                                     const int* class_val, int* out, int M, int A,
-                                     int N, int bm, int max_depth) {
-  data_parallel_block(records, F32Tables{attr_idx, nullptr, threshold, child, class_val},
-                      ClassStore{out, M}, M, A, N, 1, bm, max_depth);
+// K2: one tree, two rows a thread.
+__global__ void __launch_bounds__(kDpThreads)
+data_parallel_kernel(const float* records, const int* attr_idx, const float* threshold,
+                     const int* child, const int* class_val, int* out, int M, int A, int N,
+                     int bm, int max_depth) {
+  data_parallel_block<2>(records, F32Tables{attr_idx, nullptr, threshold, child, class_val},
+                         ClassStore{out, M}, M, A, N, 1, bm, 1, max_depth);
 }
 
 // K4: the whole forest in one launch.
-__global__ void fused_data_parallel_kernel(const float* records, const int* attr_idx,
-                                           const float* threshold, const int* child,
-                                           const int* class_val, int* out, int M,
-                                           int A, int N, int T, int bm, int max_depth) {
-  data_parallel_block(records, F32Tables{attr_idx, nullptr, threshold, child, class_val},
-                      ClassStore{out, M}, M, A, N, T, bm, max_depth);
+__global__ void __launch_bounds__(kDpThreads)
+fused_data_parallel_kernel(const float* records, const int* attr_idx, const float* threshold,
+                           const int* child, const int* class_val, int* out, int M, int A,
+                           int N, int T, int bm, int chunk, int max_depth) {
+  data_parallel_block<kDpChains>(records, F32Tables{attr_idx, nullptr, threshold, child, class_val},
+                                 ClassStore{out, M}, M, A, N, T, bm, chunk, max_depth);
 }
 
-// K6: K4 with the forest's votes accumulated in shared memory, (M, C).
-__global__ void fused_votes_data_parallel_kernel(const float* records,
-                                                 const int* attr_idx,
-                                                 const float* threshold,
-                                                 const int* child,
-                                                 const int* class_val, int* out,
-                                                 int M, int A, int N, int T, int C,
-                                                 int bm, int max_depth) {
-  data_parallel_block(records, F32Tables{attr_idx, nullptr, threshold, child, class_val},
-                      VoteTally{out, C, nullptr}, M, A, N, T, bm, max_depth);
+// K6: K4 with the forest's votes tallied in shared memory, (M, C).
+__global__ void __launch_bounds__(kDpThreads)
+fused_votes_data_parallel_kernel(const float* records, const int* attr_idx,
+                                 const float* threshold, const int* child,
+                                 const int* class_val, int* out, int M, int A, int N, int T,
+                                 int C, int bm, int chunk, int max_depth) {
+  data_parallel_block<kDpVoteChains>(records, F32Tables{attr_idx, nullptr, threshold, child, class_val},
+                                     VoteTally{out, C, nullptr}, M, A, N, T, bm, chunk, max_depth);
 }
 
 // K7: K3 gather on the quantized layout.
@@ -663,10 +804,11 @@ fused_speculative_q_kernel(const float* records, QuantTables<TT> tables, int* ou
 
 // K8: K4 on the quantized layout.
 template <typename TT>
-__global__ void fused_data_parallel_q_kernel(const float* records, QuantTables<TT> tables,
-                                             int* out, int M, int A, int N, int T, int bm,
-                                             int max_depth) {
-  data_parallel_block(records, tables, ClassStore{out, M}, M, A, N, T, bm, max_depth);
+__global__ void __launch_bounds__(kDpThreads)
+fused_data_parallel_q_kernel(const float* records, QuantTables<TT> tables, int* out, int M,
+                             int A, int N, int T, int bm, int chunk, int max_depth) {
+  data_parallel_block<kDpChains>(records, tables, ClassStore{out, M}, M, A, N, T, bm, chunk,
+                                 max_depth);
 }
 
 int allow_smem(const void* kernel, int smem) {
@@ -674,41 +816,46 @@ int allow_smem(const void* kernel, int smem) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// The data-parallel kernels: one CTA of ``threads`` per ``bm`` records.
-template <typename... KArgs, typename... Args>
-int launch(void (*kernel)(KArgs...), int M, int bm, int threads, int smem,
-           cudaStream_t stream, Args... args) {
-  if (int err = allow_smem(reinterpret_cast<const void*>(kernel), smem)) return err;
-  const int grid = (M + bm - 1) / bm;
-  kernel<<<grid, threads, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
-}
-
-// CTAs of ``warps`` warps and ``smem`` bytes that one SM holds at once.
+// CTAs of ``threads`` threads and ``smem`` bytes that one SM holds at once.
 template <typename... KArgs>
-cudaError_t resident_per_sm(void (*kernel)(KArgs...), int warps, int smem, int* per_sm) {
+cudaError_t resident_per_sm(void (*kernel)(KArgs...), int threads, int smem, int* per_sm) {
   if (int err = allow_smem(reinterpret_cast<const void*>(kernel), smem)) {
     return static_cast<cudaError_t>(err);
   }
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, 32 * warps, smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, smem);
 }
 
-// The speculative kernels: as many CTAs of ``warps`` warps as the card holds
-// at once with this footprint, at most one per ``warps`` records; each CTA
-// takes an equal run of the M records.
+// As many CTAs of ``threads`` threads as the card holds at once with this
+// footprint, at most one per ``per_cta`` records; each CTA takes an equal
+// run of the M records.
 template <typename... KArgs, typename... Args>
-int launch_speculative(void (*kernel)(KArgs...), int M, int warps, int smem,
-                       cudaStream_t stream, Args... args) {
+int launch_wave(void (*kernel)(KArgs...), int M, int threads, int per_cta, int smem,
+                cudaStream_t stream, Args... args) {
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = resident_per_sm(kernel, warps, smem, &per_sm);
+  cudaError_t err = resident_per_sm(kernel, threads, smem, &per_sm);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  const long long by_rows = ((long long)M + warps - 1) / warps;
+  const long long by_rows = ((long long)M + per_cta - 1) / per_cta;
   const long long grid = resident < by_rows ? resident : by_rows;
-  kernel<<<(unsigned)grid, 32 * warps, smem, stream>>>(args...);
+  kernel<<<(unsigned)grid, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// The speculative kernels: CTAs of ``warps`` warps, at most one per ``warps``
+// records (one record a warp).
+template <typename... KArgs, typename... Args>
+int launch_speculative(void (*kernel)(KArgs...), int M, int warps, int smem,
+                       cudaStream_t stream, Args... args) {
+  return launch_wave(kernel, M, 32 * warps, warps, smem, stream, args...);
+}
+
+// Whether a data-parallel launch can hold its tile: ``threads`` own the
+// ``bm`` rows two at most each, and a node's indices fit in 16 bits.
+bool valid_data_parallel(int threads, int bm, int chunk, int A, int N) {
+  return threads >= 1 && threads <= kDpThreads && bm >= 1 && bm <= 2 * threads &&
+         chunk >= 1 && A <= 65536 && N <= 65536;
 }
 
 // Whether a lane can hold ``slots`` register slots of N nodes (and, for the
@@ -758,6 +905,17 @@ enum ThrCode { kThrF32 = 0, kThrF16 = 1, kThrBF16 = 2 };
 
 bool valid_index_bytes(int b) { return b == 1 || b == 2 || b == 4; }
 
+// ``f(TT{})`` for the threshold type TT that ``thr_code`` names.
+template <typename F>
+int with_threshold_type(int thr_code, F f) {
+  switch (thr_code) {
+    case kThrF32: return f(float{});
+    case kThrF16: return f(__half{});
+    case kThrBF16: return f(__nv_bfloat16{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // K7 or K8 on the quantized tables: ``launch_with(QuantTables<TT>{...})``
 // for the threshold type that ``thr_code`` names.
 template <typename F>
@@ -768,22 +926,11 @@ int with_quant_tables(const void* attr_idx, const void* threshold, const void* c
       !valid_index_bytes(cls_bytes)) {
     return (int)cudaErrorInvalidValue;
   }
-  switch (thr_code) {
-    case kThrF32:
-      return launch_with(QuantTables<float>{attr_idx, static_cast<const float*>(threshold),
-                                            child, class_val, attr_bytes, child_bytes,
-                                            cls_bytes});
-    case kThrF16:
-      return launch_with(QuantTables<__half>{attr_idx, static_cast<const __half*>(threshold),
-                                             child, class_val, attr_bytes, child_bytes,
-                                             cls_bytes});
-    case kThrBF16:
-      return launch_with(QuantTables<__nv_bfloat16>{
-          attr_idx, static_cast<const __nv_bfloat16*>(threshold), child, class_val,
-          attr_bytes, child_bytes, cls_bytes});
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return with_threshold_type(thr_code, [&](auto tag) {
+    using TT = decltype(tag);
+    return launch_with(QuantTables<TT>{attr_idx, static_cast<const TT*>(threshold), child,
+                                       class_val, attr_bytes, child_bytes, cls_bytes});
+  });
 }
 
 }  // namespace
@@ -802,10 +949,11 @@ int k1_speculative(const float* records, const int* attr_idx, const float* attr_
 
 int k2_data_parallel(const float* records, const int* attr_idx, const float* threshold,
                      const int* child, const int* class_val, int* out, int M, int A,
-                     int N, int bm, int max_depth, int smem, void* stream) {
-  return launch(data_parallel_kernel, M, bm, bm, smem,
-                static_cast<cudaStream_t>(stream), records, attr_idx, threshold,
-                child, class_val, out, M, A, N, bm, max_depth);
+                     int N, int bm, int max_depth, int threads, int smem, void* stream) {
+  if (!valid_data_parallel(threads, bm, 1, A, N)) return (int)cudaErrorInvalidValue;
+  return launch_wave(data_parallel_kernel, M, threads, 2 * threads, smem,
+                     static_cast<cudaStream_t>(stream), records, attr_idx, threshold, child,
+                     class_val, out, M, A, N, bm, max_depth);
 }
 
 int k3_fused_speculative(const float* records, const int* attr_idx,
@@ -822,10 +970,12 @@ int k3_fused_speculative(const float* records, const int* attr_idx,
 int k4_fused_data_parallel(const float* records, const int* attr_idx,
                            const float* threshold, const int* child,
                            const int* class_val, int* out, int M, int A, int N, int T,
-                           int bm, int max_depth, int smem, void* stream) {
-  return launch(fused_data_parallel_kernel, M, bm, bm, smem,
-                static_cast<cudaStream_t>(stream), records, attr_idx, threshold,
-                child, class_val, out, M, A, N, T, bm, max_depth);
+                           int bm, int chunk, int max_depth, int threads, int smem,
+                           void* stream) {
+  if (!valid_data_parallel(threads, bm, chunk, A, N)) return (int)cudaErrorInvalidValue;
+  return launch_wave(fused_data_parallel_kernel, M, threads, threads, smem,
+                     static_cast<cudaStream_t>(stream), records, attr_idx, threshold, child,
+                     class_val, out, M, A, N, T, bm, chunk, max_depth);
 }
 
 int k5_fused_votes_speculative(const float* records, const int* attr_idx,
@@ -843,11 +993,12 @@ int k5_fused_votes_speculative(const float* records, const int* attr_idx,
 int k6_fused_votes_data_parallel(const float* records, const int* attr_idx,
                                  const float* threshold, const int* child,
                                  const int* class_val, int* out, int M, int A, int N,
-                                 int T, int C, int bm, int max_depth, int smem,
-                                 void* stream) {
-  return launch(fused_votes_data_parallel_kernel, M, bm, bm, smem,
-                static_cast<cudaStream_t>(stream), records, attr_idx, threshold,
-                child, class_val, out, M, A, N, T, C, bm, max_depth);
+                                 int T, int C, int bm, int chunk, int max_depth, int threads,
+                                 int smem, void* stream) {
+  if (!valid_data_parallel(threads, bm, chunk, A, N)) return (int)cudaErrorInvalidValue;
+  return launch_wave(fused_votes_data_parallel_kernel, M, threads, threads, smem,
+                     static_cast<cudaStream_t>(stream), records, attr_idx, threshold, child,
+                     class_val, out, M, A, N, T, C, bm, chunk, max_depth);
 }
 
 int k7_fused_speculative_q(const float* records, const void* attr_idx,
@@ -870,35 +1021,42 @@ int k7_fused_speculative_q(const float* records, const void* attr_idx,
 int k8_fused_data_parallel_q(const float* records, const void* attr_idx,
                              const void* threshold, const void* child,
                              const void* class_val, int* out, int M, int A, int N,
-                             int T, int bm, int max_depth, int thr_code, int attr_bytes,
-                             int child_bytes, int cls_bytes, int smem, void* stream) {
+                             int T, int bm, int chunk, int max_depth, int thr_code,
+                             int attr_bytes, int child_bytes, int cls_bytes, int threads,
+                             int smem, void* stream) {
+  if (!valid_data_parallel(threads, bm, chunk, A, N)) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   return with_quant_tables(
       attr_idx, threshold, child, class_val, thr_code, attr_bytes, child_bytes, cls_bytes,
       [&](auto tables) {
         using TT = typename decltype(tables)::threshold_type;
-        return launch(fused_data_parallel_q_kernel<TT>, M, bm, bm, smem, s, records, tables,
-                      out, M, A, N, T, bm, max_depth);
+        return launch_wave(fused_data_parallel_q_kernel<TT>, M, threads, threads, smem, s,
+                           records, tables, out, M, A, N, T, bm, chunk, max_depth);
       });
 }
 
-// CTAs that one SM holds at once of speculative kernel K``kernel`` (1, 3, 5
-// or 7) in form ``variant`` (one-hot flag; K7: threshold code), with
-// ``slots``, ``warps`` and ``smem`` as its launch takes them: the grid of a
-// launch of M records is min(SMs × this, ceil(M / warps)).
-int tree_eval_speculative_per_sm(int kernel, int variant, int slots, int warps, int smem,
-                                 int* per_sm) {
+// CTAs that one SM holds at once of kernel K``kernel`` (1–8) in form
+// ``variant`` (K1/K3/K5: the one-hot flag; K7/K8: the threshold code; else
+// 0), with ``slots`` (speculative kernels), ``threads`` a CTA and ``smem`` as
+// its launch takes them: the grid of a launch of M records is min(SMs ×
+// this, ceil(M / records a CTA at least)).
+int tree_eval_per_sm(int kernel, int variant, int slots, int threads, int smem, int* per_sm) {
   switch (kernel) {
-    case 1: return (int)resident_per_sm(k1_kernel(variant, slots), warps, smem, per_sm);
-    case 3: return (int)resident_per_sm(k3_kernel(variant, slots), warps, smem, per_sm);
-    case 5: return (int)resident_per_sm(k5_kernel(variant, slots), warps, smem, per_sm);
+    case 1: return (int)resident_per_sm(k1_kernel(variant, slots), threads, smem, per_sm);
+    case 2: return (int)resident_per_sm(data_parallel_kernel, threads, smem, per_sm);
+    case 3: return (int)resident_per_sm(k3_kernel(variant, slots), threads, smem, per_sm);
+    case 4: return (int)resident_per_sm(fused_data_parallel_kernel, threads, smem, per_sm);
+    case 5: return (int)resident_per_sm(k5_kernel(variant, slots), threads, smem, per_sm);
+    case 6: return (int)resident_per_sm(fused_votes_data_parallel_kernel, threads, smem, per_sm);
     case 7:
-      switch (variant) {
-        case kThrF32: return (int)resident_per_sm(k7_kernel<float>(slots), warps, smem, per_sm);
-        case kThrF16: return (int)resident_per_sm(k7_kernel<__half>(slots), warps, smem, per_sm);
-        case kThrBF16:
-          return (int)resident_per_sm(k7_kernel<__nv_bfloat16>(slots), warps, smem, per_sm);
-      }
+      return with_threshold_type(variant, [&](auto tag) {
+        return (int)resident_per_sm(k7_kernel<decltype(tag)>(slots), threads, smem, per_sm);
+      });
+    case 8:
+      return with_threshold_type(variant, [&](auto tag) {
+        return (int)resident_per_sm(fused_data_parallel_q_kernel<decltype(tag)>, threads, smem,
+                                    per_sm);
+      });
   }
   return (int)cudaErrorInvalidValue;
 }

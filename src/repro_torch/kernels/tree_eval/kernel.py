@@ -21,7 +21,7 @@ K5/K6 return the forest's (M, C) int32 vote counts instead of the (T, M)
 per-tree classes; a class outside ``[0, C)`` casts no vote.  K7/K8 read the
 quantized layout (``quant.QuantizedForest``) at its stored widths: int8,
 int16 or int32 ``attr_idx``/``child``/``class_val`` and bf16, f16 or f32
-thresholds, upcast as each tree's tables are staged into shared memory.
+thresholds, upcast as the tables are staged into shared memory.
 
 A wrapper given CPU tensors returns its plain torch version (``*_plain``);
 given CUDA tensors it checks them, allocates the output, launches the kernel
@@ -31,9 +31,19 @@ no fallback: a failed build or launch raises.
 The speculative kernels K1/K3/K5/K7 give each record to one warp, with node
 ``n`` in slot ``n // 32`` of lane ``n % 32``: ``jump_slots`` says whether a
 lane holds its nodes and their path in registers (N ≤ 64, jumps by warp
-shuffles) or the warp keeps the path in shared memory.  ``smem_bytes`` sizes
-the tile that follows from it, and the tree tables are staged once per CTA,
-in chunks of trees when the whole forest does not fit (``table_chunk``).
+shuffles) or the warp keeps the path in shared memory.  The data-parallel
+kernels K2/K4/K6/K8 have ``dp_threads`` threads a CTA, thread i owning rows
+i and i + threads of each ``block_m``-row tile for every tree, and each
+thread walks several of its (row, tree) descents at once over 8-byte packed
+nodes.  The grid gives a CTA of K4/K6/K8 at most one record a thread until
+the card is full (K2: two), so at M 65,536 and the default 256-row tile a
+thread of K4/K6/K8 owns one row and the tile's second half stays empty;
+the second row is walked where a CTA's run is longer than its threads
+(K2, a larger M or a small ``block_m``).  Both stage
+the tree tables once per CTA, in equal chunks of trees when the whole
+forest does not fit beside the tile (``table_chunk``); ``smem_bytes`` sizes
+the tile, and each launch is one whole wave of CTAs, each taking an equal
+run of the records (``launch_grid``).
 
 The speculative kernels' ``onehot`` form computes ``records @ attr_select``;
 it is exact only on records passed through
@@ -59,7 +69,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "tree_eval.cu"
 
 SMEM_MAX = 232_448        # bytes of shared memory one CTA may opt into on sm_90
 SMEM_TARGET = 48 * 1024   # needs no opt-in and leaves room for several CTAs an SM
-MAX_THREADS = 1024        # threads of a CTA; the data-parallel CTA has block_m
+DP_TILE_MAX = 1024        # rows of a data-parallel tile, two at most a thread (csrc kDpThreads = 512)
 SPEC_WARPS = 8            # warps of a speculative CTA (csrc kSpecThreads = 32·8)
 REGISTER_SLOTS = 2        # node slots a lane holds on the register path (N ≤ 64)
 SELECT_REGISTERS = 40     # attr_select floats a lane holds there (csrc kSelectRegisters)
@@ -116,8 +126,16 @@ def spec_warps(block_m: int) -> int:
     return min(SPEC_WARPS, block_m)
 
 
-def _spec_words(block_m: int, n_attrs: int, n_nodes: int, jump_mode: str, n_classes: int):
-    """(words outside the tables, words of one tree's tables) of a speculative tile."""
+def dp_threads(block_m: int) -> int:
+    """Threads of a data-parallel CTA: at most two rows of the tile a thread."""
+    return -(-block_m // 2)
+
+
+def _tile_words(algorithm: str, block_m: int, n_attrs: int, n_nodes: int, jump_mode: str, n_classes: int):
+    """(words outside the tables, words of one tree's tables) of a tile."""
+    if algorithm == "data_parallel":
+        rows = -(-block_m * (n_attrs | 1) // 4) * 4   # odd row stride, padded to 16 bytes
+        return rows + block_m * n_classes, 3 * n_nodes
     a4 = -(-n_attrs // 4) * 4           # record rows padded to 16 bytes
     paths = 0 if jump_slots(n_nodes, n_attrs, jump_mode) else 4 * n_nodes * spec_warps(block_m)
     fixed = block_m * a4 + paths + block_m * n_classes
@@ -127,15 +145,15 @@ def _spec_words(block_m: int, n_attrs: int, n_nodes: int, jump_mode: str, n_clas
 
 def table_chunk(
     block_m: int, n_attrs: int, n_nodes: int, jump_mode: str = "gather", n_classes: int = 0,
-    n_trees: int = 1,
+    n_trees: int = 1, algorithm: str = "speculative",
 ) -> int:
-    """Trees whose tables a speculative CTA stages at once.
+    """Trees whose tables a CTA stages at once.
 
     All ``n_trees`` when they fit beside the rest of the tile in
     ``SMEM_TARGET`` (staged once per CTA); else the fewest equal chunks that
     do, one tree at least.
     """
-    fixed, tree = _spec_words(block_m, n_attrs, n_nodes, jump_mode, n_classes)
+    fixed, tree = _tile_words(algorithm, block_m, n_attrs, n_nodes, jump_mode, n_classes)
     fit = max(1, (SMEM_TARGET // 4 - fixed) // tree)
     n_trees = max(1, n_trees)
     chunks = -(-n_trees // fit)
@@ -150,9 +168,11 @@ def smem_bytes(
 
     The one formula for it: the wrappers pass this count to the launch
     functions of ``csrc/tree_eval.cu``, whose kernels carve their layout
-    out of it in this order.  Data-parallel: the (block_m, A) record tile,
-    one tree's four tables, then the vote kernel's (block_m, n_classes) int32
-    vote tile (``n_classes`` = 0 for the class kernels).  Speculative: the
+    out of it in this order.  Data-parallel: the record tile, ``block_m``
+    rows of ``A | 1`` floats (an odd stride) padded to 16 bytes, then the
+    tables of ``table_chunk`` trees (an 8-byte packed node and a class, 12
+    bytes a node), then the vote kernel's (block_m, n_classes) int32 vote
+    tile (``n_classes`` = 0 for the class kernels).  Speculative: the
     record tile with rows padded to a multiple of 4 floats, the tables of
     ``table_chunk`` trees (threshold, child, class_val, and attr_idx or the
     one-hot form's (A, N) attr_select), on the shared path (``jump_slots``
@@ -160,27 +180,25 @@ def smem_bytes(
     ``spec_warps`` warps, then the vote tile.
 
     The quantized kernels K7/K8 take the ``gather`` footprint of K3/K4:
-    their narrow tables are widened to 4 bytes a node as they are staged
-    into shared memory (off the inner loop), so a node costs what it does
-    in K3 gather/K4 whatever its stored width.
+    their narrow tables are widened as they are staged into shared memory
+    (off the inner loop), so a node costs what it does in K3 gather/K4
+    whatever its stored width.
     """
-    if algorithm == "data_parallel":
-        return 4 * (block_m * n_attrs + 4 * n_nodes + block_m * n_classes)
-    fixed, tree = _spec_words(block_m, n_attrs, n_nodes, jump_mode, n_classes)
-    chunk = table_chunk(block_m, n_attrs, n_nodes, jump_mode, n_classes, n_trees)
+    fixed, tree = _tile_words(algorithm, block_m, n_attrs, n_nodes, jump_mode, n_classes)
+    chunk = table_chunk(block_m, n_attrs, n_nodes, jump_mode, n_classes, n_trees, algorithm)
     return 4 * (fixed + chunk * tree)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "k1_speculative": [_P] * 7 + [_I] * 9 + [_P],
-    "k2_data_parallel": [_P] * 6 + [_I] * 6 + [_P],
+    "k2_data_parallel": [_P] * 6 + [_I] * 7 + [_P],
     "k3_fused_speculative": [_P] * 7 + [_I] * 11 + [_P],
-    "k4_fused_data_parallel": [_P] * 6 + [_I] * 7 + [_P],
+    "k4_fused_data_parallel": [_P] * 6 + [_I] * 9 + [_P],
     "k5_fused_votes_speculative": [_P] * 7 + [_I] * 12 + [_P],
-    "k6_fused_votes_data_parallel": [_P] * 6 + [_I] * 8 + [_P],
+    "k6_fused_votes_data_parallel": [_P] * 6 + [_I] * 10 + [_P],
     "k7_fused_speculative_q": [_P] * 6 + [_I] * 14 + [_P],
-    "k8_fused_data_parallel_q": [_P] * 6 + [_I] * 11 + [_P],
+    "k8_fused_data_parallel_q": [_P] * 6 + [_I] * 13 + [_P],
 }
 
 
@@ -191,8 +209,8 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.tree_eval_speculative_per_sm.argtypes = [_I] * 5 + [ctypes.POINTER(ctypes.c_int)]
-    lib.tree_eval_speculative_per_sm.restype = ctypes.c_int
+    lib.tree_eval_per_sm.argtypes = [_I] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.tree_eval_per_sm.restype = ctypes.c_int
     lib.tree_eval_error_string.argtypes = [ctypes.c_int]
     lib.tree_eval_error_string.restype = ctypes.c_char_p
     return lib
@@ -210,7 +228,7 @@ def _check(
             f"records must be contiguous 2-D float32, got {records.dtype} {tuple(records.shape)}"
         )
     m, a = records.shape
-    if m > 2**31 - 1 - MAX_THREADS:
+    if m > 2**31 - 1 - DP_TILE_MAX:
         raise ValueError(f"{m} records exceed one launch's int32 record count")
     for name, (t, dtypes, shape) in tables.items():
         if t.device != records.device:
@@ -232,7 +250,7 @@ def _tile_smem(
     """Shared-memory bytes of a launchable tile; raises for a tile no CTA can hold."""
     if jump_mode not in JUMP_MODES:
         raise ValueError(f"unknown jump_mode {jump_mode!r}")
-    if block_m < 1 or (algorithm == "data_parallel" and block_m > MAX_THREADS):
+    if block_m < 1 or (algorithm == "data_parallel" and block_m > DP_TILE_MAX):
         raise ValueError(f"block_m={block_m} is not a valid {algorithm} tile")
     if n_classes < 0:
         raise ValueError(f"n_classes={n_classes} is negative")
@@ -251,23 +269,36 @@ def _spec_launch(block_m: int, a: int, n: int, jump_mode: str, n_classes: int = 
             jump_slots(n, a, jump_mode))
 
 
-def speculative_grid(
+def _dp_launch(block_m: int, a: int, n: int, n_classes: int = 0, n_trees: int = 1):
+    """(trees a chunk, threads a CTA) of a data-parallel launch."""
+    return (table_chunk(block_m, a, n, "gather", n_classes, n_trees, "data_parallel"),
+            dp_threads(block_m))
+
+
+def launch_grid(
     kernel: int, variant: int, m: int, block_m: int, n_attrs: int, n_nodes: int,
     jump_mode: str = "gather", n_classes: int = 0, n_trees: int = 1,
 ) -> tuple[int, int]:
-    """(CTAs, CTAs a SM) of a launch of speculative kernel K``kernel`` (1, 3,
-    5 or 7; ``variant`` is the one-hot flag, or K7's threshold code) on the
-    current card: the SMs times the CTAs one SM holds with this footprint,
-    and at most one CTA per ``spec_warps`` records, each CTA taking an equal
-    run of the ``m`` records."""
-    smem = smem_bytes("speculative", block_m, n_attrs, n_nodes, jump_mode, n_classes, n_trees)
-    _, warps, slots = _spec_launch(block_m, n_attrs, n_nodes, jump_mode, n_classes, n_trees)
+    """(CTAs, CTAs a SM) of a launch of kernel K``kernel`` (1–8; ``variant``
+    is the one-hot flag of K1/K3/K5, the threshold code of K7/K8, else 0) on
+    the current card: the SMs times the CTAs one SM holds with this
+    footprint, and at most one CTA per ``spec_warps`` records (speculative),
+    per ``dp_threads`` records (K4/K6/K8) or per ``2·dp_threads`` (K2, two
+    rows a thread), each CTA taking an equal run of the ``m`` records."""
+    algorithm = "speculative" if kernel % 2 else "data_parallel"
+    smem = smem_bytes(algorithm, block_m, n_attrs, n_nodes, jump_mode, n_classes, n_trees)
+    if algorithm == "speculative":
+        _, warps, slots = _spec_launch(block_m, n_attrs, n_nodes, jump_mode, n_classes, n_trees)
+        threads, per_cta = 32 * warps, warps
+    else:
+        slots, threads = 0, dp_threads(block_m)
+        per_cta = 2 * threads if kernel == 2 else threads
     per_sm = ctypes.c_int(0)
-    err = _library().tree_eval_speculative_per_sm(kernel, variant, slots, warps, smem, ctypes.byref(per_sm))
+    err = _library().tree_eval_per_sm(kernel, variant, slots, threads, smem, ctypes.byref(per_sm))
     if err != 0:
         raise RuntimeError(f"occupancy of K{kernel} failed: CUDA error {err}")
     sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
-    return min(sms * max(per_sm.value, 1), -(-m // warps)), per_sm.value
+    return min(sms * max(per_sm.value, 1), -(-m // per_cta)), per_sm.value
 
 
 def _launch(c_name: str, counter: str, tensors, ints) -> None:
@@ -428,7 +459,7 @@ def data_parallel(
         _launch(
             "k2_data_parallel", "data_parallel",
             (records, attr_idx, threshold, child, class_val, out),
-            (m, a, n, block_m, max_depth, smem),
+            (m, a, n, block_m, max_depth, dp_threads(block_m), smem),
         )
     return out
 
@@ -470,10 +501,11 @@ def fused_data_parallel(
     m, a, n, smem = _check(records, tables, "data_parallel", block_m, "gather")
     out = torch.empty((t, m), dtype=torch.int32, device=records.device)
     if m and t:
+        chunk, threads = _dp_launch(block_m, a, n, 0, t)
         _launch(
             "k4_fused_data_parallel", "fused_data_parallel",
             (records, attr_idx, threshold, child, class_val, out),
-            (m, a, n, t, block_m, max_depth, smem),
+            (m, a, n, t, block_m, chunk, max_depth, threads, smem),
         )
     return out
 
@@ -517,11 +549,12 @@ def fused_votes_data_parallel(
     m, a, n, smem = _check(records, tables, "data_parallel", block_m, "gather", n_classes)
     if not (m and t and n_classes):
         return torch.zeros((m, n_classes), dtype=torch.int32, device=records.device)
+    chunk, threads = _dp_launch(block_m, a, n, n_classes, t)
     out = torch.empty((m, n_classes), dtype=torch.int32, device=records.device)
     _launch(
         "k6_fused_votes_data_parallel", "fused_votes_data_parallel",
         (records, attr_idx, threshold, child, class_val, out),
-        (m, a, n, t, n_classes, block_m, max_depth, smem),
+        (m, a, n, t, n_classes, block_m, chunk, max_depth, threads, smem),
     )
     return out
 
@@ -540,7 +573,8 @@ def _launch_q(c_name: str, counter: str, records, attr_idx, threshold, child, cl
             chunk, warps, slots = _spec_launch(block_m, a, n, "gather", 0, t)
             ints = (m, a, n, t, block_m, chunk, depth_arg, *widths, warps, slots, smem)
         else:
-            ints = (m, a, n, t, block_m, depth_arg, *widths, smem)
+            chunk, threads = _dp_launch(block_m, a, n, 0, t)
+            ints = (m, a, n, t, block_m, chunk, depth_arg, *widths, threads, smem)
         _launch(c_name, f"{counter}/{storage}", (records, attr_idx, threshold, child, class_val, out),
                 ints)
     return out

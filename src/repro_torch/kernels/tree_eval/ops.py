@@ -32,7 +32,7 @@ from repro_torch.kernels.tree_eval.quant import QuantizedForest, packed_forest_n
 SMEM_TARGET = _k.SMEM_TARGET   # a tile this small needs no opt-in and leaves room
                                # for several CTAs on one SM
 SPECULATIVE_BM_MAX = 128  # records per speculative tile (8 warps, whole records each)
-DATA_PARALLEL_BM_MAX = 256  # records (= threads) per data-parallel CTA
+DATA_PARALLEL_BM_MAX = 256  # records per data-parallel tile (128 threads, two rows at most each)
 ALGORITHMS = ("speculative", "data_parallel")
 
 
@@ -51,9 +51,11 @@ def choose_block_m(
     The speculative footprint is the record tile (``block_m·A`` floats,
     rows padded to 4), one tree's tables at least (``N·4`` words, or
     ``N·(3 + A)`` for the one-hot form's ``attr_select``) and, for N > 64,
-    each warp's ``4·N`` ints of paths; the kernel stages as many more trees as
-    fit (``kernel.table_chunk``), so the forest's size does not change the
-    tile.  The vote kernels (K5/K6) add their (block_m, C) int32 vote tile,
+    each warp's ``4·N`` ints of paths.  The data-parallel footprint is the
+    record tile (``block_m·(A | 1)`` floats, padded to 4) and one tree's
+    packed nodes and classes at least (``3·N`` words).  Either kernel stages
+    as many more trees as fit (``kernel.table_chunk``), so the forest's size
+    does not change the tile.  The vote kernels (K5/K6) add their (block_m, C) int32 vote tile,
     ``block_m·C·4``: pass ``n_classes`` for them, 0 for the class kernels.
     The quantized kernels (K7/K8) widen their tables as they stage them, so
     their tile is sized as the ``gather`` form's.

@@ -326,6 +326,81 @@ def test_speculative_kernels_across_cut_offs_on_card(cuda_device, n_nodes, n_tre
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_nodes", [1, 51, 1023])
+@pytest.mark.parametrize("n_trees", [1, 5, 9, 16])
+def test_data_parallel_kernels_across_chunks_and_chains_on_card(cuda_device, n_nodes, n_trees):
+    """K2 (tree 0), K4, K6 and K8 in every threshold storage against their
+    plain versions: a forest staged whole (N 51) and one in several chunks
+    (N 1,023 × T 16), trees of depth 0 (N 1), T not a multiple of the four
+    chains a thread walks, M with partial last tiles, block_m None, 1 and 32,
+    C ∈ {2, 3, 7, 128} with classes outside [0, C), adversarial records."""
+    attr, thr, child, cls, depth = _bfs_forest(n_nodes, n_trees, seed=n_nodes * 7 + n_trees)
+    attr, thr, child, cls = (torch.from_numpy(x).to(cuda_device) for x in (attr, thr, child, cls))
+    narrow = (_narrowest(attr), _narrowest(child), _narrowest(cls))
+    for m in (1, 7, 1000, 65_536):
+        rec = torch.from_numpy(_records(m)).to(cuda_device)
+        want = K.fused_data_parallel_plain(rec, attr, thr, child, cls, max_depth=depth)
+        tree = (rec, attr[0], thr[0], child[0], cls[0])
+        want_tree = K.data_parallel_plain(*tree, max_depth=depth)
+        for tile in (None, 1, 32):
+            key = (m, tile)
+            bm = tile or ops.choose_block_m(n_nodes, 19, algorithm="data_parallel")
+            got = K.fused_data_parallel(rec, attr, thr, child, cls, max_depth=depth, block_m=bm)
+            assert torch.equal(got, want), ("K4", *key)
+            assert torch.equal(K.data_parallel(*tree, max_depth=depth, block_m=bm), want_tree), ("K2", *key)
+            for storage in THR_STORAGES:
+                got = K.fused_data_parallel_q(rec, narrow[0], thr.to(getattr(torch, storage)), *narrow[1:],
+                                              max_depth=depth, block_m=bm)
+                assert torch.equal(got, want), ("K8", storage, *key)
+            for c in (2, 3, 7, 128):
+                bm = tile or ops.choose_block_m(n_nodes, 19, algorithm="data_parallel", n_classes=c)
+                got = K.fused_votes_data_parallel(rec, attr, thr, child, cls, n_classes=c, max_depth=depth,
+                                                  block_m=bm)
+                assert torch.equal(got, vote_counts(want, c)), ("K6", c, *key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_attrs", [1, 2, 4, 19, 20])
+def test_data_parallel_record_tile_strides_on_card(cuda_device, n_attrs):
+    """The record tile at odd A (its rows as they lie) and even A (rows
+    padded to an odd stride), from 16-byte aligned records and from a view
+    that starts one record in (aligned only when 4 divides A)."""
+    attr, thr, child, cls, depth = _bfs_forest(63, 9, seed=n_attrs, n_attrs=n_attrs)
+    attr, thr, child, cls = (torch.from_numpy(x).to(cuda_device) for x in (attr, thr, child, cls))
+    rec = np.random.default_rng(n_attrs).normal(size=(3001, n_attrs)).astype(np.float32)
+    rec[1], rec[2, ::2], rec[3] = np.inf, -np.inf, np.nan
+    rec = torch.from_numpy(rec).to(cuda_device)
+    for view in (rec[:3000], rec[1:]):
+        assert view.is_contiguous()
+        want = K.fused_data_parallel_plain(view, attr, thr, child, cls, max_depth=depth)
+        for bm in (None, 1, 5, 32):
+            bm = bm or ops.choose_block_m(63, n_attrs, algorithm="data_parallel", n_classes=7)
+            got = K.fused_data_parallel(view, attr, thr, child, cls, max_depth=depth, block_m=bm)
+            assert torch.equal(got, want), (view.data_ptr() % 16, bm)
+            got = K.fused_votes_data_parallel(view, attr, thr, child, cls, n_classes=7, max_depth=depth, block_m=bm)
+            assert torch.equal(got, vote_counts(want, 7)), (view.data_ptr() % 16, bm)
+            got = K.data_parallel(view, attr[0], thr[0], child[0], cls[0], max_depth=depth, block_m=bm)
+            assert torch.equal(got, want[0]), (view.data_ptr() % 16, bm)
+
+
+@pytest.mark.gpu
+def test_data_parallel_grid_is_a_whole_wave_on_card(cuda_device):
+    """A cascade's second stage (a few thousand survivors, 7 trees) spreads
+    over more CTAs than ceil(M / block_m), one per 128 records, each taking
+    an equal run; at 65,536 records the grid stays within what the card
+    holds at once, and K2 gives each thread two records."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    bm = ops.choose_block_m(51, 19, algorithm="data_parallel", n_classes=7)
+    grid, per_sm = K.launch_grid(6, 0, 7241, bm, 19, 51, n_classes=7, n_trees=7)
+    assert per_sm >= 1 and grid == -(-7241 // K.dp_threads(bm)) > -(-7241 // bm)
+    for kernel, variant in ((4, 0), (6, 0), (8, 0), (8, 1), (8, 2)):
+        grid, per_sm = K.launch_grid(kernel, variant, 65_536, 256, 19, 51, n_classes=7 * (kernel == 6), n_trees=16)
+        assert 1 <= grid <= sms * per_sm and grid <= 65_536 // K.dp_threads(256)
+    grid, _ = K.launch_grid(2, 0, 65_536, 256, 19, 75)
+    assert grid <= 65_536 // 256
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n_attrs", [1, 20, 21, 40, 41])
 @pytest.mark.parametrize("n_nodes", [32, 51, 64])
 def test_onehot_select_register_cut_off_on_card(cuda_device, n_attrs, n_nodes):

@@ -218,18 +218,19 @@ def test_launch_shared_memory_is_the_checked_footprint(algorithm, jump_mode):
         K._tile_smem(algorithm, 0, 19, 511, jump_mode)
     with pytest.raises(ValueError, match="unknown jump_mode"):
         K._tile_smem(algorithm, bm, 19, 511, "scan")
-    # a forest: the speculative tile holds the tables of ``table_chunk`` trees
+    # a forest: either tile holds the tables of ``table_chunk`` trees (the
+    # data-parallel one an 8-byte node and a class, 3 words, a node)
     for n in (51, 511):
         bm = ops.choose_block_m(n, 19, algorithm=algorithm, jump_mode=jump_mode)
         for t in (1, 9, 16):
             need = K._tile_smem(algorithm, bm, 19, n, jump_mode, 0, t)
             assert need == K.smem_bytes(algorithm, bm, 19, n, jump_mode, 0, t)
             if algorithm == "data_parallel":
-                assert need == K.smem_bytes(algorithm, bm, 19, n, jump_mode)   # one tree at a time
+                words = 3 * n
             else:
                 words = n * (3 + (19 if jump_mode == "onehot" else 1))
-                chunk = K.table_chunk(bm, 19, n, jump_mode, 0, t)
-                assert need == K.smem_bytes(algorithm, bm, 19, n, jump_mode) + 4 * (chunk - 1) * words
+            chunk = K.table_chunk(bm, 19, n, jump_mode, 0, t, algorithm)
+            assert need == K.smem_bytes(algorithm, bm, 19, n, jump_mode) + 4 * (chunk - 1) * words
 
 
 @pytest.mark.parametrize("n_nodes,n_attrs,jump_mode,slots", [
@@ -262,7 +263,7 @@ def test_table_chunk_stages_the_forest_once_or_in_equal_chunks():
     assert K.table_chunk(bm, 19, 51, "onehot", 7, 9) == 5     # chunks of 5 and 4, not 8 and 1
     for mode in ("gather", "onehot"):
         for c in (0, 7):
-            fixed, tree = K._spec_words(bm, 19, 51, mode, c)
+            fixed, tree = K._tile_words("speculative", bm, 19, 51, mode, c)
             for t in (1, 2, 9, 16, 100):
                 chunk = K.table_chunk(bm, 19, 51, mode, c, t)
                 n_chunks = -(-t // chunk)
@@ -274,6 +275,42 @@ def test_table_chunk_stages_the_forest_once_or_in_equal_chunks():
     # a tree too big for SMEM_TARGET is staged alone, in what a CTA may opt into
     assert K.table_chunk(1, 19, 2047, "onehot", 0, 16) == 1
     assert ops.SMEM_TARGET < K.smem_bytes("speculative", 1, 19, 2047, "onehot", 0, 16) <= K.SMEM_MAX
+
+
+def test_data_parallel_tile_stages_the_forest_once_or_in_equal_chunks():
+    """The paper's 16-tree forest (N 51, A 19) is staged whole in the
+    data-parallel tile: 256 rows of 19 floats (an odd stride) and 51·16
+    nodes of 12 bytes.  N 1,023 goes in the fewest equal chunks that keep
+    the tile in ``SMEM_TARGET``, for the class and the vote kernels."""
+    bm = ops.choose_block_m(51, 19, algorithm="data_parallel")
+    assert bm == ops.DATA_PARALLEL_BM_MAX == 256 and K.dp_threads(bm) == 128
+    assert K.table_chunk(bm, 19, 51, "gather", 0, 16, "data_parallel") == 16
+    assert K.smem_bytes("data_parallel", bm, 19, 51, "gather", 0, 16) == 4 * (256 * 19 + 16 * 51 * 3)
+    for c in (0, 7, 128):
+        bm = ops.choose_block_m(1023, 19, algorithm="data_parallel", n_classes=c)
+        fixed, tree = K._tile_words("data_parallel", bm, 19, 1023, "gather", c)
+        assert fixed == -(-bm * 19 // 4) * 4 + bm * c and tree == 3 * 1023
+        for t in (1, 5, 9, 16, 100):
+            chunk = K.table_chunk(bm, 19, 1023, "gather", c, t, "data_parallel")
+            n_chunks = -(-t // chunk)
+            assert 1 <= chunk <= t and chunk == -(-t // n_chunks)              # equal chunks
+            need = K.smem_bytes("data_parallel", bm, 19, 1023, "gather", c, t)
+            assert need == 4 * (fixed + chunk * tree) <= ops.SMEM_TARGET
+            if n_chunks > 1:   # one chunk fewer would not fit
+                assert 4 * (fixed + -(-t // (n_chunks - 1)) * tree) > ops.SMEM_TARGET
+        assert K.table_chunk(bm, 19, 1023, "gather", c, 16, "data_parallel") < 16    # several chunks
+    # an even A gets a padded, odd row stride
+    assert K._tile_words("data_parallel", 3, 20, 7, "gather", 0) == (64, 21)
+
+
+@pytest.mark.parametrize("block_m,threads", [(1, 1), (2, 1), (3, 2), (32, 16), (256, 128), (1024, 512)])
+def test_data_parallel_threads_own_two_rows(block_m, threads):
+    """A data-parallel CTA has one thread per two rows of its tile; a tile
+    above ``DP_TILE_MAX`` rows (512 threads) is refused."""
+    assert K.dp_threads(block_m) == threads
+    assert K._tile_smem("data_parallel", block_m, 19, 51, "gather") == K.smem_bytes("data_parallel", block_m, 19, 51)
+    with pytest.raises(ValueError, match=f"block_m={K.DP_TILE_MAX + 1} is not a valid"):
+        K._tile_smem("data_parallel", K.DP_TILE_MAX + 1, 19, 51, "gather")
 
 
 def test_packing_rejects_out_of_range_indices():
