@@ -15,6 +15,9 @@ Phases, each printing its own lines:
    that forest (N 1,023, so ``child`` is int16 at least) and of its trees with
    N ≤ 128 (int8 ``child``), in each threshold storage (bf16, f16, f32) and
    every index width the tables fit in; all compared with ``torch.equal``;
+3s. subnormals — K1–K8 (every instantiation) on 4,096 records of subnormals
+   and signed zeros, the fixture trees' thresholds drawn from them: equal to
+   their plain versions and to ``eval_serial`` (no flush to zero);
 4. tree service — the paper's configuration: CART on the segmentation twin,
    five 256×256 images (65,536 records each) classified by ``ops.tree_eval``
    in all three modes, each equal to ``eval_serial``;
@@ -40,6 +43,21 @@ Phases, each printing its own lines:
    vote for the exact bounds, ``deadline_ms=0`` stopping after stage 0;
    per-image latency beside ``forest_eval_fused`` + ``majority_vote``, timed
    in turns, survivors per stage and mean trees evaluated;
+6s. serve — the served path at the same sizes, through the entry points a
+   user calls: ``TreeServeEngine`` (65,536-record waves, background re-tune
+   after 2 waves of a bucket with warmup 1 and 3 timed calls, synchronous
+   shadow profiling of every wave's first 4,096 records, a flight recorder)
+   on the five images as one stream cut into requests of seeded sizes
+   1–16,384, served twice (before and after the promotion), every request's
+   classes equal to ``eval_serial``; per bucket the heuristic's pick, every
+   measured candidate's median (CUDA events) and launches, the winner,
+   per-wave ms, the profiler's d_µ against the host's on the same records;
+   a flight bundle read back; then the forest through ``eval_forest_tuned``
+   (autotune, layouts f32 and quant) and ``ForestTunedEvaluator.predict``
+   (autotune: majority vote against the cascades) against the host oracles,
+   with every candidate's median and the winners.  No failed candidate, no
+   retuner or profiler failure.  (Phase 7 times the tree kernel at each tile
+   of the tuner's grid, outside the counted window);
 7. timing — where one image's service time goes (host wall, device busy by
    kernel) on the tree, forest and cascade paths; then each kernel on the
    main path's own tree, forest, cascade stage and image, checked equal to
@@ -62,14 +80,18 @@ threshold storage, K2, K4, and K6 at the cascade's first stage, at the whole
 forest and at its second stage; each at its own checkout's tile
 (``choose_block_m``), the data-parallel rows with both grids.
 
-Kernel launches are counted from zero over phases 4–6 (5q included) only,
-and every kernel must have launched there.  Any mismatch, missing launch or exception
-exits non-zero.
+Kernel launches are counted from zero over phases 4–6 (5q included), where
+every kernel must launch, and again from zero over phase 6s, where the
+kernel of every candidate the tuner measured must launch (each measured
+kernel candidate also counts its own launches on its thread).  The
+``kernels`` line's ``launches`` is the sum of the two windows.  Any
+mismatch, missing launch or exception exits non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
+import ast
 import importlib.util
 import json
 import multiprocessing
@@ -112,6 +134,7 @@ from repro_torch.kernels.tree_eval import (  # noqa: E402
     plan_cascade,
 )
 from repro_torch.kernels.tree_eval.quant import from_bits, to_bits  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
 
 N_ATTRS, N_CLASSES, M_IMAGE, N_IMAGES, N_TREES = 19, 7, 65_536, 5, 16
 MODES = (("speculative", "gather"), ("speculative", "onehot"), ("data_parallel", "gather"))
@@ -120,10 +143,6 @@ CASCADE_BOUNDS = (None, 1.0, 0.5)
 CASCADE_FIELDS = ("classes", "margin", "exit_stage", "trees_evaluated", "confidence")
 THR_STORAGES = ("bfloat16", "float16", "float32")
 INDEX_DTYPES = (torch.int8, torch.int16, torch.int32)
-# H100 SXM peaks from NVIDIA's data sheet: HBM3 bytes/s, and
-# float32 outside the tensor cores, the unit the compares run on.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
 L2_BYTES = 50 * 2**20
 
 
@@ -386,6 +405,68 @@ def phase_quant_kernels(dev) -> dict:
                                 combos += 1
         print(f"[kernels] M={m}: K7 and K8 equal to plain in {combos} launches "
               f"(2 forests x 3 storages x index widths x 2 tiles)")
+    return errs
+
+
+SUBNORMALS = np.array([1e-45, -1e-45, 1e-40, -1e-40, 2.0**-140, -(2.0**-140), 0.0, -0.0], np.float32)
+
+
+def subnormal_forest() -> EncodedForest:
+    """The fixture trees with every split threshold drawn from ``SUBNORMALS``."""
+    forest = EncodedForest(fixture_trees())
+    rng = np.random.default_rng(45)
+    split = forest.class_val == BOTTOM
+    forest.threshold[split] = rng.choice(SUBNORMALS, int(split.sum()))
+    return forest
+
+
+def phase_subnormal(dev) -> dict:
+    """K1–K8 on subnormal and signed-zero records and thresholds: each equal
+    to its plain version and to ``eval_serial`` (IEEE compares: no flush to
+    zero; the CUDA build has no ``-ftz``)."""
+    errs: dict[str, int] = {}
+    forest = subnormal_forest()
+    rec_np = np.random.default_rng(46).choice(SUBNORMALS, size=(4096, N_ATTRS)).astype(np.float32)
+    rec = torch.from_numpy(rec_np).to(dev)
+    serial = np.stack([eval_serial(forest.tree(t), rec_np) for t in range(forest.n_trees)])
+    packed = ops.PackedForest(forest, N_ATTRS, device=dev)
+    for algorithm, jump_mode in MODES:
+        for t in range(forest.n_trees):
+            tabs = ops.PackedTree(forest.tree(t), N_ATTRS, device=dev)
+            bm = ops.choose_block_m(tabs.n_nodes, N_ATTRS, algorithm=algorithm, jump_mode=jump_mode)
+            got, want = kernel_vs_plain(False, algorithm, jump_mode, rec, tabs, bm)
+            name = kernel_name(False, algorithm, jump_mode)
+            check(torch.equal(got, want) and np.array_equal(got.cpu().numpy(), serial[t]),
+                  f"{name} != plain or eval_serial on subnormal inputs, tree {t}")
+            errs[name] = max(errs.get(name, 0), max_abs_err(got, want))
+        bm = ops.choose_block_m(packed.n_nodes, N_ATTRS, algorithm=algorithm, jump_mode=jump_mode)
+        got, want = kernel_vs_plain(True, algorithm, jump_mode, rec, packed, bm)
+        name = kernel_name(True, algorithm, jump_mode)
+        check(torch.equal(got, want) and np.array_equal(got.cpu().numpy(), serial),
+              f"{name} != plain or eval_serial on subnormal inputs")
+        errs[name] = max(errs.get(name, 0), max_abs_err(got, want))
+        bm = ops.choose_block_m(packed.n_nodes, N_ATTRS, algorithm=algorithm, jump_mode=jump_mode,
+                                n_classes=N_CLASSES)
+        got = run_votes(algorithm, jump_mode, rec, packed, N_CLASSES, bm)
+        want = run_votes(algorithm, jump_mode, rec, packed, N_CLASSES)
+        name = votes_name(algorithm, jump_mode)
+        host = (serial[..., None] == np.arange(N_CLASSES)).sum(0)
+        check(torch.equal(got, want) and np.array_equal(got.cpu().numpy(), host),
+              f"{name} != plain or the host tally on subnormal inputs")
+        errs[name] = max(errs.get(name, 0), max_abs_err(got, want))
+    for storage in THR_STORAGES:
+        q = stored_as(forest, storage, dev)
+        tables = EncodedForest.from_arrays(*host_tables(q))
+        q_serial = np.stack([eval_serial(tables.tree(t), rec_np) for t in range(q.n_trees)])
+        for algorithm in ops.ALGORITHMS:
+            bm = ops.choose_block_m(q.n_nodes, N_ATTRS, algorithm=algorithm)
+            got, want = run_quant(algorithm, rec, q, block_m=bm), run_quant(algorithm, rec, q)
+            name = quant_name(algorithm, q.thr_stored)
+            check(torch.equal(got, want) and np.array_equal(got.cpu().numpy(), q_serial),
+                  f"{name} != plain or eval_serial on subnormal inputs")
+            errs[name] = max(errs.get(name, 0), max_abs_err(got, want))
+    print(f"[subnormal] {len(errs)} kernel instantiations (K1–K8) on {rec_np.shape[0]} records of "
+          f"subnormals and signed zeros, thresholds drawn from them: equal to plain and to eval_serial")
     return errs
 
 
@@ -664,6 +745,284 @@ def phase_cascade_latency(dev, inputs, forest, card) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 6s: the served path (profiler → tuner → TreeServeEngine)
+# ---------------------------------------------------------------------------
+
+
+SERVE_MAX_BATCH = 65_536
+SERVE_REQUEST_MAX = 16_384
+SERVE_SEED = 17   # its stream's last wave (18,243 records) falls into the M 32,768 bucket
+
+
+def variant_launch_key(variant: str, params: dict, stored: dict) -> str | None:
+    """``kernel.LAUNCHES`` key of the kernel a tuner candidate launches (None
+    for the torch engine, the per-tree family and the majority vote);
+    ``stored`` maps a quantized candidate's ``thr_dtype`` to the storage its
+    universal layout of the forest keeps."""
+    jump_mode = "onehot" if variant.endswith("onehot") else "gather"
+    algorithm = "data_parallel" if "data_parallel" in variant else "speculative"
+    if variant.startswith("cuda_"):
+        return kernel_name(False, algorithm, jump_mode)
+    if variant.startswith("forest_fused_") and variant.endswith("_q"):
+        return quant_name(algorithm, stored[params["thr_dtype"]])
+    if variant.startswith("forest_fused_"):
+        return kernel_name(True, algorithm, jump_mode)
+    if variant.startswith("forest_cascade_fused_"):
+        return votes_name(algorithm, jump_mode)
+    return None
+
+
+def serve_requests(images, seed: int = SERVE_SEED):
+    """The five images as one stream cut into requests of seeded sizes in
+    [1, SERVE_REQUEST_MAX]."""
+    from repro_torch.serve import TreeRequest
+
+    stream = np.concatenate(images)
+    rng = np.random.default_rng(seed)
+    reqs, off = [], 0
+    while off < stream.shape[0]:
+        m = int(rng.integers(1, SERVE_REQUEST_MAX + 1))
+        reqs.append(TreeRequest(uid=len(reqs), records=stream[off:off + m]))
+        off += m
+    return reqs
+
+
+def candidate_medians(registry, level: str) -> list[tuple[str, float]]:
+    """(variant and params, median ms) of each candidate a sweep at ``level``
+    measured, from the tuner's ``tune.candidate_median_ms`` gauge."""
+    gauge = registry.get("tune.candidate_median_ms")
+    rows = [] if gauge is None else [(f"{labels[1]} {labels[2]}", series.value)
+                                     for labels, series in gauge.series() if labels[0] == level]
+    return sorted(rows, key=lambda r: r[1])
+
+
+def serve_breakdown(eng, requests, key: str, card) -> None:
+    """Where one served wave's time goes: ``eng.run`` of one wave's
+    ``requests`` under the profiler (host wall, device busy by kernel: the
+    records' copy in, the padding to the bucket, the winner's kernel, the
+    classes' copy out, the shadow pass on its own stream), the engine's
+    spans of that wave, and — timed apart, on the host clock — the
+    resolution a bucket's first wave pays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import TreeRequest
+    from repro_torch.tune import TunedEvaluator, TuneCache
+
+    wave = [TreeRequest(uid=r.uid, records=r.records) for r in requests]
+    eng.tracer.clear()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(wave)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    groups: dict = {}
+    for e in events:
+        group = ("copy in" if e.key.startswith("Memcpy HtoD") else "copy out" if e.key.startswith("Memcpy DtoH")
+                 else "tree kernel" if "_kernel" in e.key and "at::" not in e.key else "torch ops")
+        ms, n = groups.get(group, (0.0, 0))
+        groups[group] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    parts = "; ".join(f"{g} {ms:.4f} ms x{n}" for g, (ms, n) in sorted(groups.items()))
+    ours = "; ".join(f"{e.key.split('(')[0][-40:]} {e.self_device_time_total / 1e3:.4f} ms x{e.count}"
+                     for e in events if "_kernel" in e.key and "at::" not in e.key)
+    spans = "; ".join(f"{e.name} {e.dur_us / 1e3:.3f} ms" for e in eng.tracer.events() if e.ph == "X")
+    batch = np.concatenate([r.records for r in wave])
+    fresh = TunedEvaluator(eng.tree, cache=TuneCache(Path(eng._eval.cache.path).with_name("fresh.json")),
+                           device=eng.device)
+    t0 = time.perf_counter()
+    fresh.resolve(batch)
+    resolve_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[serve] {card}: one wave of {key} ({len(wave)} requests, {len(batch)} records) under the profiler: "
+          f"host wall {wall:.3f} ms, device busy {busy:.4f} ms, idle share {1 - busy / wall:.1%}; device by kind: "
+          f"{parts} (torch ops: the padding and the shadow pass); tree kernel: {ours}; spans: {spans}; "
+          f"a first wave's resolution (heuristic, 256-record d_mu sample) "
+          f"{resolve_ms:.3f} ms more (host clock)")
+
+
+def serve_tile_timing(dev, image, enc, card) -> None:
+    """K1 gather and K2 on the paper's tree at each tile the tuner's grid
+    holds (sized at the bucket's upper N and A, 128) beside the tile
+    ``ops.choose_block_m`` gives at the tree's own N and A: device time
+    (profiler, 100 launches each, record buffers rotated past L2)."""
+    rec = torch.from_numpy(image).to(dev)
+    n_bufs = L2_BYTES // rec.nbytes + 2
+    raw = [rec.clone() for _ in range(n_bufs)]
+    tree = ops.PackedTree(enc, N_ATTRS, device=dev)
+    runs = []
+    for algorithm in ("speculative", "data_parallel"):
+        own = ops.choose_block_m(enc.n_nodes, N_ATTRS, algorithm=algorithm)
+        grid = {own} | {c.param_dict["block_m"] for c in _tree_grid(algorithm)}
+        for bm in sorted(grid):
+            if algorithm == "speculative":
+                fn = lambda i, bm=bm: run_speculative(False, raw[i], tree, "gather", bm)  # noqa: E731
+            else:
+                fn = lambda i, bm=bm: run_data_parallel(False, raw[i], tree, bm)  # noqa: E731
+            runs.append(((algorithm, bm, bm == own), fn))
+    times = profiled_ms(runs, n_bufs, iters=100)
+    print(f"[timing] {card}: the tree kernel at each tile of the tuner's grid (M {rec.shape[0]}, N {enc.n_nodes}, A {N_ATTRS}; "
+          f"profiler device time): " + "; ".join(
+              f"{'K1 gather' if a == 'speculative' else 'K2'} block_m {bm}{' (own N, A)' if own else ''} "
+              f"{times[(a, bm, own)][0]:.4f} ms" for (a, bm, own), _ in runs))
+
+
+def _tree_grid(algorithm: str):
+    """The tuner's gather-form candidates of ``algorithm`` at the paper's tree's bucket."""
+    from repro_torch.tune import WorkloadShape, search_space
+
+    shape = WorkloadShape(m=M_IMAGE, n_nodes=75, n_attrs=N_ATTRS, depth=12)
+    return [c for c in search_space(shape, engines=("cuda",))
+            if ops.get_variant(c.variant).algorithm == algorithm and ops.get_variant(c.variant).jump_mode == "gather"]
+
+
+def phase_serve(dev, images, enc, forest, per_trees, card) -> set:
+    """The served path at the paper's sizes: the CART tree behind a
+    ``TreeServeEngine`` (background re-tune, shadow profiler, flight
+    recorder) on the five images cut into requests, twice; the 16-tree
+    forest through ``eval_forest_tuned`` (autotuned, quantized layouts
+    opted in) and ``ForestTunedEvaluator.predict`` (majority vote against
+    the cascades).  Returns the ``LAUNCHES`` keys the tuner's candidates
+    launch, each of which must launch in this phase."""
+    import tempfile
+    from collections import deque
+
+    from repro_torch.core import eval_forest_tuned
+    from repro_torch.serve import RetunePolicy, TreeRequest, TreeServeEngine
+    from repro_torch.serve.engine import _next_wave
+    from repro_torch.tune import (
+        ForestShape, ForestTunedEvaluator, TuneCache, WorkloadShape, backend_tag,
+        heuristic_candidate, measured_d_mu,
+    )
+
+    t_phase = time.perf_counter()
+    tag = backend_tag(dev)
+    want_keys: set = set()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        cache = TuneCache(Path(tmp) / "tune.json")
+        policy = obs.ProfilePolicy(sample_every=1, sample_records=4096, synchronous=True)
+        eng = TreeServeEngine(enc, max_batch=SERVE_MAX_BATCH, cache=cache,
+                              retune=RetunePolicy(hot_waves=2, warmup=1, iters=3), profile=policy,
+                              flight=obs.FlightPolicy(out_dir=str(Path(tmp) / "flight")), tracer=obs.Tracer(),
+                              device=dev)
+        reqs = serve_requests(images)
+        want = np.concatenate([eval_serial(enc, img) for img in images])
+        waves, wave_reqs, queue = [], [], deque(reqs)
+        while queue:
+            wave, _ = _next_wave(queue, SERVE_MAX_BATCH)
+            wave_reqs.append(wave)
+            waves.append(np.concatenate([r.records for r in wave]))
+        keys = [eng._key(w) for w in waves]
+        print(f"[serve] {len(reqs)} requests of 1–{SERVE_REQUEST_MAX} records ({sum(len(w) for w in waves)} "
+              f"records) in {len(waves)} waves of at most {SERVE_MAX_BATCH}; buckets {sorted(set(keys))}")
+        check(len(set(keys)) >= 2, f"waves fall into {len(set(keys))} M bucket(s), not at least 2")
+
+        for label in ("first pass", "second pass"):
+            batch = [TreeRequest(uid=r.uid, records=r.records) for r in reqs]
+            t0 = time.perf_counter()
+            eng.run(batch)
+            ms = (time.perf_counter() - t0) * 1e3
+            got = np.concatenate([r.out for r in batch])
+            check(np.array_equal(got, want), f"served classes != eval_serial ({label})")
+            t1 = time.perf_counter()
+            eng.retuner.drain(timeout=120)
+            drain_s = time.perf_counter() - t1
+            check(not any(t.is_alive() for t in eng.retuner._threads), "the retuner is still measuring")
+            check(not eng.retuner.errors, f"retuner failures: {eng.retuner.errors}")
+            check(eng.stats.retunes >= 1, "no bucket was re-tuned")
+            print(f"[serve] {card}: {label}: {len(batch)} requests classified equal to eval_serial in "
+                  f"{ms:.1f} ms host wall; retuner drained in {drain_s:.2f} s, {eng.stats.retunes} "
+                  f"retune(s) so far, 0 failures")
+        counters = obs.snapshot(eng.obs)["counters"]
+        failed = {k: v for k, v in counters.items() if k.startswith("tune.failed_candidates") and v}
+        check(not failed, f"failed candidates in the serve engine's sweeps: {failed}")
+        check(not counters.get("prof.errors"), f"{counters.get('prof.errors')} shadow passes raised")
+        check(eng.stats.waves == 2 * len(waves), f"{eng.stats.waves} waves, not {2 * len(waves)}")
+
+        flight_waves = eng.flight.waves()
+        for key in sorted(set(keys)):
+            batches = [w for w, k in zip(waves, keys) if k == key]
+            shape = WorkloadShape.of(batches[0], enc)
+            d_sampled = measured_d_mu(enc, batches[0])
+            d_prof = eng.profiler.d_mu(key)
+            d_host = mean_traversal_depth(observed_depths(enc, batches[-1][:policy.sample_records]))
+            check(d_prof == d_host, f"{key}: profiler d_mu {d_prof} != host d_mu {d_host} on its records")
+            pick = heuristic_candidate(shape, d_mu=d_sampled, device=dev)
+            pick_prof = heuristic_candidate(shape, d_mu=d_prof, device=dev)
+            wave_ms = [w["latency_ms"] for w in flight_waves if w.get("bucket") == key]
+            print(f"[serve] {card}: bucket {key}: {len(batches)} wave(s) a pass; heuristic pick "
+                  f"{pick.variant} {pick.param_dict} (at the first wave's sampled d_mu {d_sampled:.4f}; at the "
+                  f"profiler's {pick_prof.variant} {pick_prof.param_dict}); profiler d_mu {d_prof:.6f} == host "
+                  f"mean_traversal_depth {d_host:.6f} on the same {min(len(batches[-1]), policy.sample_records)} "
+                  f"records; per-wave ms (host clock, H2D + pad + kernel + D2H, {len(wave_ms)} waves) "
+                  f"mean {np.mean(wave_ms):.3f} min {min(wave_ms):.3f} max {max(wave_ms):.3f}")
+            sweep = eng.sweeps.get(key)
+            if sweep is None:
+                print(f"[serve]   not re-tuned: {len(batches)} wave(s) a pass")
+                continue
+            entry = cache.lookup(key)
+            resolved, source = eng._eval._resolved[key]
+            check(source == "retune" and resolved.variant == entry.variant,
+                  f"{key}: the served winner is {resolved} ({source}), not the measured {entry.variant}")
+            for m in sorted(sweep, key=lambda m: m.median_ms):
+                launch_key = variant_launch_key(m.candidate.variant, m.candidate.param_dict, {})
+                if launch_key is not None:
+                    want_keys.add(launch_key)
+                    check(m.launches.get(launch_key, 0) > 0,
+                          f"{m.candidate} launched {m.launches}, not {launch_key}")
+                print(f"[serve]   candidate {m.candidate.variant} {m.candidate.param_dict}: median "
+                      f"{m.median_ms:.4f} ms (CUDA events, {len(m.samples_ms)} calls, bucket-padded M "
+                      f"{shape.bucket().m}), launches {m.launches}")
+            print(f"[serve]   measured winner {entry.variant} {entry.params} {entry.median_ms:.4f} ms; "
+                  f"heuristic pick {'agrees' if pick.variant == entry.variant else 'differs'}")
+        for key in sorted(set(keys)):
+            serve_breakdown(eng, wave_reqs[keys.index(key)], key, card)
+        bundle = eng.dump_flight("chip_smoke")
+        loaded = json.loads((bundle / "flight.json").read_text())
+        json.loads((bundle / "trace.json").read_text())
+        check(loaded["engine"] == "tree" and loaded["waves"], "flight bundle without waves")
+        print(f"[serve] flight bundle {bundle.name}: flight.json ({len(loaded['waves'])} ring entries) and "
+              f"trace.json read back as JSON")
+
+        reg = obs.default_registry()
+        t0 = time.perf_counter()
+        per_tree = eval_forest_tuned(forest, images[0], cache=cache, autotune=True,
+                                     layouts=("f32", "quant")).cpu().numpy()
+        check(np.array_equal(per_tree, per_trees[0]), "eval_forest_tuned != stacked eval_serial")
+        fshape = ForestShape.of(images[0], forest)
+        medians = candidate_medians(reg, "forest")
+        # a layout-opted-in sweep keeps its winner out of the cache (the JAX
+        # package's rule for restricted sweeps): the winner is its least median
+        print(f"[serve] {card}: eval_forest_tuned (autotune, layouts f32 + quant) on image 0: per-tree classes "
+              f"equal stacked eval_serial ({time.perf_counter() - t0:.2f} s with the sweep); winner "
+              f"{medians[0][0]} {medians[0][1]:.4f} ms")
+        for name, ms in medians:
+            print(f"[serve]   forest candidate {name}: median {ms:.4f} ms (CUDA events)")
+        t0 = time.perf_counter()
+        fte = ForestTunedEvaluator(forest, cache=cache, autotune=True)
+        classes = fte.predict(images[0], N_CLASSES).cpu().numpy()
+        check(np.array_equal(classes, host_vote(per_trees[0])), "predict != the host majority vote")
+        centry = cache.lookup(fshape.classes_key(N_CLASSES, tag))
+        print(f"[serve] {card}: ForestTunedEvaluator.predict (autotune) on image 0: classes equal the host "
+              f"majority vote ({time.perf_counter() - t0:.2f} s with the sweep); classes-level winner "
+              f"{centry.variant} {centry.params} {centry.median_ms:.4f} ms")
+        for name, ms in candidate_medians(reg, "classes"):
+            print(f"[serve]   classes candidate {name}: median {ms:.4f} ms (CUDA events)")
+        counters = obs.snapshot(reg)["counters"]
+        failed = {k: v for k, v in counters.items() if k.startswith("tune.failed_candidates") and v}
+        check(not failed, f"failed candidates in the forest sweeps: {failed}")
+        stored = {td: QuantizedForest(forest, N_ATTRS, thr_dtype=td, device=dev).thr_stored
+                  for td in ("bfloat16", "float16")}
+        gauge = reg.get("tune.candidate_median_ms")
+        for labels, _ in gauge.series():
+            key = variant_launch_key(labels[1], ast.literal_eval(labels[2]), stored)
+            if key is not None:
+                want_keys.add(key)
+    print(f"[serve] phase took {time.perf_counter() - t_phase:.1f} s on the host of {card}")
+    return want_keys
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timing at the main-path shapes
 # ---------------------------------------------------------------------------
 
@@ -740,21 +1099,16 @@ def bound(m: int, a: int, t: int, n: int, compares: int, out_bytes: int | None =
     """Least time the card could take to classify ``m`` records by ``t`` trees.
 
     Every mode of one shape computes the same function, so each gets the same
-    bound: read the records and the four per-node tables (attr_idx,
-    threshold, child, class_val) once, write the output once — the (t, m)
-    classes, or ``out_bytes`` (the vote kernels' (m, C) counts); and make
-    the ``compares`` this run's records need, one per level each descends.
-    The speculative algorithm's extra node evaluations and the one-hot
-    form's FMAs are its own cost, not the function's.  ``table_bytes`` counts
-    the four tables at their stored widths (K7/K8); default 4 bytes a node each.
+    bound: ``launch.roofline.tree_eval_cost`` (records and the four node
+    tables read once, the output written once — the (t, m) classes, or
+    ``out_bytes``, the vote kernels' (m, C) counts — and the ``compares``
+    this run's records need, one per level each descends) over the H100's
+    peaks (``roofline.bound_ms``), the formula the tuner prices candidates
+    with.  ``table_bytes`` counts the four tables at their stored widths
+    (K7/K8); default 4 bytes a node each.
     """
-    if out_bytes is None:
-        out_bytes = t * m * 4
-    if table_bytes is None:
-        table_bytes = t * n * 4 * 4
-    byte_ms = (m * a * 4 + table_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
-    op_ms = compares / PEAK_F32_OPS_PER_S * 1e3
-    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+    cost = roofline.tree_eval_cost(m, a, t, n, compares, out_bytes=out_bytes, table_bytes=table_bytes)
+    return roofline.bound_ms(cost["bytes"], cost["ops"])
 
 
 def phase_timing(dev, image, enc, forest, depth_sum_tree, depth_sum_forest, card):
@@ -1159,6 +1513,8 @@ def main() -> None:
 
     errs = phase_kernels(dev)
     errs |= phase_quant_kernels(dev)
+    for name, err in phase_subnormal(dev).items():
+        errs[name] = max(errs.get(name, 0), err)
 
     t0 = time.perf_counter()
     data = make_segmentation(seed=0)
@@ -1199,6 +1555,14 @@ def main() -> None:
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the main path")
 
+    K.reset_launches()
+    serve_keys = phase_serve(dev, images, enc, forest, per_trees, card)
+    serve_launches = dict(K.LAUNCHES)
+    print(f"[serve] served-path launches: {serve_launches}")
+    for name in sorted(serve_keys):
+        check(serve_launches[name] > 0, f"kernel {name} of a measured candidate was not launched on the served path")
+    launches = {name: count + serve_launches[name] for name, count in launches.items()}
+
     plan = cascade_plan(dev, forest, images[0], 2, 1.0)
     phase_breakdown(dev, images[0], enc, forest, plan, card)
     timings = phase_timing(dev, images[0], enc, forest, int(depths.sum()), forest_depths, card)
@@ -1210,6 +1574,7 @@ def main() -> None:
     timings += phase_vote_timing(dev, images[0], forest, plan, tree_depth_sums, second, card)
     timings += phase_quant_timing(dev, images[0], layouts, timings, card)
     phase_cutoff(dev, images[0], card)
+    serve_tile_timing(dev, images[0], enc, card)
     for root in args.parent:
         print(f"[parent] {root}")
         phase_parent(dev, images[0], enc, forest, plan, second, layouts, root, card)

@@ -36,6 +36,7 @@ from repro_torch.core.forest import (
     EncodedForest,
     eval_forest,
     eval_forest_cascade,
+    eval_forest_tuned,
     majority_vote,
     route_topk,
     vote_counts,
@@ -75,6 +76,7 @@ __all__ = [
     "EncodedForest",
     "eval_forest",
     "eval_forest_cascade",
+    "eval_forest_tuned",
     "majority_vote",
     "route_topk",
     "vote_counts",

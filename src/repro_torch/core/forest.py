@@ -88,6 +88,38 @@ def eval_forest(
     )
 
 
+def eval_forest_tuned(
+    forest: "EncodedForest | Sequence[EncodedTree]",
+    records,
+    *,
+    cache=None,
+    autotune: bool = False,
+    engines: tuple[str, ...] | None = None,
+    families: tuple[str, ...] | None = None,
+    layouts: tuple[str, ...] | None = None,
+    device=None,
+) -> torch.Tensor:
+    """Per-tree class assignments, shape (T, M), via forest-level dispatch.
+
+    The whole call resolves through :class:`repro_torch.tune.ForestTunedEvaluator`
+    as one unit: the (T, M, N_max, A, depth-profile) bucket picks between
+    per-tree variant vectors, the shared-variant batched path, and the fused
+    kernels that evaluate the forest in one launch.  With ``autotune=True``
+    the first sight of a bucket measures all three families and persists the
+    winner.  Every family is exact, so the choice never changes results —
+    bit-identical to evaluating each tree with ``eval_serial``.
+    ``layouts=("f32", "quant")`` opts the quantized node tables into the
+    competition (still exact: dispatch builds universal-mode layouts only).
+    ``device``: where to run; default where ``records`` lies, else CUDA.
+    """
+    from repro_torch.tune import ForestTunedEvaluator
+
+    return ForestTunedEvaluator(
+        forest, cache=cache, autotune=autotune, engines=engines,
+        families=families, layouts=layouts, device=device,
+    )(records)
+
+
 def eval_forest_cascade(
     forest: EncodedForest,
     records,

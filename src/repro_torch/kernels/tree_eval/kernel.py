@@ -25,8 +25,10 @@ thresholds, upcast as the tables are staged into shared memory.
 
 A wrapper given CPU tensors returns its plain torch version (``*_plain``);
 given CUDA tensors it checks them, allocates the output, launches the kernel
-on the current stream and adds one to its entry of ``LAUNCHES``.  There is
-no fallback: a failed build or launch raises.
+on the current stream and adds one to its entry of ``LAUNCHES`` (and of the
+calling thread's count, inside ``thread_launches``).  There is no fallback:
+a failed build or launch raises ``RuntimeError``; a tile that does not fit
+raises ``TileError``.
 
 The speculative kernels K1/K3/K5/K7 give each record to one warp, with node
 ``n`` in slot ``n // 32`` of lane ``n % 32``: ``jump_slots`` says whether a
@@ -54,8 +56,10 @@ takes raw records, ±inf and NaN included, as the JAX package's does.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 from pathlib import Path
 
 import torch
@@ -100,9 +104,41 @@ THR_CODES = {torch.float32: ("float32", 0), torch.float16: ("float16", 1), torch
 INDEX_DTYPES = (torch.int8, torch.int16, torch.int32)
 
 
+_THREAD = threading.local()
+
+
+class TileError(ValueError):
+    """No record tile of the requested size fits a CTA's shared memory.
+
+    The one refusal a tuner may score as an infinitely slow candidate: the
+    kernel cannot run at that shape.  A failed build or launch is a
+    ``RuntimeError`` and is never caught as this.
+    """
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def thread_launches():
+    """Count this thread's kernel launches inside the block, by ``LAUNCHES`` key.
+
+    Yields a dict that fills as the block launches; ``LAUNCHES`` counts the
+    same launches as always.  Launches of other threads (a server's request
+    thread while a tuner measures on a worker) do not land in it.
+    """
+    outer = getattr(_THREAD, "counts", None)
+    counts: dict[str, int] = {}
+    _THREAD.counts = counts
+    try:
+        yield counts
+    finally:
+        _THREAD.counts = outer
+        if outer is not None:
+            for name, n in counts.items():
+                outer[name] = outer.get(name, 0) + n
 
 
 def jump_slots(n_nodes: int, n_attrs: int, jump_mode: str = "gather") -> int:
@@ -256,7 +292,7 @@ def _tile_smem(
         raise ValueError(f"n_classes={n_classes} is negative")
     need = smem_bytes(algorithm, block_m, n_attrs, n_nodes, jump_mode, n_classes, n_trees)
     if need > SMEM_MAX:
-        raise ValueError(
+        raise TileError(
             f"block_m={block_m} needs {need} B of shared memory for N={n_nodes}, "
             f"A={n_attrs}, C={n_classes}; a CTA has {SMEM_MAX} B"
         )
@@ -311,6 +347,9 @@ def _launch(c_name: str, counter: str, tensors, ints) -> None:
         msg = lib.tree_eval_error_string(err).decode()
         raise RuntimeError(f"{c_name} launch failed: CUDA error {err} ({msg})")
     LAUNCHES[counter] += 1
+    counts = getattr(_THREAD, "counts", None)
+    if counts is not None:
+        counts[counter] = counts.get(counter, 0) + 1
 
 
 def _tables(attr_idx, threshold, child, class_val, lead, attr_select=None, n_attrs=0):

@@ -67,10 +67,24 @@ def choose_block_m(
             if _k.smem_bytes(algorithm, bm, n_attrs, n_nodes, jump_mode, n_classes) <= budget:
                 return bm
             bm //= 2
-    raise ValueError(
+    raise _k.TileError(
         f"no {algorithm}/{jump_mode} record tile fits N={n_nodes} nodes, "
         f"A={n_attrs} attributes and C={n_classes} classes in {_k.SMEM_MAX} B of shared memory"
     )
+
+
+def _tile(records: torch.Tensor, block_m: int | None, n_nodes: int, n_attrs: int, **sizes) -> int:
+    """The record tile of a launch: ``block_m`` if given, else the model's.
+
+    CPU tensors run the kernels' plain versions, which take no tile, so
+    they skip the choice and its refusal: a tree too large for a CTA is
+    still evaluated on the host, as the JAX package evaluates it.
+    """
+    if block_m is not None:
+        return block_m
+    if records.device.type == "cpu":
+        return 0
+    return choose_block_m(n_nodes, n_attrs, **sizes)
 
 
 def _check_args(algorithm: str, jump_mode: str) -> None:
@@ -145,8 +159,7 @@ def tree_eval(
             n_attrs = int(np.shape(records)[-1])
         tree = PackedTree(tree, n_attrs, device=_device.resolve(records, device))
     records = _records(records, tree, tree.n_attrs, device)
-    if block_m is None:
-        block_m = choose_block_m(tree.n_nodes, tree.n_attrs, algorithm=algorithm, jump_mode=jump_mode)
+    block_m = _tile(records, block_m, tree.n_nodes, tree.n_attrs, algorithm=algorithm, jump_mode=jump_mode)
     if algorithm == "data_parallel":
         return _k.data_parallel(
             records, tree.attr_idx, tree.threshold, tree.child, tree.class_val,
@@ -232,8 +245,8 @@ def forest_eval_fused(
             n_attrs = int(np.shape(records)[-1])
         forest = PackedForest(forest, n_attrs, device=_device.resolve(records, device))
     records = _records(records, forest, forest.n_attrs, device)
-    if block_m is None:
-        block_m = choose_block_m(forest.n_nodes, forest.n_attrs, algorithm=algorithm, jump_mode=jump_mode)
+    block_m = _tile(records, block_m, forest.n_nodes, forest.n_attrs, algorithm=algorithm,
+                    jump_mode=jump_mode)
     if algorithm == "data_parallel":
         return _k.fused_data_parallel(
             records, forest.attr_idx, forest.threshold, forest.child, forest.class_val,
@@ -276,11 +289,8 @@ def forest_votes_fused(
         forest = PackedForest(forest, n_attrs, device=_device.resolve(records, device))
     records = _records(records, forest, forest.n_attrs, device)
     n_classes = int(n_classes)
-    if block_m is None:
-        block_m = choose_block_m(
-            forest.n_nodes, forest.n_attrs, algorithm=algorithm, jump_mode=jump_mode,
-            n_classes=n_classes,
-        )
+    block_m = _tile(records, block_m, forest.n_nodes, forest.n_attrs, algorithm=algorithm,
+                    jump_mode=jump_mode, n_classes=n_classes)
     if algorithm == "data_parallel":
         return _k.fused_votes_data_parallel(
             records, forest.attr_idx, forest.threshold, forest.child, forest.class_val,
@@ -334,8 +344,7 @@ def forest_eval_fused_q(
         forest = QuantizedForest(forest, n_attrs, thr_dtype=thr_dtype, calibration=calibration,
                                  device=_device.resolve(records, device))
     records = _records(records, forest, forest.n_attrs, device)
-    if block_m is None:
-        block_m = choose_block_m(forest.n_nodes, forest.n_attrs, algorithm=algorithm)
+    block_m = _tile(records, block_m, forest.n_nodes, forest.n_attrs, algorithm=algorithm)
     tables = (records, forest.attr_idx, forest.threshold, forest.child, forest.class_val)
     if algorithm == "data_parallel":
         return _k.fused_data_parallel_q(*tables, max_depth=forest.max_depth, block_m=block_m)
@@ -406,10 +415,12 @@ def list_variants(*, engine: str | None = None, algorithm: str | None = None) ->
 
 
 def _cuda_fn(algorithm: str, jump_mode: str) -> Callable:
-    def fn(records, enc, *, max_depth=None, **params):
+    def fn(records, tree, *, max_depth=None, **params):
+        # ``tree``: an EncodedTree (packed on every call) or a PackedTree a
+        # caller built once on the records' device, as the tuner does.
         del max_depth  # PackedTree derives it from the encoding
         return tree_eval(
-            records, enc, algorithm=algorithm, jump_mode=jump_mode,
+            records, tree, algorithm=algorithm, jump_mode=jump_mode,
             block_m=params.get("block_m"),
         )
 
@@ -475,7 +486,13 @@ for _alg, _jm in _ALGORITHM_MODES:
 # Family "fused" is one kernel launch (K3/K4, or K7/K8 on the quantized
 # layout) with the record tile resident across trees; family "batched" is
 # the plain tensor evaluators with the tree axis as a batch dimension (the
-# JAX package's "vmap" family).
+# JAX package's "vmap" family).  The third family a forest tuner weighs —
+# "per_tree", a vector of per-tree winners — is no single callable and lives
+# in ``repro_torch.tune.dispatch.ForestTunedEvaluator``.
+
+# Family name of the per-tree-variant-vector path; kept here so the cache
+# vocabulary is defined next to the registry.
+PER_TREE_FAMILY = "per_tree"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,12 +9,20 @@ package); the tracer's profiler bridge is ``torch.profiler.record_function``.
               near-zero-cost when disabled; duplicate-registration guard.
   trace.py    ring-buffered span tracer with a Chrome/Perfetto exporter.
   export.py   JSON snapshot + Prometheus text exposition, stdlib-only.
+  flight.py   SLO flight recorder for the serve engine — bounded ring of
+              recent waves, breach counters, debug bundles (metrics
+              snapshot + Perfetto trace) on breach/exception/demand.
+  prof.py     traversal profiler — sampled shadow passes over the live
+              workload measuring §3.6's d_µ / speculation waste / lane
+              occupancy / leaf-hit drift, feeding the tuner measured values
+              instead of priors.
 
 Every evaluator owns a private :class:`Registry` by default and accepts
 ``registry=`` / ``tracer=`` to share one.
 """
 
 from repro_torch.obs.export import prometheus_text, snapshot, write_json_snapshot
+from repro_torch.obs.flight import FlightPolicy, FlightRecorder
 from repro_torch.obs.metrics import (
     DEFAULT_MS_BOUNDARIES,
     DEFAULT_RATIO_BOUNDARIES,
@@ -26,23 +34,37 @@ from repro_torch.obs.metrics import (
     default_registry,
     set_default_registry,
 )
+from repro_torch.obs.prof import (
+    BucketProfile,
+    ProfilePolicy,
+    TraversalProfiler,
+    leaf_drift_distance,
+    survival_from_classes,
+)
 from repro_torch.obs.trace import NULL_TRACER, SpanEvent, Tracer, write_chrome_trace
 
 __all__ = [
+    "BucketProfile",
     "Counter",
     "DEFAULT_MS_BOUNDARIES",
     "DEFAULT_RATIO_BOUNDARIES",
     "DuplicateMetricError",
+    "FlightPolicy",
+    "FlightRecorder",
     "Gauge",
     "Histogram",
     "NULL_TRACER",
+    "ProfilePolicy",
     "Registry",
     "SpanEvent",
     "Tracer",
+    "TraversalProfiler",
     "default_registry",
+    "leaf_drift_distance",
     "prometheus_text",
     "set_default_registry",
     "snapshot",
+    "survival_from_classes",
     "write_chrome_trace",
     "write_json_snapshot",
 ]

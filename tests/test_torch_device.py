@@ -474,3 +474,150 @@ def test_quantized_kernels_refuse_bad_tables_on_card(cuda_device):
     with pytest.raises(ValueError, match="block_m=2048"):
         K.fused_data_parallel_q(rec, q.attr_idx, q.threshold, q.child, q.class_val,
                                 max_depth=3, block_m=2048)
+
+
+# ---------------------------------------------------------------------------
+# subnormals, the profiler, the tuner and the serve engine on the card
+# ---------------------------------------------------------------------------
+
+SUBNORMALS = np.array([1e-45, -1e-45, 1e-40, -1e-40, 2.0**-140, -(2.0**-140), 0.0, -0.0], np.float32)
+
+
+@pytest.mark.gpu
+def test_kernels_keep_subnormals_on_card(cuda_device):
+    """K1–K8 compare subnormals as IEEE does (the build has no -ftz): equal to
+    their plain versions and to the serial descent on the host."""
+    from repro_torch.core import eval_serial
+
+    rng = np.random.default_rng(11)
+    forest = EncodedForest([_tree(d, seed=d, balance=0.7) for d in (1, 3, 5, 7)])
+    split = forest.class_val == BOTTOM
+    forest.threshold[split] = rng.choice(SUBNORMALS, int(split.sum()))
+    rec_np = rng.choice(SUBNORMALS, size=(3000, 19)).astype(np.float32)
+    rec = torch.from_numpy(rec_np).to(cuda_device)
+    serial = np.stack([eval_serial(forest.tree(t), rec_np) for t in range(forest.n_trees)])
+    for algorithm, jump_mode in MODES:
+        for t in range(forest.n_trees):
+            got = ops.tree_eval(rec, forest.tree(t), algorithm=algorithm, jump_mode=jump_mode)
+            assert np.array_equal(got.cpu().numpy(), serial[t]), (algorithm, jump_mode, t)
+        got = ops.forest_eval_fused(rec, forest, algorithm=algorithm, jump_mode=jump_mode)
+        assert np.array_equal(got.cpu().numpy(), serial), (algorithm, jump_mode)
+        votes = ops.forest_votes_fused(rec, forest, n_classes=7, algorithm=algorithm, jump_mode=jump_mode)
+        assert np.array_equal(votes.cpu().numpy(), (serial[..., None] == np.arange(7)).sum(0))
+    for thr_stored in THR_STORAGES:
+        q = QuantizedForest(forest, 19, thr_dtype="bfloat16" if thr_stored == "float32" else thr_stored,
+                            device=cuda_device)
+        for algorithm in ops.ALGORITHMS:
+            got = ops.forest_eval_fused_q(rec, q, algorithm=algorithm)
+            assert np.array_equal(got.cpu().numpy(), serial), (algorithm, thr_stored, q.thr_stored)
+
+
+@pytest.mark.gpu
+def test_profile_on_card_equals_profile_on_cpu(cuda_device):
+    from repro_torch.kernels.tree_eval import profile_forest_eval, profile_tree_eval
+
+    rec = _records(5000, seed=12)
+    enc = _tree(7, seed=3, balance=0.7)
+    forest = EncodedForest([_tree(d, seed=d, balance=0.7) for d in (2, 5, 7)])
+    for card, host in ((profile_tree_eval(rec, enc), profile_tree_eval(rec, enc, device="cpu")),
+                       (profile_forest_eval(rec, forest), profile_forest_eval(rec, forest, device="cpu"))):
+        for field, got, want in zip(card._fields, card, host):
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu(), want), field
+        assert card.d_mu() == host.d_mu()
+
+
+@pytest.mark.gpu
+def test_default_space_on_card_holds_only_kernels(cuda_device):
+    from repro_torch.kernels.tree_eval.cascade import MAJORITY_FAMILY, get_cascade_variant
+    from repro_torch.tune import ForestShape, WorkloadShape, cascade_search_space, forest_search_space
+    from repro_torch.tune import search_space
+
+    shape = WorkloadShape(m=65_536, n_nodes=75, n_attrs=19, depth=12)
+    tree = list(search_space(shape))
+    assert tree and all(ops.get_variant(c.variant).engine == "cuda" for c in tree)
+    fshape = ForestShape(t=16, m=65_536, n_nodes=51, n_attrs=19, depth_min=5, depth_max=8)
+    forest = [c for c in forest_search_space(fshape, layouts=("f32", "quant")) if c.variant != ops.PER_TREE_FAMILY]
+    assert forest and all(ops.get_forest_variant(c.variant).engine == "cuda" for c in forest)
+    classes = [c for c in cascade_search_space(fshape, 7) if c.variant != MAJORITY_FAMILY]
+    assert classes and all(get_cascade_variant(c.variant).engine == "cuda" for c in classes)
+
+
+@pytest.mark.gpu
+def test_each_measured_candidate_launches_its_kernel_on_card(cuda_device, tmp_path):
+    from repro_torch.tune import TuneCache, tune_workload
+
+    enc = _tree(6, seed=4, balance=0.8)
+    entry, measurements = tune_workload(_records(3000, seed=13), enc, cache=TuneCache(tmp_path / "c.json"),
+                                        warmup=1, iters=2)
+    assert entry.variant.startswith("cuda_")
+    for m in measurements:
+        spec = ops.get_variant(m.candidate.variant)
+        key = spec.algorithm + (f"/{spec.jump_mode}" if spec.algorithm == "speculative" else "")
+        assert not m.failed and m.launches == {key: 3}, (m.candidate, m.launches)
+
+
+@pytest.mark.gpu
+def test_kernel_faults_propagate_out_of_the_tuner_on_card(cuda_device, tmp_path, monkeypatch):
+    """A failed build or launch is a fault, never an infinitely slow candidate."""
+    from repro_torch.tune import Candidate, TuneCache, TunedEvaluator, measure_candidate, tune_workload
+
+    enc, rec = _tree(5, seed=6, balance=0.8), _records(2000, seed=14)
+
+    def broken_build():
+        raise RuntimeError("nvcc failed (forced)")
+
+    monkeypatch.setattr(K, "_library", broken_build)
+    padded = torch.from_numpy(rec).to(cuda_device)
+    with pytest.raises(RuntimeError, match="forced"):
+        measure_candidate(Candidate.make("cuda_data_parallel", block_m=64), padded, enc, max_depth=5)
+    with pytest.raises(RuntimeError, match="forced"):
+        tune_workload(rec, enc, cache=TuneCache(tmp_path / "a.json"), warmup=1, iters=1)
+    with pytest.raises(RuntimeError, match="forced"):
+        TunedEvaluator(enc, cache=TuneCache(tmp_path / "b.json"), autotune=True,
+                       measure_kw={"warmup": 1, "iters": 1})(rec)
+    monkeypatch.undo()
+
+    real = K._launch
+
+    def failing_launch(c_name, *args):
+        if c_name == "k1_speculative":
+            raise RuntimeError("k1_speculative launch failed: CUDA error 719 (forced)")
+        return real(c_name, *args)
+
+    monkeypatch.setattr(K, "_launch", failing_launch)
+    with pytest.raises(RuntimeError, match="forced"):
+        tune_workload(rec, enc, cache=TuneCache(tmp_path / "c.json"), warmup=1, iters=1)
+    monkeypatch.undo()
+
+    # a tile that does not fit the card is the one refusal scored as ∞
+    m = measure_candidate(Candidate.make("cuda_speculative_onehot", block_m=128),
+                          torch.zeros((64, 4000), device=cuda_device), _tree(9, seed=1), max_depth=9)
+    assert m.failed and m.median_ms == float("inf")
+
+
+@pytest.mark.gpu
+def test_tree_serve_engine_on_card_equals_eval_serial(cuda_device, tmp_path):
+    from repro_torch import obs
+    from repro_torch.core import eval_serial
+    from repro_torch.serve import RetunePolicy, TreeRequest, TreeServeEngine
+    from repro_torch.tune import TuneCache
+
+    enc = _tree(8, seed=7, balance=0.7)
+    rng = np.random.default_rng(15)
+    eng = TreeServeEngine(enc, max_batch=8192, cache=TuneCache(tmp_path / "c.json"),
+                          retune=RetunePolicy(hot_waves=2, warmup=1, iters=2),
+                          profile=obs.ProfilePolicy(sample_every=2), flight=obs.FlightPolicy(out_dir=str(tmp_path)))
+    assert eng.device.type == "cuda"
+    for round_ in range(3):
+        reqs = [TreeRequest(uid=i, records=_records(int(rng.integers(1, 3000)), seed=100 * round_ + i))
+                for i in range(12)]
+        eng.run(reqs)
+        for r in reqs:
+            assert np.array_equal(r.out, eval_serial(enc, r.records)), (round_, r.uid)
+        eng.retuner.drain(timeout=120)
+    eng.profiler.drain()
+    assert eng.retuner.errors == [] and eng.stats.retunes >= 1
+    counters = obs.snapshot(eng.obs)["counters"]
+    assert not counters.get("prof.errors") and counters["prof.sampled"] >= 1
+    assert all(ops.get_variant(m.candidate.variant).engine == "cuda" for s in eng.sweeps.values() for m in s)
