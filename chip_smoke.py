@@ -56,8 +56,34 @@ Phases, each printing its own lines:
    (autotune, layouts f32 and quant) and ``ForestTunedEvaluator.predict``
    (autotune: majority vote against the cascades) against the host oracles,
    with every candidate's median and the winners.  No failed candidate, no
-   retuner or profiler failure.  (Phase 7 times the tree kernel at each tile
-   of the tuner's grid, outside the counted window);
+   retuner or profiler failure.  The repaired tuner: the M 65,536 bucket
+   swept on a worker thread and stream with no wave in flight and while
+   another thread serves waves without pause, every candidate's score
+   (spin-hidden device time + launches × the ctypes launch cost) and raw
+   samples printed, the winners' algorithms equal.  (Phase 7 times the tree
+   kernel at each tile of the tuner's grid, outside the counted window);
+6f. forest-serve — the forest served through ``repro_torch.dist``:
+   ``ForestServeEngine`` (65,536-record waves in chunks of 8,192 through the
+   pinned, double-buffered ``StreamingChunker``, background re-tune after 2
+   waves of a bucket at the chunk shape with layouts f32 and quant,
+   synchronous shadow profiling, a flight recorder) on the same 45 requests
+   twice, every request equal to the host vote of stacked ``eval_serial``;
+   every re-tune candidate's score and samples; per-chunk and per-wave ms
+   and the overlap ratio; one wave under the profiler (device time by kind
+   and stream, idle share, how long the pinned copy-in overlapped a
+   kernel, the host spans); the anytime cascade (``AnytimePolicy``, K5
+   gather/onehot and K6) under a deadline no wave reaches (classes equal
+   the host vote) and at ``slo_ms=0`` (every wave truncated, records that
+   exited equal the host vote); ``ShardedForestEvaluator`` over four
+   logical shards of one card, records 4×1 (a K3 winner stored at the
+   shard shape), trees 1×4 (K4 by the heuristic), hybrid 2×2 (stored K8 and
+   K7 winners), each equal to ``eval_forest_tuned`` on image 0 and at M 7,
+   3, 2, each shard one launch; ``StreamingChunker`` alone equal to the
+   monolithic call, its steady-state eval free of synchronizing operations
+   under ``torch.cuda.set_sync_debug_mode``; ``eval_windowed`` on a
+   16,383-node perfect tree at A 19 (which ``ops.tree_eval`` refuses with
+   ``TileError``) over 65,536 records equal to ``eval_serial``, its time and
+   peak memory;
 7. timing — where one image's service time goes (host wall, device busy by
    kernel) on the tree, forest and cascade paths; then each kernel on the
    main path's own tree, forest, cascade stage and image, checked equal to
@@ -81,11 +107,14 @@ forest and at its second stage; each at its own checkout's tile
 (``choose_block_m``), the data-parallel rows with both grids.
 
 Kernel launches are counted from zero over phases 4–6 (5q included), where
-every kernel must launch, and again from zero over phase 6s, where the
-kernel of every candidate the tuner measured must launch (each measured
-kernel candidate also counts its own launches on its thread).  The
-``kernels`` line's ``launches`` is the sum of the two windows.  Any
-mismatch, missing launch or exception exits non-zero.
+every kernel must launch, again from zero over phase 6s, where the kernel
+of every candidate the tuner measured must launch (each measured kernel
+candidate also counts its own launches on its thread), and again from zero
+over phase 6f, where K3 gather, K4, K5 in both forms, K6, and K7/K8 must
+launch (the phase prints them by part: served waves, re-tune candidates,
+anytime stages, shard bodies, the chunker).  The ``kernels`` line's
+``launches`` is the sum of the three windows.  Any mismatch, missing launch
+or exception exits non-zero.
 """
 
 from __future__ import annotations
@@ -100,6 +129,7 @@ import shutil
 import subprocess
 import sys
 import time
+from collections import deque
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
@@ -841,6 +871,69 @@ def serve_breakdown(eng, requests, key: str, card) -> None:
           f"{resolve_ms:.3f} ms more (host clock)")
 
 
+def sample_line(m) -> str:
+    """A measured candidate's score, median and raw samples."""
+    return (f"score {m.score_ms:.4f} ms = median {m.median_ms:.4f} ms + launch price "
+            f"{m.score_ms - m.median_ms:.4f} ms; samples (device ms, host enqueue hidden) "
+            + "[" + ", ".join(f"{x:.4f}" for x in m.samples_ms) + "]")
+
+
+def loaded_vs_quiet(eng, batch, wave, key: str, dev, card) -> None:
+    """The tuner's repair, held on the card: the bucket ``key``'s sweep on a
+    worker thread and stream of its own, once with no wave in flight and
+    once while another thread serves ``wave`` through the engine without
+    pause; the winners' algorithms must agree.  Every candidate's score and
+    samples are printed, and each score's ratio under load."""
+    import threading
+
+    from repro_torch.serve import TreeRequest
+    from repro_torch.tune import tune_workload
+
+    def sweep(loaded: bool):
+        stop, served, out = threading.Event(), [0], {}
+
+        def serve():
+            while not stop.is_set():
+                eng.run([TreeRequest(uid=r.uid, records=r.records) for r in wave])
+                served[0] += 1
+
+        def measure():
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                out["sweep"] = tune_workload(batch, eng.tree, cache=None, warmup=1, iters=3, device=dev)
+
+        server = threading.Thread(target=serve) if loaded else None
+        if server is not None:
+            server.start()
+            while served[0] < 1:
+                time.sleep(0.001)
+        worker = threading.Thread(target=measure)
+        t0 = time.perf_counter()
+        worker.start()
+        worker.join()
+        secs = time.perf_counter() - t0
+        stop.set()
+        if server is not None:
+            server.join()
+        check("sweep" in out, "the sweep raised on its worker thread")
+        return out["sweep"], served[0], secs
+
+    (quiet, q_sweep), _, q_s = sweep(False)
+    (loaded, l_sweep), n_served, l_s = sweep(True)
+    q_alg, l_alg = (ops.get_variant(e.variant).algorithm for e in (quiet, loaded))
+    q_by = {(m.candidate.variant, repr(m.candidate.param_dict)): m for m in q_sweep}
+    print(f"[serve] {card}: bucket {key}, the repaired sweep (spin-hidden device time + launches x "
+          f"{K.launch_cost_ms(dev) * 1e3:.2f} us a launch), no wave in flight ({q_s:.2f} s) against while "
+          f"{n_served} waves were served on another thread ({l_s:.2f} s): winner {quiet.variant} "
+          f"{quiet.params} against {loaded.variant} {loaded.params}")
+    for m in sorted(l_sweep, key=lambda m: m.score_ms):
+        q = q_by[(m.candidate.variant, repr(m.candidate.param_dict))]
+        print(f"[serve]   {m.candidate.variant} {m.candidate.param_dict}: quiet {sample_line(q)}; "
+              f"loaded {sample_line(m)}; score ratio {m.score_ms / q.score_ms:.2f}")
+    check(q_alg == l_alg,
+          f"the sweep under load picks {loaded.variant}, without load {quiet.variant}")
+    check(n_served >= 1, "no wave was served during the loaded sweep")
+
+
 def serve_tile_timing(dev, image, enc, card) -> None:
     """K1 gather and K2 on the paper's tree at each tile the tuner's grid
     holds (sized at the bucket's upper N and A, 128) beside the tile
@@ -964,17 +1057,18 @@ def phase_serve(dev, images, enc, forest, per_trees, card) -> set:
             resolved, source = eng._eval._resolved[key]
             check(source == "retune" and resolved.variant == entry.variant,
                   f"{key}: the served winner is {resolved} ({source}), not the measured {entry.variant}")
-            for m in sorted(sweep, key=lambda m: m.median_ms):
+            for m in sorted(sweep, key=lambda m: m.score_ms):
                 launch_key = variant_launch_key(m.candidate.variant, m.candidate.param_dict, {})
                 if launch_key is not None:
                     want_keys.add(launch_key)
                     check(m.launches.get(launch_key, 0) > 0,
                           f"{m.candidate} launched {m.launches}, not {launch_key}")
-                print(f"[serve]   candidate {m.candidate.variant} {m.candidate.param_dict}: median "
-                      f"{m.median_ms:.4f} ms (CUDA events, {len(m.samples_ms)} calls, bucket-padded M "
-                      f"{shape.bucket().m}), launches {m.launches}")
-            print(f"[serve]   measured winner {entry.variant} {entry.params} {entry.median_ms:.4f} ms; "
+                print(f"[serve]   candidate {m.candidate.variant} {m.candidate.param_dict}: {sample_line(m)}, "
+                      f"bucket-padded M {shape.bucket().m}, launches {m.launches}")
+            print(f"[serve]   measured winner {entry.variant} {entry.params} (median {entry.median_ms:.4f} ms); "
                   f"heuristic pick {'agrees' if pick.variant == entry.variant else 'differs'}")
+        big = max(set(keys), key=lambda k: WorkloadShape.of(waves[keys.index(k)], enc).bucket().m)
+        loaded_vs_quiet(eng, waves[keys.index(big)], wave_reqs[keys.index(big)], big, dev, card)
         for key in sorted(set(keys)):
             serve_breakdown(eng, wave_reqs[keys.index(key)], key, card)
         bundle = eng.dump_flight("chip_smoke")
@@ -1020,6 +1114,311 @@ def phase_serve(dev, images, enc, forest, per_trees, card) -> set:
                 want_keys.add(key)
     print(f"[serve] phase took {time.perf_counter() - t_phase:.1f} s on the host of {card}")
     return want_keys
+
+
+# ---------------------------------------------------------------------------
+# phase 6f: sharded and streamed forest serving (dist → ForestServeEngine)
+# ---------------------------------------------------------------------------
+
+
+FOREST_CHUNK = 8_192
+WINDOW_DEPTH = 13          # a perfect tree of 16,383 nodes: speculative K1 refuses it on the card
+FOREST_PATH = ("fused_speculative/gather", "fused_data_parallel", "fused_votes_speculative/gather",
+               "fused_votes_speculative/onehot", "fused_votes_data_parallel",
+               "fused_speculative_q/float32", "fused_data_parallel_q/float32")
+
+
+def device_intervals(prof, tmp: Path) -> list[tuple[str, float, float, int]]:
+    """(name, start µs, end µs, stream) of every device event of a profile,
+    read from its Chrome trace."""
+    path = tmp / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    return [(e["name"], float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), int(e.get("args", {}).get("stream", -1)))
+            for e in events if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def union_length(spans) -> float:
+    """Length covered by a set of (start, end) intervals."""
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def overlap_length(a, b) -> float:
+    """Length covered by both interval sets."""
+    return union_length(a) + union_length(b) - union_length(list(a) + list(b))
+
+
+SPIN_MARKER = 100_000   # clock cycles of the torch.cuda._sleep kernel that ends each profiled run
+
+
+def profiled_device(runs, card, tmp: Path) -> None:
+    """Each ``(label, run, tracer)`` of ``runs`` under one profiler session
+    (a process's later sessions can lose kernels; phase 7 needs many), the
+    runs told apart by a spin kernel after each: host wall, device busy and
+    idle share, device time by kind and stream, how long the pinned copies
+    in overlapped a kernel, and the host spans ``tracer`` saw."""
+    from torch.profiler import ProfilerActivity, profile
+
+    walls, hosts = [], []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _, run, tracer in runs:
+            tracer.clear()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            host: dict = {}
+            for e in tracer.events():
+                if e.ph == "X":
+                    host[e.name] = host.get(e.name, 0.0) + e.dur_us / 1e3
+            hosts.append(host)
+            torch.cuda._sleep(SPIN_MARKER)
+            torch.cuda.synchronize()
+    blocks, block = [], []
+    for span in sorted(device_intervals(prof, tmp), key=lambda x: x[1]):
+        if "spin_kernel" in span[0]:
+            blocks.append(block)
+            block = []
+        else:
+            block.append(span)
+    check(len(blocks) == len(runs) and all(blocks),
+          f"the profiler saw {[len(b) for b in blocks]} device events between markers for {len(runs)} runs")
+    for (label, _, _), spans, wall, host in zip(runs, blocks, walls, hosts):
+        kinds: dict = {}
+        for name, a, b, stream in spans:
+            kind = ("copy in (pinned)" if "HtoD" in name and "Pinned" in name else "copy in (pageable)" if "HtoD" in name
+                    else "copy out" if "DtoH" in name else "copy d2d" if "Memcpy" in name
+                    else "forest kernel" if "_kernel" in name and "at::" not in name else "torch ops")
+            ms, n, streams = kinds.get(kind, (0.0, 0, set()))
+            kinds[kind] = (ms + (b - a) / 1e3, n + 1, streams | {stream})
+        busy = union_length([(a, b) for _, a, b, _ in spans]) / 1e3
+        pinned = [(a, b) for name, a, b, _ in spans if "HtoD" in name and "Pinned" in name]
+        kern = [(a, b) for name, a, b, _ in spans if "Memcpy" not in name and "Memset" not in name]
+        ours = [(a, b) for name, a, b, _ in spans if "_kernel" in name and "at::" not in name]
+        parts = "; ".join(f"{k} {ms:.4f} ms x{n} (stream {sorted(st)})" for k, (ms, n, st) in sorted(kinds.items()))
+        print(f"[forest-serve] {card}: {label} under the profiler: host wall {wall:.3f} ms, device busy {busy:.4f} ms, "
+              f"idle share {1 - busy / wall:.1%}; device by kind: {parts}; the pinned copies in overlapped by any "
+              f"kernel {overlap_length(pinned, kern) / 1e3:.4f} ms of {union_length(pinned) / 1e3:.4f} ms, by a forest "
+              f"kernel {overlap_length(pinned, ours) / 1e3:.4f} ms; host spans (sums): "
+              + "; ".join(f"{k} {v:.3f} ms" for k, v in sorted(host.items(), key=lambda kv: -kv[1])))
+
+
+def phase_forest_serve(dev, images, forest, per_trees, card) -> dict:
+    """The forest served through ``repro_torch.dist`` at the paper's sizes:
+    ``ForestServeEngine`` streaming the 45 requests twice (background
+    re-tune, shadow profiler), the anytime cascade under a loose and a
+    cutting deadline, ``ShardedForestEvaluator`` over four logical shards
+    of one card, the chunker alone, and the windowed evaluator on a tree the
+    speculative kernels refuse.  Returns the launches of each part."""
+    import tempfile
+    import warnings
+
+    from repro_torch.core import eval_forest_tuned, eval_windowed, perfect_tree
+    from repro_torch.dist import ShardedForestEvaluator, StreamingChunker
+    from repro_torch.parallel.sharding import forest_mesh
+    from repro_torch.serve import AnytimePolicy, ForestServeEngine, RetunePolicy, TreeRequest
+    from repro_torch.serve.engine import _next_wave
+    from repro_torch.tune import ForestShape, TuneCache, TuneEntry, backend_tag
+
+    t_phase = time.perf_counter()
+    parts: dict = {}
+    reqs = serve_requests(images)
+    want = host_vote(np.concatenate(per_trees, axis=1))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_forest_") as tmp:
+        tmp = Path(tmp)
+        # -- streamed waves ----------------------------------------------------
+        cache = TuneCache(tmp / "tune.json")
+        policy = obs.ProfilePolicy(sample_every=1, sample_records=4096, synchronous=True)
+        eng = ForestServeEngine(forest, max_batch=SERVE_MAX_BATCH, chunk_records=FOREST_CHUNK,
+                                n_classes=N_CLASSES, cache=cache, layouts=("f32", "quant"),
+                                retune=RetunePolicy(hot_waves=2, warmup=1, iters=3), profile=policy,
+                                flight=obs.FlightPolicy(out_dir=str(tmp / "flight")), tracer=obs.Tracer(),
+                                devices=(dev,))
+        with K.thread_launches() as waves_l:
+            for label in ("first pass", "second pass"):
+                batch = [TreeRequest(uid=r.uid, records=r.records) for r in reqs]
+                t0 = time.perf_counter()
+                eng.run(batch)
+                ms = (time.perf_counter() - t0) * 1e3
+                check(np.array_equal(np.concatenate([r.out for r in batch]), want),
+                      f"streamed forest waves != the host vote of stacked eval_serial ({label})")
+                eng.retuner.drain(timeout=300)
+                check(not any(t.is_alive() for t in eng.retuner._threads), "the forest retuner is still measuring")
+                check(not eng.retuner.errors, f"forest retuner failures: {eng.retuner.errors}")
+                print(f"[forest-serve] {card}: {label}: {len(batch)} requests, majority vote equal to the host vote "
+                      f"of stacked eval_serial, in {ms:.1f} ms host wall; {eng.stats.retunes} retune(s) so far")
+        parts["served waves"] = waves_l
+        check(eng.stats.retunes >= 1, "no forest bucket was re-tuned")
+        counters = obs.snapshot(eng.obs)["counters"]
+        failed = {k: v for k, v in counters.items() if k.startswith("tune.failed_candidates") and v}
+        check(not failed, f"failed candidates in the forest engine's sweeps: {failed}")
+        check(not counters.get("prof.errors"), f"{counters.get('prof.errors')} forest shadow passes raised")
+        retune_l: dict = {}
+        for key, sweep in eng.sweeps.items():
+            print(f"[forest-serve]   retune of {key} at the chunk size ({len(sweep)} candidates, CUDA events "
+                  f"on the retuner's stream):")
+            for m in sorted(sweep, key=lambda m: m.score_ms):
+                for k, n in m.launches.items():
+                    retune_l[k] = retune_l.get(k, 0) + n
+                print(f"[forest-serve]     {m.candidate.variant} {m.candidate.param_dict}: {sample_line(m)}, "
+                      f"launches {m.launches}")
+        parts["retune candidates"] = retune_l
+        chunk_ms, overlap = eng.stats.chunk_ms, eng._chunker.stats.overlap_ratio
+        wave_ms = [w["latency_ms"] for w in eng.flight.waves()]
+        print(f"[forest-serve] {card}: plan {eng.plan}; {eng.stats.waves} waves, {eng.stats.chunks} chunks "
+              f"(configured {FOREST_CHUNK}, effective now {eng._chunker.effective_chunk_records}); per-chunk ms "
+              f"(submit to drained, host clock) mean {np.mean(chunk_ms):.3f} min {min(chunk_ms):.3f} max "
+              f"{max(chunk_ms):.3f}; overlap ratio mean {np.mean(overlap):.3f} max {max(overlap):.3f}; per-wave ms "
+              f"(chunked eval + vote, host clock, {len(wave_ms)} waves in the flight ring) mean {np.mean(wave_ms):.3f} "
+              f"min {min(wave_ms):.3f} max {max(wave_ms):.3f}")
+        queue = deque(reqs)
+        first_wave, _ = _next_wave(queue, SERVE_MAX_BATCH)
+        size = eng._chunker.effective_chunk_records
+        profile_runs = [(f"one served wave ({len(first_wave)} requests, {sum(len(r.records) for r in first_wave)} "
+                         f"records, chunks of {size} as the chunker has coalesced them)",
+                         lambda: eng.run([TreeRequest(uid=r.uid, records=r.records) for r in first_wave]),
+                         eng.tracer)]
+
+        # -- anytime -----------------------------------------------------------
+        anytime_l: dict = {}
+        for algorithm, jump_mode, slo in (("speculative", "gather", 1e6), ("speculative", "gather", 0.0),
+                                          ("speculative", "onehot", 0.0), ("data_parallel", "gather", 0.0)):
+            a_eng = ForestServeEngine(forest, max_batch=SERVE_MAX_BATCH, n_classes=N_CLASSES, cache=cache,
+                                      retune=None, profile=None, devices=(dev,),
+                                      anytime=AnytimePolicy(slo_ms=slo, algorithm=algorithm, jump_mode=jump_mode))
+            batch = [TreeRequest(uid=r.uid, records=r.records) for r in reqs]
+            with K.thread_launches() as l:
+                t0 = time.perf_counter()
+                a_eng.run(batch)
+                ms = (time.perf_counter() - t0) * 1e3
+            for k, n in l.items():
+                anytime_l[k] = anytime_l.get(k, 0) + n
+            got = np.concatenate([r.out for r in batch])
+            exit_stage = np.concatenate([r.exit_stage for r in batch])
+            conf = np.concatenate([r.confidence for r in batch])
+            exited = exit_stage >= 0
+            n_conf = a_eng.stats.m_anytime_confidence.count
+            check(n_conf == len(got), f"{n_conf} confidences recorded for {len(got)} records")
+            if slo >= 1e6:
+                check(np.array_equal(got, want), "anytime classes under a deadline no wave reaches != the host vote")
+                check(a_eng.stats.anytime_truncations == 0, "a wave was truncated under a deadline it never reaches")
+            else:
+                check(a_eng.stats.anytime_truncations >= 1, f"no wave truncated at slo_ms={slo}")
+                check(np.array_equal(got[exited], want[exited]),
+                      "anytime classes of records that cleared the bound != the host vote")
+            print(f"[forest-serve] {card}: anytime {algorithm}/{jump_mode} slo_ms={slo:g}: {a_eng.stats.waves} waves in "
+                  f"{ms:.1f} ms host wall, stages run {a_eng.stats.anytime_stages}, truncations "
+                  f"{a_eng.stats.anytime_truncations}, {int(exited.sum())} of {len(got)} records exited at a stage "
+                  f"and equal the host vote ({'all' if slo >= 1e6 else 'the rest carry confidence'} "
+                  f"{float(conf.mean()):.4f} mean); launches {dict(l)}")
+        parts["anytime stages"] = anytime_l
+
+        # -- sharded lowering on one card --------------------------------------
+        ref = eval_forest_tuned(forest, images[0], cache=TuneCache(tmp / "mono.json"), device=dev).cpu().numpy()
+        check(np.array_equal(ref, per_trees[0]), "eval_forest_tuned != stacked eval_serial on image 0")
+        shard_l: dict = {}
+        tag = backend_tag(dev)
+        for i, (deco, r, g, variant, params) in enumerate((
+                ("records", 4, 1, "forest_fused_speculative_gather", {"block_m": 32}),
+                ("trees", 1, 4, None, None),
+                ("hybrid", 2, 2, "forest_fused_data_parallel_q", {"thr_dtype": "bfloat16"}),
+                ("hybrid", 2, 2, "forest_fused_speculative_q", {"thr_dtype": "float16"}))):
+            s_cache = TuneCache(tmp / f"shard{i}.json")
+            ev = ShardedForestEvaluator(forest, mesh=forest_mesh(r, g, devices=(dev,) * 4), cache=s_cache,
+                                        layouts=("f32", "quant"))
+            fev = ev._forest_evaluator()
+            if variant is not None:   # a winner stored at the shard shape is what the shards run
+                fshape = ForestShape(t=-(-forest.n_trees // g), m=M_IMAGE // r, n_nodes=forest.n_nodes,
+                                     n_attrs=N_ATTRS, depth_min=fev.depth_min, depth_max=fev.depth_max)
+                s_cache.store(fshape.key(tag), TuneEntry(variant=variant, params=params, median_ms=0.0))
+            with K.thread_launches() as l:
+                out = ev(images[0]).cpu().numpy()
+            check(np.array_equal(out, ref), f"{deco} {r}x{g} != eval_forest_tuned")
+            check(ev.plan.decomposition == deco, f"plan {ev.plan} is not {deco}")
+            check(sum(l.values()) == r * g, f"{deco} {r}x{g}: shards launched {dict(l)}, not {r * g} kernels")
+            if variant is not None:
+                check(ev.resolved[1] == "cache" and ev.resolved[0].variant == variant,
+                      f"the shards resolved {ev.resolved}, not the stored {variant}")
+            line = (f"[forest-serve] {card}: sharded {deco} {r}x{g} on ('{ev.devices[0]}',) x 4 (four logical shards on one "
+                    f"card: measures nothing about several cards): resolved {ev.resolved[0].variant} "
+                    f"{ev.resolved[0].param_dict} ({ev.resolved[1]}), shards launch {ev.shard_variant}; image 0 "
+                    f"equal to eval_forest_tuned, each shard launched its kernel once: {dict(l)}")
+            for m in (7, 3, 2):
+                with K.thread_launches() as lm:
+                    got = ev(images[0][:m]).cpu().numpy()
+                check(np.array_equal(got, ref[:, :m]), f"{deco} {r}x{g} at M {m} != eval_forest_tuned")
+                check(sum(lm.values()) == r * g, f"{deco} {r}x{g} at M {m}: launched {dict(lm)}")
+                l = {k: l.get(k, 0) + lm.get(k, 0) for k in set(l) | set(lm)}
+            for k, n in l.items():
+                shard_l[k] = shard_l.get(k, 0) + n
+            print(line + "; M 7, 3, 2 (padded to the record shards) equal too")
+        parts["shard bodies"] = shard_l
+
+        # -- the chunker alone ---------------------------------------------------
+        ck_cache = TuneCache(tmp / "chunk.json")
+        ev = ShardedForestEvaluator(forest, devices=(dev,), cache=ck_cache)
+        mono = eval_forest_tuned(forest, images[0], cache=ck_cache, device=dev).cpu().numpy()
+        ck = StreamingChunker(ev, chunk_records=FOREST_CHUNK, inflight=2)
+        with K.thread_launches() as l:
+            first = ck.eval(images[0])
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    t0 = time.perf_counter()
+                    steady = ck.eval(images[0])
+                    ms = (time.perf_counter() - t0) * 1e3
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+        parts["chunker"] = l
+        tracer = obs.Tracer()
+        fixed = StreamingChunker(ev, chunk_records=FOREST_CHUNK, inflight=2, auto_coalesce=False, tracer=tracer)
+        fixed.eval(images[0])
+        profile_runs.append((f"StreamingChunker on image 0 in chunks of {FOREST_CHUNK}, inflight 2, no coalescing",
+                             lambda: fixed.eval(images[0]), tracer))
+        profiled_device(profile_runs, card, tmp)
+        eng.profiler.drain()
+        syncs = [str(w.message) for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+        check(np.array_equal(first, mono) and np.array_equal(steady, mono), "the chunker != the monolithic call")
+        check(not syncs, f"a steady-state eval synchronized the host: {syncs[:3]}")
+        print(f"[forest-serve] {card}: StreamingChunker on image 0 ({ck.stats.chunks // 2} chunks of {FOREST_CHUNK}, "
+              f"inflight 2, pinned slots on a copy stream) equal to the monolithic eval_forest_tuned; the steady-state "
+              f"eval ({ms:.3f} ms host wall) raised no synchronizing-operation warning under "
+              f"torch.cuda.set_sync_debug_mode: its only host waits are the drains' event waits; launches {dict(l)}")
+
+        # -- windowed ------------------------------------------------------------
+        big = breadth_first_encode(perfect_tree(WINDOW_DEPTH, N_ATTRS, N_CLASSES, seed=3))
+        check(big.n_nodes == 16_383, f"the windowed tree has {big.n_nodes} nodes")
+        rec = torch.from_numpy(images[0]).to(dev)
+        for jump_mode in ("gather", "onehot"):
+            try:
+                ops.tree_eval(rec, big, jump_mode=jump_mode)
+            except K.TileError as e:
+                refusal = str(e)
+            else:
+                fail(f"ops.tree_eval ran the {big.n_nodes}-node tree ({jump_mode}) on the card")
+        t0 = time.perf_counter()
+        want_big = eval_serial(big, images[0])
+        serial_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out, ms = timed(lambda: eval_windowed(big, rec, window_levels=4))
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        check(np.array_equal(out.cpu().numpy(), want_big), "eval_windowed != eval_serial on the 16,383-node tree")
+        print(f"[forest-serve] {card}: eval_windowed (window 4 levels, widest band 12,288 nodes) on the {big.n_nodes}-node "
+              f"perfect tree at A {N_ATTRS} over {rec.shape[0]} records equal to eval_serial ({serial_s:.1f} s on the host) "
+              f"in {ms:.3f} ms (host clock, first call), peak memory {peak / 2**30:.3f} GiB above the "
+              f"{base / 2**30:.3f} GiB held; ops.tree_eval refuses the tree: {refusal}")
+    print(f"[forest-serve] phase took {time.perf_counter() - t_phase:.1f} s on the host of {card}")
+    return parts
 
 
 # ---------------------------------------------------------------------------
@@ -1562,6 +1961,16 @@ def main() -> None:
     for name in sorted(serve_keys):
         check(serve_launches[name] > 0, f"kernel {name} of a measured candidate was not launched on the served path")
     launches = {name: count + serve_launches[name] for name, count in launches.items()}
+
+    K.reset_launches()
+    parts = phase_forest_serve(dev, images, forest, per_trees, card)
+    forest_launches = dict(K.LAUNCHES)
+    for part, counts in parts.items():
+        print(f"[forest-serve] launches by {part}: {dict(sorted((k, v) for k, v in counts.items() if v))}")
+    print(f"[forest-serve] forest-serve launches: {forest_launches}")
+    for name in FOREST_PATH:
+        check(forest_launches[name] > 0, f"kernel {name} was not launched on the forest-serve path")
+    launches = {name: count + forest_launches[name] for name, count in launches.items()}
 
     plan = cascade_plan(dev, forest, images[0], 2, 1.0)
     phase_breakdown(dev, images[0], enc, forest, plan, card)

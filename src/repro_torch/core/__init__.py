@@ -11,6 +11,7 @@ from repro_torch.core.tree import (
     attr_select_matrix,
     breadth_first_encode,
     decode_to_linked,
+    forest_of,
     leaf_paths,
     node_depths,
     pad_tree,
@@ -22,13 +23,18 @@ from repro_torch.core.tree import (
     validate_encoding,
 )
 from repro_torch.core.eval_serial import eval_serial, eval_serial_vectorized_host
-from repro_torch.core.eval_dataparallel import eval_data_parallel, eval_data_parallel_tree
+from repro_torch.core.eval_dataparallel import (
+    eval_data_parallel,
+    eval_data_parallel_tree,
+    shard_eval_data_parallel,
+)
 from repro_torch.core.eval_speculative import (
     eval_speculative,
     eval_speculative_tree,
     pointer_jump,
     rounds_for_depth,
     sanitize_records,
+    shard_eval_speculative,
     speculative_node_eval,
 )
 from repro_torch.core.cart import CartConfig, accuracy, train_cart
@@ -36,12 +42,14 @@ from repro_torch.core.forest import (
     EncodedForest,
     eval_forest,
     eval_forest_cascade,
+    eval_forest_sharded,
     eval_forest_tuned,
     majority_vote,
     route_topk,
     vote_counts,
     vote_winner,
 )
+from repro_torch.core.windowed import eval_windowed, level_offsets
 from repro_torch.core import analysis
 
 __all__ = [
@@ -51,6 +59,7 @@ __all__ = [
     "attr_select_matrix",
     "breadth_first_encode",
     "decode_to_linked",
+    "forest_of",
     "leaf_paths",
     "node_depths",
     "pad_tree",
@@ -64,11 +73,13 @@ __all__ = [
     "eval_serial_vectorized_host",
     "eval_data_parallel",
     "eval_data_parallel_tree",
+    "shard_eval_data_parallel",
     "eval_speculative",
     "eval_speculative_tree",
     "pointer_jump",
     "rounds_for_depth",
     "sanitize_records",
+    "shard_eval_speculative",
     "speculative_node_eval",
     "CartConfig",
     "accuracy",
@@ -76,10 +87,13 @@ __all__ = [
     "EncodedForest",
     "eval_forest",
     "eval_forest_cascade",
+    "eval_forest_sharded",
     "eval_forest_tuned",
     "majority_vote",
     "route_topk",
     "vote_counts",
     "vote_winner",
+    "eval_windowed",
+    "level_offsets",
     "analysis",
 ]

@@ -18,6 +18,7 @@ evaluated as a batch, ``(T, M)``, in place of the JAX package's ``vmap``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch import _device
@@ -85,3 +86,36 @@ def eval_data_parallel_tree(
     return eval_data_parallel(
         records, *enc, max_depth=max_depth, loop=loop, device=device
     )
+
+
+def shard_eval_data_parallel(enc: EncodedTree, records, *, max_depth: int, mesh) -> torch.Tensor:
+    """Multi-device data decomposition: records sharded over a 1-D device grid.
+
+    The direct analogue of Procedure 3's ``D[m·p .. m(p+1))`` slicing — each
+    device takes an equal run of the records; the tree (small) is
+    replicated, exactly like the paper's constant-memory broadcast.  Each
+    shard runs K2 on its device (on CPU tensors, its plain version).
+
+    Args:
+      enc: the encoded tree.
+      records: (M, A) float array or tensor.
+      max_depth: descent rounds.
+      mesh: the devices, a sequence or a
+        :class:`repro_torch.parallel.sharding.DeviceGrid`.
+
+    Returns:
+      (M,) int32 class assignments on the grid's first device.
+    """
+    from repro_torch.kernels.tree_eval.ops import PackedTree, tree_eval
+    from repro_torch.parallel.sharding import map_record_shards
+
+    devices = list(mesh.devices.flat) if hasattr(mesh, "devices") else list(mesh)
+    n_attrs = int(np.shape(records)[-1])
+    packed: dict = {}
+
+    def run(rows, dev):
+        if dev not in packed:
+            packed[dev] = PackedTree(enc, n_attrs, max_depth=max_depth, device=dev)
+        return tree_eval(rows, packed[dev], algorithm="data_parallel")
+
+    return map_record_shards(records, devices, run)

@@ -191,3 +191,48 @@ def eval_speculative_tree(
         early_exit=early_exit,
         device=device,
     )
+
+
+def shard_eval_speculative(
+    enc: EncodedTree,
+    records,
+    *,
+    max_depth: int,
+    mesh,
+    jumps_per_round: int = 2,
+) -> torch.Tensor:
+    """Record groups sharded over a 1-D device grid; tree replicated.
+
+    Each device holds 1/D of the record groups — the paper's grid of record
+    groups mapped onto the devices; ``path`` never leaves a device, so the
+    only traffic is the record scatter / class gather, i.e. the paper's
+    t_s(M) term.  Each shard runs K1 in its one-hot form (the JAX package's
+    shard body runs the one-hot matmul formulation) on its device; on CPU
+    tensors the kernel's plain version.
+
+    Args:
+      enc: the encoded tree, replicated on every device.
+      records: (M, A) float array or tensor.
+      max_depth: tree-depth bound.
+      mesh: the devices, a sequence (``("cuda:0", "cuda:1")``, or one
+        device repeated) or a :class:`repro_torch.parallel.sharding.DeviceGrid`.
+      jumps_per_round: kept for the plain formulation's signature; K1 jumps
+        ``⌈log₂ max_depth⌉`` times whatever it is.
+
+    Returns:
+      (M,) int32 class assignments on the grid's first device.
+    """
+    from repro_torch.kernels.tree_eval.ops import PackedTree, tree_eval
+    from repro_torch.parallel.sharding import map_record_shards
+
+    del jumps_per_round
+    devices = list(mesh.devices.flat) if hasattr(mesh, "devices") else list(mesh)
+    n_attrs = int(np.shape(records)[-1])
+    packed: dict = {}
+
+    def run(rows, dev):
+        if dev not in packed:
+            packed[dev] = PackedTree(enc, n_attrs, max_depth=max_depth, device=dev)
+        return tree_eval(rows, packed[dev], algorithm="speculative", jump_mode="onehot")
+
+    return map_record_shards(records, devices, run)

@@ -120,6 +120,43 @@ def eval_forest_tuned(
     )(records)
 
 
+def eval_forest_sharded(
+    forest: "EncodedForest | Sequence[EncodedTree]",
+    records,
+    *,
+    mesh=None,
+    plan=None,
+    decomposition: str | None = None,
+    devices=None,
+    cache=None,
+    autotune: bool = False,
+    engines: tuple[str, ...] | None = None,
+) -> torch.Tensor:
+    """Per-tree class assignments, shape (T, M), across a device grid.
+
+    The :mod:`repro_torch.dist` planner picks a record-/tree-/hybrid-sharded
+    decomposition (or honours an explicit ``plan``/``mesh``/
+    ``decomposition``), the executor walks it over the grid's devices, and
+    each shard's kernel is still selected through ``repro_torch.tune``.
+    Exact: results bit-match :func:`eval_forest_tuned` for every plan; on a
+    single device this *is* the plain tuned path.  ``devices`` (default every
+    card; ``("cpu",)`` for the host) names what the planner may use; a
+    ``mesh`` fixes the grid.  The result lies on the grid's first device.
+    """
+    from repro_torch.dist import ShardedForestEvaluator
+
+    return ShardedForestEvaluator(
+        forest,
+        mesh=mesh,
+        plan=plan,
+        decomposition=decomposition,
+        devices=devices,
+        cache=cache,
+        autotune=autotune,
+        engines=engines,
+    )(records)
+
+
 def eval_forest_cascade(
     forest: EncodedForest,
     records,

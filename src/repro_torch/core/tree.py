@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Iterator, NamedTuple, Optional
+from typing import Iterator, NamedTuple, Optional, Sequence
 
 import numpy as np
 
@@ -434,3 +434,8 @@ def paper_tree(seed: int = 7) -> Node:
     assert node.count_nodes() == 31 and node.count_leaves() == 16
     assert node.depth() == 11
     return node
+
+
+def forest_of(trees: Sequence[Node]) -> list[EncodedTree]:
+    """Encode each tree of a forest breadth-first (Procedure 1)."""
+    return [breadth_first_encode(t) for t in trees]

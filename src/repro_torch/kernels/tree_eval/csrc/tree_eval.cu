@@ -811,6 +811,8 @@ fused_data_parallel_q_kernel(const float* records, QuantTables<TT> tables, int* 
                                  max_depth);
 }
 
+__global__ void empty_kernel() {}
+
 int allow_smem(const void* kernel, int smem) {
   if (smem <= kDefaultSmem) return (int)cudaSuccess;
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1059,6 +1061,12 @@ int tree_eval_per_sm(int kernel, int variant, int slots, int threads, int smem, 
       });
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// An empty launch, for the host cost of one launch through this interface.
+int tree_eval_empty(cudaStream_t stream) {
+  empty_kernel<<<1, 1, 0, stream>>>();
+  return (int)cudaGetLastError();
 }
 
 const char* tree_eval_error_string(int code) {

@@ -60,6 +60,7 @@ import contextlib
 import ctypes
 import functools
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -245,6 +246,8 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.tree_eval_empty.argtypes = [_P]
+    lib.tree_eval_empty.restype = ctypes.c_int
     lib.tree_eval_per_sm.argtypes = [_I] * 5 + [ctypes.POINTER(ctypes.c_int)]
     lib.tree_eval_per_sm.restype = ctypes.c_int
     lib.tree_eval_error_string.argtypes = [ctypes.c_int]
@@ -313,14 +316,15 @@ def _dp_launch(block_m: int, a: int, n: int, n_classes: int = 0, n_trees: int = 
 
 def launch_grid(
     kernel: int, variant: int, m: int, block_m: int, n_attrs: int, n_nodes: int,
-    jump_mode: str = "gather", n_classes: int = 0, n_trees: int = 1,
+    jump_mode: str = "gather", n_classes: int = 0, n_trees: int = 1, device=None,
 ) -> tuple[int, int]:
     """(CTAs, CTAs a SM) of a launch of kernel K``kernel`` (1–8; ``variant``
     is the one-hot flag of K1/K3/K5, the threshold code of K7/K8, else 0) on
-    the current card: the SMs times the CTAs one SM holds with this
-    footprint, and at most one CTA per ``spec_warps`` records (speculative),
-    per ``dp_threads`` records (K4/K6/K8) or per ``2·dp_threads`` (K2, two
-    rows a thread), each CTA taking an equal run of the ``m`` records."""
+    ``device`` (default the current card), as ``_launch`` sizes it there: the
+    SMs times the CTAs one SM holds with this footprint, and at most one CTA
+    per ``spec_warps`` records (speculative), per ``dp_threads`` records
+    (K4/K6/K8) or per ``2·dp_threads`` (K2, two rows a thread), each CTA
+    taking an equal run of the ``m`` records."""
     algorithm = "speculative" if kernel % 2 else "data_parallel"
     smem = smem_bytes(algorithm, block_m, n_attrs, n_nodes, jump_mode, n_classes, n_trees)
     if algorithm == "speculative":
@@ -330,11 +334,42 @@ def launch_grid(
         slots, threads = 0, dp_threads(block_m)
         per_cta = 2 * threads if kernel == 2 else threads
     per_sm = ctypes.c_int(0)
-    err = _library().tree_eval_per_sm(kernel, variant, slots, threads, smem, ctypes.byref(per_sm))
+    device = torch.device("cuda", torch.cuda.current_device()) if device is None else torch.device(device)
+    with torch.cuda.device(device):   # the occupancy query's smem opt-in is per device
+        err = _library().tree_eval_per_sm(kernel, variant, slots, threads, smem, ctypes.byref(per_sm))
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
     if err != 0:
         raise RuntimeError(f"occupancy of K{kernel} failed: CUDA error {err}")
-    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
     return min(sms * max(per_sm.value, 1), -(-m // per_cta)), per_sm.value
+
+
+@functools.cache
+def _launch_cost_ms(device: torch.device) -> float:
+    lib = _library()
+    best = float("inf")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for rep in range(6):
+            t0 = time.perf_counter()
+            for _ in range(64):
+                err = lib.tree_eval_empty(stream)
+                if err != 0:
+                    raise RuntimeError(f"tree_eval_empty launch failed: CUDA error {err}")
+            if rep:   # the first batch warms the path
+                best = min(best, (time.perf_counter() - t0) * 1e3 / 64)
+    return best
+
+
+def launch_cost_ms(device) -> float:
+    """Host milliseconds one kernel launch costs through this module's ctypes
+    path on ``device``: the least mean over five batches of 64 launches of an
+    empty kernel, measured once per process and device (the least, so that a
+    batch slowed by another thread does not set it).  The tuner prices a
+    candidate's launches with it (``tune.measure.score_ms``)."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _launch_cost_ms(device)
 
 
 def _launch(c_name: str, counter: str, tensors, ints) -> None:

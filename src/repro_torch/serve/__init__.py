@@ -1,8 +1,13 @@
-"""Serving on the card: wave-batched tree classification with background
-re-tuning, shadow profiling and a flight recorder."""
+"""Serving on the card: wave-batched tree and forest classification with
+background re-tuning, shadow profiling and a flight recorder; the forest
+engine streams waves through the sharded executor or, under an
+:class:`AnytimePolicy`, an early-exit cascade with a deadline."""
 
 from repro_torch.serve.engine import (
+    AnytimePolicy,
     BackgroundRetuner,
+    ForestEngineStats,
+    ForestServeEngine,
     RetunePolicy,
     TreeEngineStats,
     TreeRequest,
@@ -10,7 +15,10 @@ from repro_torch.serve.engine import (
 )
 
 __all__ = [
+    "AnytimePolicy",
     "BackgroundRetuner",
+    "ForestEngineStats",
+    "ForestServeEngine",
     "RetunePolicy",
     "TreeEngineStats",
     "TreeRequest",

@@ -1,10 +1,16 @@
-"""Wave-batched tree-classification serving on the card.
+"""Wave-batched tree and forest classification serving on the card.
 
 The port's counterpart of the JAX package's ``serve/engine.py``, for its
-tree-classification path: :class:`TreeServeEngine` coalesces requests into
+classification paths.  :class:`TreeServeEngine` coalesces requests into
 waves of up to ``max_batch`` records and classifies each wave with one call
 of a :class:`repro_torch.tune.TunedEvaluator`, which routes it through the
-cached-best kernel variant for its shape bucket.  Around the wave loop:
+cached-best kernel variant for its shape bucket.
+:class:`ForestServeEngine` does the same for a forest: each wave streams
+through the :mod:`repro_torch.dist` executor behind a
+:class:`~repro_torch.dist.StreamingChunker` (pinned, double-buffered copies
+on a copy stream), then a majority vote; under an :class:`AnytimePolicy` a
+wave runs instead through the early-exit cascade with the SLO as its
+deadline.  Around the wave loops:
 
 * a :class:`BackgroundRetuner` re-measures buckets that prove hot under a
   :class:`RetunePolicy` on a worker thread and promotes the winner
@@ -25,8 +31,7 @@ thread never waits on a worker.  The kernels of both streams share the card,
 so a measurement taken while waves are served sees their contention.
 
 Not ported here: the JAX package's LM ``ServeEngine`` (it waits for the LM
-substrates) and its ``ForestServeEngine`` / ``AnytimePolicy`` (they serve
-through the dist executor, which waits for the dist slice).
+substrates).
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ import numpy as np
 import torch
 
 from repro_torch import _device, obs
+
+_STAGE_BOUNDARIES = tuple(float(i) for i in range(1, 9))
 
 
 def _make_flight(flight, registry, tracer, engine: str):
@@ -220,8 +227,10 @@ class TreeRequest:
     records: np.ndarray                 # (m, A) float32
     out: Optional[np.ndarray] = None    # (m,) int32 once served
     done: bool = False
-    # anytime serving only: per-record answer confidence in [0, 1]
+    # anytime serving only: per-record answer confidence in [0, 1], and the
+    # cascade stage each record exited at (-1: it never cleared the bound)
     confidence: Optional[np.ndarray] = None
+    exit_stage: Optional[np.ndarray] = None
 
 
 def _next_wave(queue: deque, max_batch: int) -> tuple[list, int]:
@@ -478,3 +487,341 @@ class TreeServeEngine:
         if self.flight is None:
             raise RuntimeError("engine built without flight= recorder")
         return self.flight.dump(reason)
+
+
+# ---------------------------------------------------------------------------
+# Sharded-forest serving (repro_torch.dist as a service)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AnytimePolicy:
+    """Anytime serving: answer within an SLO by truncating cascade stages.
+
+    The engine evaluates each wave through an early-exit cascade
+    (:class:`repro_torch.kernels.tree_eval.CascadeEvaluator`) with the SLO as
+    the per-wave deadline: stage 0 always runs, and each later stage runs
+    only if its predicted latency (per-stage EMA) fits the remaining budget.
+    Requests report per-record ``confidence`` — 1.0 where the class is
+    provably final, the partial-margin ratio where the deadline cut the
+    forest short.
+
+    Attributes:
+      slo_ms: per-wave latency budget in milliseconds.
+      stages: cascade stage count (more stages = finer truncation grain).
+      bound: early-exit bound; 1.0 keeps non-truncated answers exact.
+      calibration_sample: records from the first wave used to rank trees.
+      algorithm / jump_mode: the stage kernels' (K5 speculative in either
+        form, K6 data-parallel); the default is the cascade's own.
+    """
+
+    slo_ms: float
+    stages: int = 3
+    bound: float = 1.0
+    calibration_sample: int = 512
+    algorithm: str = "speculative"
+    jump_mode: str = "gather"
+
+
+class ForestEngineStats(_ClassifierStatsBase):
+    _engine = "forest"
+
+    def __init__(self, registry: obs.Registry | None = None):
+        super().__init__(registry)
+        r = self.registry
+        lbl = {"engine": self._engine}
+        self.m_chunks = r.counter(
+            "serve.chunks", "streaming chunks across all waves",
+            ("engine",)).labels(**lbl)
+        self.m_chunk_ms = r.histogram(
+            "serve.chunk_ms", "per-chunk latency", ("engine",)).labels(**lbl)
+        self.m_anytime_waves = r.counter(
+            "serve.anytime.waves", "waves served through the anytime cascade")
+        self.m_anytime_truncations = r.counter(
+            "serve.anytime.truncations",
+            "waves the SLO stopped before the last stage")
+        self.m_anytime_stages = r.histogram(
+            "serve.anytime.stages_run", "cascade stages run per anytime wave",
+            boundaries=_STAGE_BOUNDARIES)
+        self.m_anytime_confidence = r.histogram(
+            "serve.anytime.confidence", "per-record answer confidence",
+            boundaries=obs.DEFAULT_RATIO_BOUNDARIES)
+        # raw per-chunk / per-wave sequences survive as plain lists — benches
+        # take medians over them and tests index into them
+        self.chunk_ms: list = []
+        self.anytime_stages: list = []
+
+    @property
+    def chunks(self) -> int:
+        return int(self.m_chunks.value)
+
+    @property
+    def anytime_waves(self) -> int:
+        return int(self.m_anytime_waves.value)
+
+    @property
+    def anytime_truncations(self) -> int:
+        return int(self.m_anytime_truncations.value)
+
+
+class ForestServeEngine:
+    """Wave-batched forest classification over a device grid.
+
+    The forest analogue of :class:`TreeServeEngine`: requests coalesce into
+    waves of up to ``max_batch`` records, each wave runs through the
+    ``repro_torch.dist`` sharded executor behind a streaming chunker, so the
+    host→device copy of one chunk overlaps evaluation of the previous
+    (double buffering through pinned memory).  Per-chunk latencies land in
+    ``stats.chunk_ms``.  With ``n_classes`` set, requests get majority-vote
+    classes (m,); otherwise per-tree assignments (T, m).
+
+    Hot forest buckets are re-measured in the background under the
+    ``retune`` policy (all three forest candidate families on one device, the
+    fused kernels at the shard shape on a grid; real wave data cut to the
+    chunker's chunk size, which is the batch the executor resolves; on a
+    stream of the worker's own); the freshly stored winner is picked up atomically
+    via ``ShardedForestEvaluator.invalidate_resolution`` — see
+    :class:`RetunePolicy`.  ``sweeps`` keeps each bucket's latest
+    measurements.
+
+    ``devices`` (default every card; ``("cpu",)`` serves on the host) names
+    the devices the planner may lay its grid over; ``mesh``/``plan``/
+    ``decomposition`` pin the grid.  The vote, the cascade and the shadow profiler run on the
+    grid's first device.
+    """
+
+    def __init__(self, forest, *, max_batch: int = 65536, chunk_records: int = 8192,
+                 n_classes: Optional[int] = None, mesh=None, plan=None,
+                 decomposition=None, cache=None, autotune: bool = False, engines=None,
+                 layouts=None,
+                 retune: RetunePolicy | None = RetunePolicy(),
+                 anytime: AnytimePolicy | None = None,
+                 profile: "obs.ProfilePolicy | None" = obs.ProfilePolicy(),
+                 registry: obs.Registry | None = None,
+                 tracer: obs.Tracer | None = None,
+                 flight: "obs.FlightPolicy | obs.FlightRecorder | None" = None,
+                 devices=None):
+        from repro_torch.dist import ShardedForestEvaluator, StreamingChunker
+        from repro_torch.tune.space import backend_tag
+
+        if anytime is not None and n_classes is None:
+            raise ValueError("anytime serving needs n_classes (it votes classes)")
+        self.obs = registry if registry is not None else obs.Registry()
+        self.tracer = tracer if tracer is not None else obs.NULL_TRACER
+        self.flight = _make_flight(flight, self.obs, self.tracer, "forest")
+        self.profiler: obs.TraversalProfiler | None = None
+        self.retuner: BackgroundRetuner | None = None
+        self.sweeps: dict[str, list] = {}
+        self._eval = ShardedForestEvaluator(
+            forest, mesh=mesh, plan=plan, decomposition=decomposition,
+            devices=devices,
+            cache=cache, autotune=autotune, engines=engines, layouts=layouts,
+            registry=self.obs, tracer=self.tracer,
+        )
+        self.forest = self._eval.forest
+        self.device = self._eval.device
+        self._backend = backend_tag(self.device)
+        if profile is not None:
+            from repro_torch.kernels.tree_eval.profile import ForestProfile, profile_forest_eval
+
+            profile_stream = _worker_stream(self.device)
+
+            def _profile_fn(batch):
+                # on the profiler's stream, brought to the host there: the
+                # shadow pass never waits on the waves being served
+                with profile_stream():
+                    prof = profile_forest_eval(batch, self.forest, device=self.device)
+                    return ForestProfile(*(x.cpu() for x in prof))
+
+            def _on_drift(key, distance, records):
+                if self.flight is not None:
+                    self.flight.note_drift(bucket=key, distance=distance, engine="forest")
+                if self.retuner is not None:
+                    self.retuner.force(key, records)
+
+            self.profiler = obs.TraversalProfiler(
+                _profile_fn, profile, registry=self.obs, tracer=self.tracer,
+                n_classes=n_classes, on_drift=_on_drift, engine="forest")
+            # measured per-bucket d_µ / survival flow into the forest
+            # evaluator's heuristic resolutions
+            self._eval.profiler = self.profiler
+        self._chunker = StreamingChunker(
+            self._eval, chunk_records=chunk_records,
+            registry=self.obs, tracer=self.tracer,
+        )
+        self.max_batch = max_batch
+        self.n_classes = n_classes
+        self.anytime = anytime
+        self._cascade = None   # built lazily: calibrated on the first wave
+        self.stats = ForestEngineStats(self.obs)
+        if retune is not None:
+            retune_stream = _worker_stream(self.device)
+
+            def measure(batch):
+                # the executor owns key consistency: single-device measures
+                # the forest bucket, a grid measures the *shard* operating
+                # point — either way the winner lands where the next
+                # resolution looks
+                # at the chunk size the chunker runs: its chunks, not the
+                # whole wave, are what the executor resolves
+                with retune_stream():
+                    entry = self._eval.retune(batch[: self._chunker.effective_chunk_records],
+                                              warmup=retune.warmup, iters=retune.iters)
+                self.sweeps[self._key(batch)] = self._eval.last_sweep
+                return entry
+
+            def promote(key, entry):
+                # the measurement already stored the winner; dropping
+                # resolution state makes the next wave pick it up — the
+                # executor-level analogue of TunedEvaluator.promote
+                self._eval.invalidate_resolution()
+                # locked counter: this runs on the retuner worker
+                # concurrently with the request thread
+                self.stats.m_retunes.inc()
+
+            self.retuner = BackgroundRetuner(
+                measure, promote, retune, registry=self.obs, tracer=self.tracer)
+
+    @property
+    def plan(self):
+        """The executor's chosen ShardPlan (None until the first wave)."""
+        return self._eval.plan
+
+    def _key(self, batch: np.ndarray) -> str:
+        """The forest-bucket key of a wave (the evaluator's and profiler's)."""
+        return self._eval._forest_evaluator().shape_of(batch).key(self._backend)
+
+    def run(self, requests: list[TreeRequest]) -> list[TreeRequest]:
+        """Serve all requests in record-count-bounded waves."""
+        queue = deque(requests)
+        t_enq = time.perf_counter()
+        for r in queue:
+            r._t_enqueue = t_enq
+        while queue:
+            self._run_wave(*_next_wave(queue, self.max_batch))
+        return requests
+
+    def _anytime_cascade(self, batch: np.ndarray):
+        """The wave cascade, built once and calibrated on the first wave."""
+        if self._cascade is None:
+            from repro_torch.kernels.tree_eval import CascadeEvaluator
+
+            pol = self.anytime
+            self._cascade = CascadeEvaluator(
+                self.forest,
+                n_classes=self.n_classes,
+                bound=pol.bound,
+                stages=pol.stages,
+                algorithm=pol.algorithm,
+                jump_mode=pol.jump_mode,
+                calibration=batch[: pol.calibration_sample],
+                registry=self.obs,
+                tracer=self.tracer,
+                device=self.device,
+            )
+        return self._cascade
+
+    def _run_wave(self, wave: list[TreeRequest], total: int) -> None:
+        try:
+            self._run_wave_inner(wave, total)
+        except BaseException as exc:
+            if self.flight is not None:
+                self.flight.note_exception(exc)
+            raise
+
+    def _run_wave_inner(self, wave: list[TreeRequest], total: int) -> None:
+        t_wave = time.perf_counter()
+        for r in wave:
+            enq = getattr(r, "_t_enqueue", None)
+            if enq is not None:
+                self.stats.m_queue_wait_ms.observe((t_wave - enq) * 1e3)
+        self.stats.m_waves.inc()
+        self.stats.m_records.inc(total)
+        batch = np.concatenate([r.records for r in wave], axis=0).astype(np.float32)
+        wspan = self.tracer.span(
+            "serve.wave", cat="serve", engine="forest",
+            requests=len(wave), records=total,
+            mode="anytime" if self.anytime is not None else "stream",
+        )
+        with wspan:
+            if self.anytime is not None:
+                # anytime path: the cascade owns staging/early exit, so the
+                # wave bypasses the chunker — the SLO check needs whole-stage
+                # latencies
+                cascade = self._anytime_cascade(batch)
+                t0 = time.perf_counter()
+                res = cascade(batch, deadline_ms=self.anytime.slo_ms)
+                classes = res.classes.cpu().numpy()
+                confidence = res.confidence.cpu().numpy()
+                exit_stage = res.exit_stage.cpu().numpy()
+                trees_evaluated = res.trees_evaluated.cpu().numpy()
+                dt = time.perf_counter() - t0
+                self.stats.m_eval_s.inc(dt)
+                self.stats.m_anytime_waves.inc()
+                self.stats.m_anytime_stages.observe(res.stages_run)
+                self.stats.anytime_stages.append(res.stages_run)
+                # truncation = the deadline (not the exit bound) stopped the
+                # run: some record never cleared the bound yet has trees left
+                # unvoted
+                truncated = res.stages_run < cascade.plan.n_stages and bool(
+                    np.any((exit_stage < 0) & (trees_evaluated < cascade.plan.n_trees))
+                )
+                if truncated:
+                    self.stats.m_anytime_truncations.inc()
+                self.stats.m_anytime_confidence.observe_many(confidence.astype(np.float64))
+                wspan.set(stages_run=res.stages_run, truncated=truncated)
+                off = 0
+                for r in wave:
+                    m = r.records.shape[0]
+                    r.out = classes[off:off + m]
+                    r.confidence = confidence[off:off + m]
+                    r.exit_stage = exit_stage[off:off + m]
+                    r.done = True
+                    off += m
+            else:
+                def on_chunk(latency_ms: float, n: int) -> None:
+                    self.stats.m_chunks.inc()
+                    self.stats.m_chunk_ms.observe(latency_ms)
+                    self.stats.chunk_ms.append(latency_ms)
+
+                t0 = time.perf_counter()
+                per_tree = self._chunker.eval(batch, on_chunk=on_chunk)   # (T, total)
+                if self.n_classes is not None:
+                    from repro_torch.core.forest import majority_vote
+
+                    with self.tracer.span("serve.vote", cat="serve", records=total):
+                        out = majority_vote(torch.from_numpy(per_tree), self.n_classes).numpy()
+                else:
+                    out = per_tree
+                dt = time.perf_counter() - t0
+                self.stats.m_eval_s.inc(dt)
+                off = 0
+                for r in wave:
+                    m = r.records.shape[0]
+                    r.out = out[off:off + m] if self.n_classes is not None else out[:, off:off + m]
+                    r.done = True
+                    off += m
+            key = self._key(batch)
+            wspan.set(bucket=key)
+        self.stats.wave_ms(key).observe(dt * 1e3)
+        self.stats.note_bucket_wave(key)
+        if self.flight is not None:
+            self.flight.note_wave(
+                latency_ms=dt * 1e3, bucket=key, records=total,
+                requests=len(wave),
+                mode="anytime" if self.anytime is not None else "stream",
+            )
+        if self.profiler is not None:
+            self.profiler.note_wave(key, batch)
+        if self.retuner is not None:
+            self.retuner.note(key, batch)
+
+    def dump_flight(self, reason: str = "manual"):
+        """Write a flight-recorder debug bundle now; returns its path.
+
+        Requires the engine to have been built with ``flight=``.
+        """
+        if self.flight is None:
+            raise RuntimeError("engine built without flight= recorder")
+        return self.flight.dump(reason)
+

@@ -1,16 +1,34 @@
-"""Candidate timing: warmup, synchronised runs, medians.
+"""Candidate timing: warmup, synchronised runs, medians, scores.
 
 The paper's measurement discipline applied to each candidate: warm the
 candidate outside the timed region, time each call to its completion on the
 device, and take the *median* over several calls so one-off scheduling noise
 doesn't crown the wrong variant.
 
-On the card a call is bracketed by two CUDA events recorded on the stream
-the candidate runs on (the calling thread's current stream), and the host
-waits on the end event only — not on the device — so a tuner measuring on a
-worker thread's own stream neither waits on nor prices the kernels a
-request thread runs meanwhile (though they share the card).  On the host
-the clock brackets each call.
+On the card a sample is the call's device time with the host's enqueue
+hidden: a spin on the device (``torch.cuda._sleep``) goes ahead of the start
+event, so the stream reaches the start event only after the host has
+enqueued the call and its end event, and the window holds the call's device
+work and nothing of the host.  Each sample is checked: if the start event
+has already completed when the end event is enqueued, the spin ran out
+before the host was done, the window may hold host time (a wait for the
+interpreter lock on a worker thread), and the sample is retaken with a
+spin ``SPIN_GROWTH`` times longer, ``SPIN_TRIES`` times at most before
+:class:`HostNotHidden` is raised; a contaminated sample is never scored.
+The events are recorded on the stream the candidate runs on (the calling
+thread's current stream) and the host waits on the end event only, so a
+tuner measuring on a worker thread's own stream neither waits on nor prices
+the kernels a request thread runs meanwhile (though they share the card).
+
+Device time alone would price a per-tree family's sixteen launches as one,
+so a candidate's **score** adds the host cost of its launches:
+``score_ms = median_ms + launches a call × launch_cost_ms``, with the cost of
+one launch measured once per process and device through the kernels' ctypes
+path (``kernel.launch_cost_ms``).  Candidates are ranked by the score.  The
+class level (majority vote against cascades) keeps events around the whole
+call, host included: a cascade reads its survivor count back every stage,
+so its host loop is its cost and no spin could hide it.  On the host the
+clock brackets each call and the score is the median.
 
 A candidate that cannot run at the shape — its record tile does not fit a
 CTA (``kernel.TileError``) — measures as ∞ and loses.  Any other exception
@@ -62,8 +80,12 @@ class Measurement:
     # for candidates without a packed target (per-tree family).
     table_bytes: float | None = None
     # Kernel launches of this candidate's calls, by ``kernel.LAUNCHES`` key
-    # (this thread's only); empty for the torch engine.
+    # (this thread's only, warmup and retaken samples included); empty for
+    # the torch engine.
     launches: dict = dataclasses.field(default_factory=dict)
+    # What the tuner ranks by: the median plus the host cost of a call's
+    # launches (see the module docstring); ∞ for a failed candidate.
+    score_ms: float = float("inf")
 
     @property
     def failed(self) -> bool:
@@ -119,6 +141,10 @@ def _note_measurements(registry, level: str, measurements) -> None:
     g_median = r.gauge(
         "tune.candidate_median_ms", "latest median of each measured candidate",
         ("level", "variant", "params"))
+    g_score = r.gauge(
+        "tune.candidate_score_ms",
+        "latest score of each measured candidate (median + launches x launch cost)",
+        ("level", "variant", "params"))
     g_flops = r.gauge(
         "tune.candidate_flops", "analytic compares of the measured candidate's call",
         ("level", "variant"))
@@ -142,6 +168,8 @@ def _note_measurements(registry, level: str, measurements) -> None:
             ms.observe(m.median_ms)
             g_median.labels(level=level, variant=v,
                             params=repr(m.candidate.param_dict)).set(m.median_ms)
+            g_score.labels(level=level, variant=v,
+                           params=repr(m.candidate.param_dict)).set(m.score_ms)
         if m.cost is not None:
             g_flops.labels(level=level, variant=v).set(m.cost["flops"])
             g_bytes.labels(level=level, variant=v).set(m.cost["bytes"])
@@ -154,16 +182,70 @@ def _is_cuda(device) -> bool:
     return device is not None and torch.device(device).type == "cuda"
 
 
-def time_callable(fn, *, warmup: int = 2, iters: int = 5, device=None) -> tuple[float, ...]:
+SPIN_MS = 1.0        # device spin ahead of a sample's start event, first try
+SPIN_GROWTH = 4      # a sample whose spin ran out is retaken with a spin this much longer
+SPIN_TRIES = 6       # tries a sample gets before HostNotHidden (1 ms … 1,024 ms of spin)
+SPIN_CYCLES_PER_MS = 2_000_000   # clock cycles a millisecond of spin asks for (≤ 2 GHz: at least that long)
+
+
+class HostNotHidden(RuntimeError):
+    """The host's enqueue of a call outlasted every spin a sample may take."""
+
+
+def _spin(ms: float) -> None:
+    torch.cuda._sleep(int(ms * SPIN_CYCLES_PER_MS))
+
+
+def _event():
+    return torch.cuda.Event(enable_timing=True)
+
+
+def hidden_sample(fn, *, spin_ms: float = SPIN_MS, tries: int = SPIN_TRIES,
+                  spin=_spin, event=_event) -> tuple[float, float]:
+    """One device-time sample of ``fn()`` with the host's enqueue hidden.
+
+    Enqueues a spin of ``spin_ms``, the start event, ``fn()`` and the end
+    event on the current stream.  If the start event is still pending once
+    the end event is enqueued, the window holds device work only and its
+    time is the sample; otherwise the sample is dropped and retaken with a
+    spin ``SPIN_GROWTH`` times longer.  ``spin``/``event`` are injectable
+    for tests.
+
+    Returns:
+      (milliseconds, the spin that hid the enqueue) — callers pass the spin
+      on to the next sample.
+
+    Raises:
+      HostNotHidden: after ``tries`` contaminated samples.
+    """
+    for _ in range(tries):
+        start, end = event(), event()
+        spin(spin_ms)
+        start.record()
+        fn()
+        end.record()
+        hidden = not start.query()
+        end.synchronize()
+        if hidden:
+            return start.elapsed_time(end), spin_ms
+        spin_ms *= SPIN_GROWTH
+    raise HostNotHidden(
+        f"the host's enqueue outlasted a {spin_ms / SPIN_GROWTH:g} ms spin in {tries} tries"
+    )
+
+
+def time_callable(fn, *, warmup: int = 2, iters: int = 5, device=None,
+                  hide_host: bool = True) -> tuple[float, ...]:
     """Millisecond samples of ``fn()``, each timed to its completion.
 
     Args:
       fn: zero-argument callable; called ``warmup`` times un-timed (build,
         caches) then ``iters`` times timed.
       warmup/iters: the measurement discipline (see module docstring).
-      device: where ``fn`` runs.  On a CUDA device each call is bracketed by
-        events on the current stream and the host waits on the end event;
-        elsewhere by the host clock.
+      device: where ``fn`` runs.  On a CUDA device each sample is the call's
+        device time (:func:`hidden_sample`), or with ``hide_host=False`` the
+        events bracket the call as the host makes it (for calls that wait on
+        the device themselves); elsewhere the host clock brackets each call.
 
     Returns:
       ``iters`` samples in milliseconds.
@@ -172,15 +254,18 @@ def time_callable(fn, *, warmup: int = 2, iters: int = 5, device=None) -> tuple[
         with torch.cuda.device(torch.device(device)):
             for _ in range(warmup):
                 fn()
-            samples = []
+            samples, spin_ms = [], SPIN_MS
             for _ in range(iters):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                fn()
-                end.record()
-                end.synchronize()
-                samples.append(start.elapsed_time(end))
+                if hide_host:
+                    ms, spin_ms = hidden_sample(fn, spin_ms=spin_ms)
+                else:
+                    start, end = _event(), _event()
+                    start.record()
+                    fn()
+                    end.record()
+                    end.synchronize()
+                    ms = start.elapsed_time(end)
+                samples.append(ms)
             return tuple(samples)
     for _ in range(warmup):
         fn()
@@ -190,6 +275,12 @@ def time_callable(fn, *, warmup: int = 2, iters: int = 5, device=None) -> tuple[
         fn()
         samples.append((time.perf_counter() - t0) * 1e3)
     return tuple(samples)
+
+
+def score_ms(median_ms: float, launches: int, calls: int, launch_cost_ms: float) -> float:
+    """A candidate's rank: its median plus the host cost of the launches one
+    call makes (``launches`` over ``calls`` calls)."""
+    return median_ms + launches / max(calls, 1) * launch_cost_ms
 
 
 def interleaved_samples(
@@ -234,14 +325,27 @@ def bucket_pad_records(records: torch.Tensor, bucket_m: int) -> torch.Tensor:
     return out
 
 
-def _measured(candidate: Candidate, run, device, warmup: int, iters: int, **extra) -> Measurement:
-    """Time ``run`` for ``candidate``; a tile refusal scores ∞."""
+def _measured(candidate: Candidate, run, device, warmup: int, iters: int, *,
+              hide_host: bool = True, **extra) -> Measurement:
+    """Time ``run`` for ``candidate`` and score it; a tile refusal scores ∞."""
+    calls = 0
+
+    def counted():
+        nonlocal calls
+        calls += 1
+        return run()
+
     try:
         with _k.thread_launches() as launches:
-            samples = time_callable(run, warmup=warmup, iters=iters, device=device)
+            samples = time_callable(counted, warmup=warmup, iters=iters, device=device,
+                                    hide_host=hide_host)
     except _k.TileError:
         return Measurement(candidate, float("inf"), (), launches=dict(launches))
-    return Measurement(candidate, _median(samples), samples, launches=dict(launches), **extra)
+    median = _median(samples)
+    n_launches = sum(launches.values())
+    cost = _k.launch_cost_ms(device) if hide_host and n_launches and _is_cuda(device) else 0.0
+    return Measurement(candidate, median, samples, launches=dict(launches),
+                       score_ms=score_ms(median, n_launches, calls, cost), **extra)
 
 
 def measure_candidate(
@@ -310,10 +414,10 @@ def tune_workload(
     ok = [m for m in measurements if not m.failed]
     if not ok:
         raise RuntimeError(f"no candidate succeeded for shape {shape}")
-    best = min(ok, key=lambda m: m.median_ms)
+    best = min(ok, key=lambda m: m.score_ms)
     if verbose:
-        for m in sorted(ok, key=lambda m: m.median_ms):
-            print(f"  {m.median_ms:10.3f} ms  {m.candidate.variant} {m.candidate.param_dict}")
+        for m in sorted(ok, key=lambda m: m.score_ms):
+            print(f"  {m.score_ms:10.3f} ms  {m.candidate.variant} {m.candidate.param_dict}")
     entry = TuneEntry(
         variant=best.candidate.variant,
         params=best.candidate.param_dict,
@@ -460,10 +564,10 @@ def tune_forest_workload(
     ok = [m for m in measurements if not m.failed]
     if not ok:
         raise RuntimeError(f"no forest candidate succeeded for shape {shape}")
-    best = min(ok, key=lambda m: m.median_ms)
+    best = min(ok, key=lambda m: m.score_ms)
     if verbose:
-        for m in sorted(ok, key=lambda m: m.median_ms):
-            print(f"  {m.median_ms:10.3f} ms  {m.candidate.variant} {m.candidate.param_dict}")
+        for m in sorted(ok, key=lambda m: m.score_ms):
+            print(f"  {m.score_ms:10.3f} ms  {m.candidate.variant} {m.candidate.param_dict}")
     entry = TuneEntry(
         variant=best.candidate.variant,
         params=best.candidate.param_dict,
@@ -524,7 +628,7 @@ def measure_cascade_candidate(
         except _k.TileError:
             return Measurement(candidate, float("inf"), ())
         run = lambda: ev(records).classes  # noqa: E731
-    return _measured(candidate, run, records.device, warmup, iters)
+    return _measured(candidate, run, records.device, warmup, iters, hide_host=False)
 
 
 def tune_cascade_workload(
@@ -565,10 +669,10 @@ def tune_cascade_workload(
     ok = [m for m in measurements if not m.failed]
     if not ok:
         raise RuntimeError(f"no class-level candidate succeeded for shape {shape}")
-    best = min(ok, key=lambda m: m.median_ms)
+    best = min(ok, key=lambda m: m.score_ms)
     if verbose:
-        for m in sorted(ok, key=lambda m: m.median_ms):
-            print(f"  {m.median_ms:10.3f} ms  {m.candidate.variant} {m.candidate.param_dict}")
+        for m in sorted(ok, key=lambda m: m.score_ms):
+            print(f"  {m.score_ms:10.3f} ms  {m.candidate.variant} {m.candidate.param_dict}")
     entry = TuneEntry(
         variant=best.candidate.variant,
         params=best.candidate.param_dict,

@@ -621,3 +621,180 @@ def test_tree_serve_engine_on_card_equals_eval_serial(cuda_device, tmp_path):
     counters = obs.snapshot(eng.obs)["counters"]
     assert not counters.get("prof.errors") and counters["prof.sampled"] >= 1
     assert all(ops.get_variant(m.candidate.variant).engine == "cuda" for s in eng.sweeps.values() for m in s)
+
+
+# ---------------------------------------------------------------------------
+# the dist slice on the card: chunker, executor, windowed, the tuner's repair
+# ---------------------------------------------------------------------------
+
+
+def _dist_forest():
+    return EncodedForest([_tree(d, seed=d, balance=0.8) for d in (2, 4, 5, 6, 7, 8)])
+
+
+def _stacked_serial(forest, rec):
+    from repro_torch.core import eval_serial
+
+    return np.stack([eval_serial(forest.tree(i), rec) for i in range(forest.n_trees)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inflight", [1, 2, 3])
+@pytest.mark.parametrize("chunk", [1000, 4096, 7777])
+def test_pinned_chunker_equals_monolithic_on_card(cuda_device, tmp_path, inflight, chunk):
+    """Pinned double buffering on a copy stream: every chunk size (none divides
+    M) and depth of the pipeline gives the monolithic call's classes, also
+    when the pinned slots are reused many times."""
+    from repro_torch.core import eval_forest_tuned
+    from repro_torch.dist import ShardedForestEvaluator, StreamingChunker
+    from repro_torch.tune import TuneCache
+
+    forest = _dist_forest()
+    rec = _records(30_001, seed=21)
+    cache = TuneCache(tmp_path / "c.json")
+    mono = eval_forest_tuned(forest, rec, cache=cache).cpu().numpy()
+    ck = StreamingChunker(ShardedForestEvaluator(forest, devices=(cuda_device,), cache=cache),
+                          chunk_records=chunk, inflight=inflight, auto_coalesce=False)
+    for _ in range(3):
+        assert np.array_equal(ck.eval(rec), mono)
+    assert np.array_equal(mono[:, :3000], _stacked_serial(forest, rec[:3000]))
+    assert ck.stats.chunks == 3 * -(-rec.shape[0] // chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,g", [(4, 1), (1, 4), (2, 2)])
+def test_executor_on_one_card_repeated_equals_tuned(cuda_device, tmp_path, r, g):
+    """Four logical shards of one card: each launches its kernel once, and
+    the gathered (T, M) equals ``eval_forest_tuned``, padding included."""
+    from repro_torch.core import eval_forest_tuned
+    from repro_torch.dist import ShardedForestEvaluator
+    from repro_torch.parallel.sharding import forest_mesh
+    from repro_torch.tune import TuneCache
+
+    forest = _dist_forest()
+    rec = _records(10_000, seed=22)
+    cache = TuneCache(tmp_path / "c.json")
+    ref = eval_forest_tuned(forest, rec, cache=cache).cpu().numpy()
+    ev = ShardedForestEvaluator(forest, mesh=forest_mesh(r, g, devices=("cuda:0",) * 4), cache=cache)
+    for m in (10_000, 7, 3, 2):
+        with K.thread_launches() as launches:
+            out = ev(rec[:m])
+        assert out.device.type == "cuda" and sum(launches.values()) == r * g, launches
+        assert np.array_equal(out.cpu().numpy(), ref[:, :m]), m
+
+
+@pytest.mark.gpu
+def test_windowed_on_a_tree_every_kernel_refuses_on_card(cuda_device):
+    from repro_torch.core import eval_serial, eval_windowed, perfect_tree
+
+    big = breadth_first_encode(perfect_tree(14, 19, 7, seed=5))   # N 32,767 at A 19
+    rec = _records(4096, seed=23)
+    for algorithm, jump_mode in MODES:
+        with pytest.raises(K.TileError):
+            ops.tree_eval(torch.from_numpy(rec).to(cuda_device), big, algorithm=algorithm, jump_mode=jump_mode)
+    out = eval_windowed(big, torch.from_numpy(rec).to(cuda_device), window_levels=4)
+    assert out.device.type == "cuda"
+    assert np.array_equal(out.cpu().numpy(), eval_serial(big, rec))
+    chunked = eval_windowed(big, torch.from_numpy(rec).to(cuda_device), window_levels=3, chunk_records=1000)
+    assert np.array_equal(chunked.cpu().numpy(), eval_serial(big, rec))
+
+
+SCORE_FACTOR = 4.0   # how far a candidate's score may move when waves are served beside the sweep
+
+
+@pytest.mark.gpu
+def test_sweep_under_serving_load_picks_the_same_algorithm_on_card(cuda_device, tmp_path):
+    """The tuner's repair: the paper tree's M 65,536 bucket swept on a worker
+    thread and stream, once alone and once while another thread serves waves
+    through a ``TreeServeEngine``: the winner's algorithm is the same, and no
+    candidate's score moves by more than ``SCORE_FACTOR``."""
+    import threading
+
+    from repro_torch.core import paper_tree
+    from repro_torch.serve import RetunePolicy, TreeRequest, TreeServeEngine
+    from repro_torch.tune import TuneCache, tune_workload
+
+    enc = breadth_first_encode(paper_tree())
+    batch = np.random.default_rng(24).normal(size=(65_536, 19)).astype(np.float32)
+    eng = TreeServeEngine(enc, max_batch=65_536, cache=TuneCache(tmp_path / "c.json"),
+                          retune=RetunePolicy(hot_waves=10**9))
+
+    def sweep(loaded: bool):
+        stop, out = threading.Event(), {}
+
+        def serve():
+            while not stop.is_set():
+                eng.run([TreeRequest(uid=i, records=batch[i * 16_384:(i + 1) * 16_384]) for i in range(4)])
+
+        def measure():
+            with torch.cuda.stream(torch.cuda.Stream(cuda_device)):
+                out["sweep"] = tune_workload(batch, enc, cache=None, warmup=1, iters=3)
+
+        server = threading.Thread(target=serve)
+        if loaded:
+            server.start()
+        worker = threading.Thread(target=measure)
+        worker.start()
+        worker.join()
+        stop.set()
+        if loaded:
+            server.join()
+        return out["sweep"]
+
+    quiet, q_sweep = sweep(False)
+    loaded, l_sweep = sweep(True)
+    eng.profiler.drain()
+    assert ops.get_variant(quiet.variant).algorithm == ops.get_variant(loaded.variant).algorithm, (quiet, loaded)
+    q_by = {m.candidate: m for m in q_sweep}
+    for m in l_sweep:
+        q = q_by[m.candidate]
+        assert not m.failed and m.score_ms >= m.median_ms > 0
+        assert 1 / SCORE_FACTOR <= m.score_ms / q.score_ms <= SCORE_FACTOR, (m.candidate, q.score_ms, m.score_ms)
+
+
+@pytest.mark.gpu
+def test_grid_query_and_launch_cost_on_the_tensors_device(cuda_device):
+    """The occupancy query and SM count are taken under the device they are
+    asked for, and one launch's host cost is measured once a device."""
+    here = torch.device("cuda", torch.cuda.current_device())
+    assert K.launch_grid(4, 0, 65_536, 256, 19, 51, n_trees=16, device=here) == \
+        K.launch_grid(4, 0, 65_536, 256, 19, 51, n_trees=16)
+    cost = K.launch_cost_ms(here)
+    assert 0 < cost < 1 and K.launch_cost_ms("cuda") == cost
+
+
+@pytest.mark.gpu
+def test_executor_and_engine_across_distinct_cards_on_card(cuda_device, tmp_path):
+    """On a node of several cards, every decomposition over distinct cards
+    (records copied across, each shard on its own card, the output gathered
+    on the first) and a forest engine over all of them equal the one-card
+    results."""
+    from repro_torch.core import eval_forest_tuned
+    from repro_torch.dist import ShardedForestEvaluator, StreamingChunker
+    from repro_torch.parallel.sharding import forest_mesh, node_devices
+    from repro_torch.serve import ForestServeEngine, TreeRequest
+    from repro_torch.tune import TuneCache
+
+    cards = node_devices()
+    if len(cards) < 2:
+        pytest.skip("needs two or more cards")
+    forest = _dist_forest()
+    rec = _records(20_001, seed=25)
+    cache = TuneCache(tmp_path / "c.json")
+    ref = eval_forest_tuned(forest, rec, cache=cache).cpu().numpy()
+    d = len(cards)
+    for r, g in ((d, 1), (1, d), (d // 2, 2)) if d % 2 == 0 else ((d, 1), (1, d)):
+        ev = ShardedForestEvaluator(forest, mesh=forest_mesh(r, g, devices=cards), cache=cache)
+        for m in (20_001, 7, 2):
+            out = ev(rec[:m])
+            assert out.device == cards[0]
+            assert np.array_equal(out.cpu().numpy(), ref[:, :m]), (r, g, m)
+        assert np.array_equal(StreamingChunker(ev, chunk_records=4096).eval(rec), ref)
+    eng = ForestServeEngine(forest, max_batch=8192, chunk_records=2048, n_classes=7, cache=cache,
+                            decomposition="records", retune=None)
+    assert eng._eval.devices == cards
+    reqs = eng.run([TreeRequest(uid=i, records=rec[i * 5000:(i + 1) * 5000]) for i in range(4)])
+    eng.profiler.drain()
+    assert eng.plan.decomposition == "records" and eng.plan.n_devices > 1
+    want = majority_vote(torch.from_numpy(ref[:, :20_000]), 7).numpy()
+    assert np.array_equal(np.concatenate([r.out for r in reqs]), want)

@@ -10,6 +10,13 @@
 3. ``sanitize_records`` on the speculative paths (±inf → ±FLT_MAX, NaN →
    −FLT_MAX): the port equals the JAX package there, and both differ from
    ``eval_serial`` on the rows shown, so the port cannot drift on its own.
+4. The background re-tune ranked candidates by host contention: a sample is
+   now the call's device time with the host's enqueue hidden behind a spin,
+   checked and retaken when the spin ran out, and a candidate's score adds
+   the host price of its launches.  The arithmetic and the retry rule are
+   held here with fake events; the card test
+   ``test_torch_device.py::test_sweep_under_serving_load_picks_the_same_algorithm_on_card``
+   holds the sweep under load.
 """
 
 from __future__ import annotations
@@ -188,3 +195,89 @@ def test_speculative_paths_clamp_as_the_jax_package_does():
                                                  jump_mode=jump_mode))
         got = ops.forest_votes_fused(cpu, forest, n_classes=2, algorithm="speculative", jump_mode=jump_mode)
         assert_same(got, want, "votes")
+
+
+# ---------------------------------------------------------------------------
+# 4. the tuner's samples hide the host, and its scores price the launches
+# ---------------------------------------------------------------------------
+
+
+class _FakeEvent:
+    """A CUDA event stand-in: ``query`` reports the start as already reached
+    while the shared ``late`` count lasts (the spin ran out), and
+    ``elapsed_time`` is the record-order distance times 0.5 ms."""
+
+    clock = 0
+    late = 0
+
+    def record(self, *a):
+        _FakeEvent.clock += 1
+        self.t = _FakeEvent.clock
+
+    def query(self):
+        if _FakeEvent.late:
+            _FakeEvent.late -= 1
+            return True
+        return False
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return 0.5 * (end.t - self.t)
+
+
+@pytest.mark.parametrize("late", [0, 1, 3])
+def test_contaminated_samples_are_retaken_with_a_longer_spin(late):
+    from repro_torch.tune import measure
+
+    _FakeEvent.late, spins, calls = late, [], []
+    ms, spin = measure.hidden_sample(lambda: calls.append(1), spin_ms=1.0, spin=spins.append, event=_FakeEvent)
+    assert ms == 0.5 and len(calls) == late + 1
+    assert spins == [1.0 * measure.SPIN_GROWTH ** i for i in range(late + 1)] and spin == spins[-1]
+
+
+def test_a_sample_the_spin_never_hides_raises_and_is_never_scored():
+    from repro_torch.tune import measure
+
+    _FakeEvent.late, spins = 10**6, []
+    with pytest.raises(measure.HostNotHidden, match="outlasted"):
+        measure.hidden_sample(lambda: None, spin_ms=1.0, tries=4, spin=spins.append, event=_FakeEvent)
+    assert spins == [1.0, 4.0, 16.0, 64.0]
+    _FakeEvent.late = 0
+
+
+def test_score_adds_the_launches_of_one_call():
+    from repro_torch.tune.measure import score_ms
+
+    assert score_ms(0.004, 4, 4, 0.003) == pytest.approx(0.007)       # one launch a call
+    assert score_ms(0.02, 64, 4, 0.003) == pytest.approx(0.068)       # the per-tree family: 16 a call
+    assert score_ms(1.5, 0, 7, 0.003) == 1.5
+    assert score_ms(1.5, 3, 0, 0.0) == 1.5
+
+
+def test_measured_scores_on_the_card_path_and_the_host_clock(monkeypatch):
+    """On a CUDA device the score is the median plus launches a call × the
+    launch cost, with warmup calls counted; on the host it is the median."""
+    from repro_torch.kernels.tree_eval import kernel as K
+    from repro_torch.tune import measure
+    from repro_torch.tune.space import Candidate
+
+    def launching():
+        K._THREAD.counts["data_parallel"] = K._THREAD.counts.get("data_parallel", 0) + 2
+
+    def fake_time_callable(fn, *, warmup, iters, device, hide_host):
+        assert hide_host and device == "cuda"
+        for _ in range(warmup + iters):
+            fn()
+        return (0.010, 0.012, 0.011)
+
+    monkeypatch.setattr(measure, "time_callable", fake_time_callable)
+    monkeypatch.setattr(K, "launch_cost_ms", lambda device: 0.004)
+    m = measure._measured(Candidate.make("cuda_data_parallel"), launching, "cuda", 1, 3)
+    assert m.launches == {"data_parallel": 8} and m.median_ms == 0.011
+    assert m.score_ms == pytest.approx(0.011 + 2 * 0.004)
+    monkeypatch.undo()
+    host = measure._measured(Candidate.make("torch_data_parallel"), lambda: None, "cpu", 1, 3)
+    assert host.score_ms == host.median_ms and len(host.samples_ms) == 3
+
