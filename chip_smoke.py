@@ -7,6 +7,23 @@ Phases, each printing its own lines:
 1. device — the card's name and power limit; no CUDA device is an error;
 2. build — compile ``csrc/tree_eval.cu`` for sm_90a with nvcc, print the
    ``-Xptxas -v`` report;
+2l. lm-serve — the LM serving path, in a child process of its own
+   (``chip_smoke.py --lm-serve``): ``build_model`` of granite-moe-3b-a800m at
+   full width on the card (3,375,428,064 parameters + the vocabulary's
+   padding, f32 masters from a seeded ``torch.Generator``), ``ServeEngine``
+   (its bf16 working copy made once) serving 8 requests of 128 seeded ids,
+   32 new tokens each, greedy, in 2 waves of 4: K1 onehot (the tree router,
+   N 127, A 63) launched exactly 32 layers × (1 prefill + 31 decode steps) ×
+   2 waves = 2,048 times in the served run's window; every route of the
+   first prefill and of one decode step, captured by forward hooks on the
+   ``TreeRouter`` modules, ``torch.equal`` to K1's plain version on the same
+   ``z``; the f32 model on the same masters: last logits of ``prefill`` and
+   of one ``decode_step`` (B 2, S 17) against ``forward(serve_hard_tree=
+   True)`` within 2e-2 (the JAX smoke test's tolerance); prefill ms per
+   wave, decode ms per step (host clock and CUDA events), tokens/s, one
+   decode step under the profiler (device busy, idle share, time and
+   launches by kind), K1 at the router's decode (M 4) and prefill (M 512)
+   shapes against its plain version and bound, the step's byte bound;
 3. kernels against plain versions — K1 (gather, onehot), K2, K3 (gather,
    onehot) and K4 on adversarial records (ties, ±inf, NaN) and trees of depth
    0–9 (one with N > 128), M ∈ {1, 7, 65,536}; K5 (gather, onehot) and K6 on
@@ -112,8 +129,9 @@ of every candidate the tuner measured must launch (each measured kernel
 candidate also counts its own launches on its thread), and again from zero
 over phase 6f, where K3 gather, K4, K5 in both forms, K6, and K7/K8 must
 launch (the phase prints them by part: served waves, re-tune candidates,
-anytime stages, shard bodies, the chunker).  The ``kernels`` line's
-``launches`` is the sum of the three windows.  Any mismatch, missing launch
+anytime stages, shard bodies, the chunker), and in phase 2l's own window
+over its served run, where K1 onehot must launch 2,048 times and no other
+kernel.  The ``kernels`` line's ``launches`` is the sum of the four windows.  Any mismatch, missing launch
 or exception exits non-zero.
 """
 
@@ -1864,6 +1882,341 @@ def phase_breakdown(dev, image, enc, forest, plan, card) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 2l: the LM serving path (build_model → DecoderModel → MoE on K1 → ServeEngine)
+# ---------------------------------------------------------------------------
+
+
+LM_ARCH = "granite-moe-3b-a800m"
+LM_PARAMS = 3_375_428_064        # cfg.n_params() of granite-moe-3b-a800m
+LM_REQUESTS, LM_PROMPT, LM_NEW, LM_BATCH = 8, 128, 32, 4
+LM_DECODE_TIMED = 16
+LM_TOL = 2e-2                    # tests/test_arch_smoke.py::test_smoke_prefill_decode_consistency
+LM_RESULT = "[lm-serve] result "
+LM_TIMEOUT_S = 600
+DISPATCH_EQS = ("ngec,ngd->necd", "ngec,necd->ngd")
+GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm", "aten::matmul", "aten::linear")
+
+
+def lm_dropped(experts: torch.Tensor, moe, e_pad: int) -> tuple[int, int]:
+    """(assignments dropped past the experts' capacity, assignments) of one
+    MoE call whose tree routed its (n, g) tokens to ``experts``: each token
+    takes its expert and the k − 1 next ones, an expert keeps ``_capacity``."""
+    from repro_torch.models.layers import moe as lm_moe
+
+    n, g = experts.shape
+    cap = lm_moe._capacity(g, moe, e_pad)
+    top = (experts.long()[..., None] + torch.arange(moe.top_k, device=experts.device)) % moe.n_experts
+    counts = torch.stack([torch.bincount(t.reshape(-1), minlength=e_pad) for t in top])
+    return int((counts - cap).clamp(min=0).sum()), n * g * moe.top_k
+
+
+def lm_step_breakdown(step, card) -> None:
+    """One decode step under the profiler (CPU and CUDA): device busy, idle
+    share, device time by kind and the device events a step launches.
+
+    K1 is told by its kernel name; the other kinds by the op that launched
+    each kernel (the profiler attaches a kernel to its launching op) and the
+    ranges this function opens, for this step only, around
+    ``attention._grouped_attention`` (attention), ``moe.moe_apply`` (the MoE
+    layer) and ``torch.einsum`` (the dispatch and combine einsums by their
+    equations).  The ranges' own mirrors on the device timeline are not
+    device work and are left out.
+    """
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models.layers import attention as lm_attn
+    from repro_torch.models.layers import moe as lm_moe
+
+    real = (torch.einsum, lm_attn._grouped_attention, lm_moe.moe_apply)
+
+    def ranged(label, fn):
+        def run(*args, **kw):
+            name = label(*args) if callable(label) else label
+            with record_function(name):
+                return fn(*args, **kw)
+        return run
+
+    step()
+    torch.cuda.synchronize()
+    torch.einsum = ranged(lambda eq, *_: f"lm.einsum {eq}", real[0])
+    lm_attn._grouped_attention = ranged("lm.attention", real[1])
+    lm_moe.moe_apply = ranged("lm.moe", real[2])
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.einsum, lm_attn._grouped_attention, lm_moe.moe_apply = real
+    events = prof.events()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False) and not e.key.startswith("lm.")]
+    check(len(device) > 0, "the profiler saw no device event in the decode step")
+    busy = union_length([(e.time_range.start, e.time_range.end) for e in device]) / 1e3
+    total = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    k1 = [e for e in device if "speculative_kernel" in e.key]
+    kinds = {"K1": (sum(e.time_range.elapsed_us() for e in k1) / 1e3, len(k1))}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        labels, node = [], e
+        while node is not None:
+            labels.append(node.name)
+            node = node.cpu_parent
+        for kern in e.kernels:
+            if "speculative_kernel" in kern.name:
+                continue
+            if "lm.attention" in labels:
+                kind = "attention"
+            elif any(f"lm.einsum {eq}" in labels for eq in DISPATCH_EQS):
+                kind = "dispatch/combine einsums"
+            elif e.name in GEMM_OPS:
+                kind = "GEMMs"
+            elif "Memcpy" in kern.name or "Memset" in kern.name:
+                kind = "copies"
+            elif "lm.moe" in labels:
+                kind = "elementwise in the MoE (routing, dispatch/combine build)"
+            else:
+                kind = "elementwise outside the MoE"
+            ms, n = kinds.get(kind, (0.0, 0))
+            kinds[kind] = (ms + kern.duration / 1e3, n + 1)
+    seen = sum(n for _, n in kinds.values())
+    parts = "; ".join(f"{k} {ms:.4f} ms x{n}" for k, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]))
+    print(f"[lm-serve] {card}: one decode step (B {LM_BATCH}) under the profiler: host wall {wall:.3f} ms, "
+          f"device busy {busy:.4f} ms, idle share {1 - busy / wall:.1%}; {len(device)} device events "
+          f"(launches) a step, {total:.4f} ms of device time; by kind: {parts} ({seen} kernels placed by "
+          f"the op that launched them)")
+
+
+def phase_lm_serve(dev, card, cfg=None) -> dict:
+    """The LM serving path at granite-moe-3b-a800m's full width; see the
+    module docstring (phase 2l).  Returns what the parent needs: K1 onehot's
+    launches in the served run's window, and the largest disagreement of a
+    captured route with K1's plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import moe as lm_moe
+    from repro_torch.serve import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = cfg or get_config(LM_ARCH)
+    moe, depth = cfg.moe, cfg.moe.tree_depth()
+    n_int, n_nodes = 2**depth - 1, 2 ** (depth + 1) - 1
+    gib = 2.0**30
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    built = sum(p.numel() for p in model.parameters())
+    pad = (model.v_pad - cfg.vocab_size) * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    print(f"[lm-serve] {cfg.name} at full width: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV, {moe.n_experts} experts top-{moe.top_k} d_ff {moe.d_ff}, "
+          f"router tree depth {depth} (N {n_nodes}, A {n_int}); {built:,} parameters allocated = "
+          f"cfg.n_params() {cfg.n_params():,} + {pad:,} of vocabulary padding ({cfg.vocab_size:,} → "
+          f"{model.v_pad:,}); f32 masters drawn from a seeded torch.Generator on the card in {built_s:.1f} s")
+    check(built - pad == cfg.n_params(), f"{built} parameters allocated, {cfg.n_params()} + {pad} expected")
+    if cfg.name == LM_ARCH:
+        check(cfg.n_params() == LM_PARAMS, f"cfg.n_params() {cfg.n_params()} is not {LM_PARAMS}")
+    print(f"[lm-serve] {card}: memory allocated {torch.cuda.memory_allocated() / gib:.3f} GiB, "
+          f"peak {torch.cuda.max_memory_allocated() / gib:.3f} GiB (the f32 masters)")
+
+    tracer = obs.Tracer()
+    engine = ServeEngine(model, max_batch=LM_BATCH, max_len=LM_PROMPT + LM_NEW, tracer=tracer)
+    torch.cuda.synchronize()
+    print(f"[lm-serve] {card}: with the engine's {cfg.dtype} working copy: memory allocated "
+          f"{torch.cuda.memory_allocated() / gib:.3f} GiB, peak {torch.cuda.max_memory_allocated() / gib:.3f} GiB")
+
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, LM_PROMPT).astype(np.int32),
+                    max_new_tokens=LM_NEW) for i in range(LM_REQUESTS)]
+    captured: dict = {"prefill": [], "decode": []}
+
+    def capture(router, args, experts):
+        kind = "prefill" if args[0].shape[1] == LM_BATCH * LM_PROMPT else "decode"
+        if len(captured[kind]) < cfg.n_layers:
+            captured[kind].append((router, args[0], args[1], experts))
+
+    hooks = [r.register_forward_hook(capture) for r in engine.model.tree_routers()]
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        engine.run(reqs, pad_to=LM_PROMPT)
+    finally:
+        for h in hooks:
+            h.remove()
+    served_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    waves = LM_REQUESTS // LM_BATCH
+    expect = cfg.n_layers * LM_NEW * waves     # a layer routes once a prefill and once a decode step
+    print(f"[lm-serve] served {LM_REQUESTS} requests (prompts of {LM_PROMPT} seeded ids, {LM_NEW} new tokens, "
+          f"greedy) in {engine.stats.waves} waves of {LM_BATCH} in {served_s:.3f} s: K1 onehot launched "
+          f"{launches['speculative/onehot']} times in the served run's window ({cfg.n_layers} layers x "
+          f"(1 prefill + {LM_NEW - 1} decode steps) x {waves} waves = {expect}); other kernels "
+          f"{ {k: v for k, v in launches.items() if v and k != 'speculative/onehot'} }")
+    check(launches["speculative/onehot"] == expect, f"K1 onehot launched {launches['speculative/onehot']} times, not {expect}")
+    check(sum(launches.values()) == expect, f"kernels other than K1 onehot launched: {launches}")
+    check(engine.stats.waves == waves and engine.stats.decode_steps == waves * (LM_NEW - 1),
+          f"{engine.stats.waves} waves, {engine.stats.decode_steps} decode steps")
+    for r in reqs:
+        check(r.done and len(r.out_tokens) == LM_NEW and all(0 <= t < model.v_pad for t in r.out_tokens),
+              f"request {r.uid}: {r.out_tokens}")
+    print(f"[lm-serve] out tokens: " + "; ".join(f"req {r.uid}: {r.out_tokens[:8]}..." for r in reqs[:4])
+          + f"; ids ≥ vocab_size {cfg.vocab_size} (the padded columns the engine samples too): "
+          f"{sum(t >= cfg.vocab_size for r in reqs for t in r.out_tokens)} of {LM_REQUESTS * LM_NEW}")
+
+    # every captured route against K1's plain version on the same z
+    check(len(captured["prefill"]) == len(captured["decode"]) == cfg.n_layers,
+          f"captured {len(captured['prefill'])} prefill and {len(captured['decode'])} decode routes")
+    err, margin, used, drops = 0, float("inf"), set(), {"prefill": [0, 0], "decode": [0, 0]}
+    for kind, caps in captured.items():
+        for router, h2, proj, experts in caps:
+            z = lm_moe.router_features(h2, proj).reshape(-1, n_int)
+            p = router.packed
+            plain = K.speculative_plain(sanitize_records(z), p.attr_idx, p.attr_select, p.threshold, p.child,
+                                        p.class_val, total_jumps=ops._total_jumps(p.max_depth), jump_mode="onehot")
+            got = experts.reshape(-1)
+            check(torch.equal(got, plain), f"{kind}: K1 routed {int((got != plain).sum())} of {got.numel()} "
+                                           "tokens otherwise than its plain version")
+            err = max(err, max_abs_err(got, plain))
+            margin = min(margin, float((z - p.threshold[:n_int]).abs().min()))
+            used |= set(got.tolist())
+            d, a = lm_dropped(experts, moe, lm_moe.padded_experts(moe))
+            drops[kind][0] += d
+            drops[kind][1] += a
+    print(f"[lm-serve] every captured route torch.equal to K1's plain version on the same z: "
+          f"{cfg.n_layers} prefill calls (M {LM_BATCH * LM_PROMPT}) and {cfg.n_layers} decode calls (M {LM_BATCH}); "
+          f"smallest |z - threshold| {margin:.3g}; {len(used)} of {moe.n_experts} experts chosen by a tree; "
+          f"assignments dropped past capacity: prefill {drops['prefill'][0]} of {drops['prefill'][1]}, "
+          f"decode {drops['decode'][0]} of {drops['decode'][1]}")
+
+    spans = [e.dur_us / 1e3 for e in tracer.events() if e.name == "serve.prefill"]
+    s = engine.stats
+    print(f"[lm-serve] {card}: served prefill ms per wave (B {LM_BATCH} x S {LM_PROMPT}, host clock after "
+          f"synchronize): {', '.join(f'{ms:.3f}' for ms in spans)}; decode {s.decode_s * 1e3:.3f} ms for "
+          f"{s.decode_steps} steps ({s.decode_s * 1e3 / s.decode_steps:.3f} ms a step with sampling), "
+          f"{LM_REQUESTS * (LM_NEW - 1) / s.decode_s:.1f} decode tokens/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / gib:.3f} GiB")
+
+    # consistency at full width in f32, on the same f32 masters
+    m32 = model.cast_for_compute("float32")
+    check(all(a.data_ptr() == b.data_ptr() for a, b in zip(m32.parameters(), model.parameters())),
+          "the f32 model does not share the masters")
+    routes32: list = []
+    hooks = [r.register_forward_hook(lambda r, a, out: routes32.append(out)) for r in m32.tree_routers()]
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, size=(2, 17)).astype(np.int32)).to(dev)
+    try:
+        with torch.no_grad():
+            full, _ = m32({"tokens": toks}, serve_hard_tree=True)
+            lp, cache = m32.prefill({"tokens": toks[:, :16]}, max_len=24)
+            ld, _ = m32.decode_step(cache, {"tokens": toks[:, 16:17]})
+    finally:
+        for h in hooks:
+            h.remove()
+    check(bool(torch.isfinite(full).all()) and full.shape == (2, 17, model.v_pad), "f32 forward logits")
+    err_p = float((lp[:, -1] - full[:, 15]).abs().max())
+    err_d = float((ld[:, 0] - full[:, 16]).abs().max())
+    dropped = [lm_dropped(e, moe, lm_moe.padded_experts(moe)) for e in routes32]
+    per = cfg.n_layers
+    why = "; ".join(f"{name} {sum(d for d, _ in dropped[i * per:(i + 1) * per])} of "
+                    f"{sum(a for _, a in dropped[i * per:(i + 1) * per])}"
+                    for i, name in enumerate(("forward (group 34)", "prefill (group 32)", "decode (group 2)")))
+    print(f"[lm-serve] {card}: f32 consistency at full width (B 2, S 17, the same masters): max |prefill - forward| "
+          f"{err_p:.3g} at position 15, max |decode - forward| {err_d:.3g} at position 16, logits max "
+          f"{float(full.abs().max()):.3g}; tolerance {LM_TOL} (rtol and atol), the JAX smoke test's; the errors sit "
+          f"below it because f32 on the card differs only in summation order and in which assignments each "
+          f"group drops past capacity ({why}), and the experts' outputs are small at this init")
+    check(torch.allclose(lp[:, -1], full[:, 15], rtol=LM_TOL, atol=LM_TOL)
+          and torch.allclose(ld[:, 0], full[:, 16], rtol=LM_TOL, atol=LM_TOL),
+          f"f32 prefill/decode disagree with forward: {err_p}, {err_d}")
+    del m32, full, lp, ld, cache
+
+    # steady prefill and decode steps outside the served window
+    work = engine.model
+    wave = torch.from_numpy(engine._pad_wave(reqs[:LM_BATCH], LM_PROMPT)).to(dev)
+    pre = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = work.prefill({"tokens": wave}, max_len=LM_PROMPT + LM_DECODE_TIMED + 2)
+        torch.cuda.synchronize()
+        pre.append((time.perf_counter() - t0) * 1e3)
+    tok = logits[:, -1].argmax(-1, keepdim=True).int()
+    host, events = [], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(LM_DECODE_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        logits, cache = work.decode_step(cache, {"tokens": tok})
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+        tok = logits[:, -1].argmax(-1, keepdim=True).int()
+    weights = sum(p.numel() * p.element_size() for n, p in work.named_parameters() if n != "embed.table")
+    kv = cache.kv.k[:, :, :cache.pos].numel() * cache.kv.k.element_size() * 2
+    w_ms, kv_ms = weights / roofline.HBM_BW * 1e3, kv / roofline.HBM_BW * 1e3
+    print(f"[lm-serve] {card}: steady prefill ms (B {LM_BATCH} x S {LM_PROMPT}, host clock after synchronize): "
+          f"{', '.join(f'{ms:.3f}' for ms in pre)}; decode step ms over {LM_DECODE_TIMED} steps (B {LM_BATCH}, "
+          f"no sampling): host clock mean {np.mean(host):.3f} min {min(host):.3f}, CUDA events mean "
+          f"{np.mean(events):.3f} min {min(events):.3f}; {LM_BATCH / np.mean(host) * 1e3:.1f} tokens/s at the "
+          f"host-clock mean; byte bound of a step: the {cfg.dtype} working weights but the embedding table "
+          f"({weights / 1e9:.3f} GB) {w_ms:.3f} ms + the KV cache read ({kv / 1e6:.2f} MB) {kv_ms:.4f} ms = "
+          f"{w_ms + kv_ms:.3f} ms at {roofline.HBM_BW / 1e12:.2f} TB/s")
+    lm_step_breakdown(lambda: work.decode_step(cache, {"tokens": tok}), card)
+
+    # K1 onehot at the router's decode and prefill shapes, on the captured z
+    p = captured["decode"][0][0].packed
+    bm = ops.choose_block_m(n_nodes, n_int, algorithm="speculative", jump_mode="onehot")
+    jumps = ops._total_jumps(p.max_depth)
+    runs, rows = [], []
+    for kind in ("decode", "prefill"):
+        router, h2, proj, _ = captured[kind][0]
+        z = sanitize_records(lm_moe.router_features(h2, proj).reshape(-1, n_int))
+        tabs = (p.attr_idx, p.attr_select, p.threshold, p.child, p.class_val)
+        runs.append((kind, lambda i, z=z, tabs=tabs: K.speculative(z, *tabs, total_jumps=jumps,
+                                                                    jump_mode="onehot", block_m=bm)))
+        plain_ms = event_ms(lambda i, z=z, tabs=tabs: K.speculative_plain(z, *tabs, total_jumps=jumps,
+                                                                           jump_mode="onehot"), 1, 50)
+        m = z.shape[0]
+        bnd, by = bound(m, n_int, 1, n_nodes, m * depth)
+        rows.append((kind, m, plain_ms, bnd, by, launch_shape("speculative/onehot", m, n_nodes, n_int, bm)))
+    timed_k1 = profiled_ms(runs, 1, 200)
+    for kind, m, plain_ms, bnd, by, shape in rows:
+        ms, n = timed_k1[kind]
+        print(f"[lm-serve] {card}: K1 onehot at the router's {kind} shape M {m}, N {n_nodes}, A {n_int} "
+              f"(block_m {bm}; {shape}): {ms:.4f} ms "
+              f"(profiler, {n} launches), plain {plain_ms:.4f} ms (CUDA events), bound {bnd:.3g} ms ({by}, "
+              f"launch/roofline.py), {bnd / ms:.2%} of the bound; library: none")
+    print(f"[lm-serve] phase took {time.perf_counter() - t_phase:.1f} s on the host of {card}")
+    return {"k1_onehot_launches": launches["speculative/onehot"], "max_abs_err": err}
+
+
+def run_lm_serve_child(card) -> dict:
+    """Phase 2l in a process of its own (``chip_smoke.py --lm-serve``): its
+    21 GiB of weights are freed when it ends, and its profiler sessions do
+    not count against the later phases' (a process's late sessions lose
+    kernels).  Its lines are printed here; its result line is parsed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--lm-serve"],
+                          stdout=subprocess.PIPE, text=True, timeout=LM_TIMEOUT_S)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith(LM_RESULT):
+            result = json.loads(line[len(LM_RESULT):])
+        else:
+            print(line)
+    check(proc.returncode == 0 and result is not None,
+          f"the [lm-serve] phase exited with {proc.returncode} after {time.perf_counter() - t0:.1f} s")
+    print(f"[lm-serve] child process took {time.perf_counter() - t0:.1f} s on the host of {card}")
+    return result
+
+
+# ---------------------------------------------------------------------------
 
 
 REPLACES = {
@@ -1895,6 +2248,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", type=Path, nargs="+", default=[],
                         help="earlier checkouts whose kernels to time in turns with this tree's, one after another")
+    parser.add_argument("--lm-serve", action="store_true",
+                        help="run phase 2l (the LM serving path) alone; the full run starts it so, in a child")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -1902,6 +2257,10 @@ def main() -> None:
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
+    if args.lm_serve:
+        _build.build(K.SOURCE)
+        print(LM_RESULT + json.dumps(phase_lm_serve(dev, card)))
+        return
     print(f"[device] {kind}; nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
@@ -1909,6 +2268,7 @@ def main() -> None:
     print(f"[build] {_build.library_path(K.SOURCE).name} in {time.perf_counter() - t0:.1f} s on the host of {card}")
     for line in ptxas_lines(report):
         print(f"[build] {line}")
+    lm = run_lm_serve_child(card)
 
     errs = phase_kernels(dev)
     errs |= phase_quant_kernels(dev)
@@ -1988,6 +2348,8 @@ def main() -> None:
         print(f"[parent] {root}")
         phase_parent(dev, images[0], enc, forest, plan, second, layouts, root, card)
     check(len(timings) == len(K.LAUNCHES), f"timed {len(timings)} kernels, not {len(K.LAUNCHES)}")
+    launches["speculative/onehot"] += lm["k1_onehot_launches"]
+    errs["speculative/onehot"] = max(errs["speculative/onehot"], lm["max_abs_err"])
     kernels = []
     for row in timings:
         wrapper = row["name"].split("/")[0]

@@ -49,6 +49,15 @@ from repro_torch.core.forest import (
     vote_counts,
     vote_winner,
 )
+from repro_torch.core.soft_tree import (
+    SoftTreeConfig,
+    SoftTreeParams,
+    harden,
+    init_soft_tree,
+    leaf_probs,
+    load_balance_loss,
+    output_probs,
+)
 from repro_torch.core.windowed import eval_windowed, level_offsets
 from repro_torch.core import analysis
 
@@ -93,6 +102,13 @@ __all__ = [
     "route_topk",
     "vote_counts",
     "vote_winner",
+    "SoftTreeConfig",
+    "SoftTreeParams",
+    "harden",
+    "init_soft_tree",
+    "leaf_probs",
+    "load_balance_loss",
+    "output_probs",
     "eval_windowed",
     "level_offsets",
     "analysis",

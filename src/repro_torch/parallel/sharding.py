@@ -1,10 +1,12 @@
 """Device grids and the divisibility policy of the sharded forest path.
 
 The port's counterpart of the forest part of the JAX package's
-``parallel/sharding.py``.  There a plan lowers onto a ``jax.sharding.Mesh``
-and ``shard_map``; here one process drives the node's cards directly, so a
-mesh is a (records × trees) grid of ``torch.device`` objects that the
-executor walks shard by shard (:class:`repro_torch.dist.ShardedForestEvaluator`).
+``parallel/sharding.py``, and of its ``pad_vocab`` for the LM on one
+device (mesh axes and the LM's EP/TP sharding are not ported).  There a
+plan lowers onto a ``jax.sharding.Mesh`` and ``shard_map``; here one
+process drives the node's cards directly, so a mesh is a (records × trees)
+grid of ``torch.device`` objects that the executor walks shard by shard
+(:class:`repro_torch.dist.ShardedForestEvaluator`).
 
 A grid may name one device several times: ``("cpu",) * 8`` on the host, or
 ``("cuda:0",) * 4`` on one card, lays out four logical shards that run one
@@ -51,6 +53,15 @@ def pad_to_multiple(dim: int, size: int) -> int:
     if size <= 1:
         return dim
     return ((dim + size - 1) // size) * size
+
+
+VOCAB_LANE = 128
+
+
+def pad_vocab(vocab: int) -> int:
+    """The vocabulary padded to a multiple of 128 (granite's 49,155 → 49,280),
+    as the JAX package pads it on one device (no tensor-parallel axis)."""
+    return pad_to_multiple(vocab, VOCAB_LANE)
 
 
 def normal_device(device) -> torch.device:

@@ -1,4 +1,5 @@
-"""Serving on the card: wave-batched tree and forest classification with
+"""Serving on the card: wave-batched LM decoding (``ServeEngine``), and
+wave-batched tree and forest classification with
 background re-tuning, shadow profiling and a flight recorder; the forest
 engine streams waves through the sharded executor or, under an
 :class:`AnytimePolicy`, an early-exit cascade with a deadline."""
@@ -6,9 +7,12 @@ engine streams waves through the sharded executor or, under an
 from repro_torch.serve.engine import (
     AnytimePolicy,
     BackgroundRetuner,
+    EngineStats,
     ForestEngineStats,
     ForestServeEngine,
+    Request,
     RetunePolicy,
+    ServeEngine,
     TreeEngineStats,
     TreeRequest,
     TreeServeEngine,
@@ -17,9 +21,12 @@ from repro_torch.serve.engine import (
 __all__ = [
     "AnytimePolicy",
     "BackgroundRetuner",
+    "EngineStats",
     "ForestEngineStats",
     "ForestServeEngine",
+    "Request",
     "RetunePolicy",
+    "ServeEngine",
     "TreeEngineStats",
     "TreeRequest",
     "TreeServeEngine",

@@ -1,9 +1,9 @@
-"""Wave-batched tree and forest classification serving on the card.
+"""Wave-batched LM, tree and forest serving on the card.
 
-The port's counterpart of the JAX package's ``serve/engine.py``, for its
-classification paths.  :class:`TreeServeEngine` coalesces requests into
-waves of up to ``max_batch`` records and classifies each wave with one call
-of a :class:`repro_torch.tune.TunedEvaluator`, which routes it through the
+The port's counterpart of the JAX package's ``serve/engine.py``.
+:class:`TreeServeEngine` coalesces requests into waves of up to
+``max_batch`` records and classifies each wave with one call of a
+:class:`repro_torch.tune.TunedEvaluator`, which routes it through the
 cached-best kernel variant for its shape bucket.
 :class:`ForestServeEngine` does the same for a forest: each wave streams
 through the :mod:`repro_torch.dist` executor behind a
@@ -30,8 +30,9 @@ kernels and never prices them into a candidate's median, and the request
 thread never waits on a worker.  The kernels of both streams share the card,
 so a measurement taken while waves are served sees their contention.
 
-Not ported here: the JAX package's LM ``ServeEngine`` (it waits for the LM
-substrates).
+:class:`ServeEngine` serves the LM (:mod:`repro_torch.models`): batched
+prefill and decode over waves of prompts, the tree-routed MoE routing
+through K1 on the card.
 """
 
 from __future__ import annotations
@@ -69,6 +70,172 @@ def _worker_stream(device: torch.device) -> Callable[[], contextlib.AbstractCont
         return contextlib.nullcontext
     stream = torch.cuda.Stream(device=device)
     return lambda: torch.cuda.stream(stream)
+
+
+# ---------------------------------------------------------------------------
+# LM serving: batched prefill + decode over slot waves
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray            # (S,) int32
+    max_new_tokens: int = 16
+    out_tokens: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class EngineStats:
+    """LM-engine counters on a locked :class:`repro_torch.obs.Registry`.
+
+    The same metric names (``serve.lm.*``) and read properties as the JAX
+    package's; mutations go through the registry's instruments (``m_*``).
+    """
+
+    def __init__(self, registry: obs.Registry | None = None):
+        self.registry = registry if registry is not None else obs.Registry()
+        r = self.registry
+        self.m_waves = r.counter("serve.lm.waves", "LM waves served")
+        self.m_prefill_s = r.counter("serve.lm.prefill_s", "prefill seconds")
+        self.m_decode_s = r.counter("serve.lm.decode_s", "decode seconds")
+        self.m_decode_steps = r.counter("serve.lm.decode_steps", "decode steps run")
+        self.m_idle = r.counter(
+            "serve.lm.idle_token_slots",
+            "finished-request slots still riding decode",
+        )
+
+    @property
+    def waves(self) -> int:
+        return int(self.m_waves.value)
+
+    @property
+    def prefill_s(self) -> float:
+        return self.m_prefill_s.value
+
+    @property
+    def decode_s(self) -> float:
+        return self.m_decode_s.value
+
+    @property
+    def decode_steps(self) -> int:
+        return int(self.m_decode_steps.value)
+
+    @property
+    def idle_token_slots(self) -> int:
+        return int(self.m_idle.value)
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class ServeEngine:
+    """Wave-batched decoding over one :class:`repro_torch.models.DecoderModel`.
+
+    Requests are served in *waves*: up to ``max_batch`` prompts, left-padded
+    with token 0 to one width (no attention mask, positions from 0), go
+    through one batched prefill, then decode together until every request
+    of the wave is done; a finished request keeps riding the wave in a
+    scratch slot (``idle_token_slots``).  Every wave is padded to
+    ``max_batch`` rows and the cache shares one scalar position.  Sampling
+    reads all ``v_pad`` logit columns, so an id ≥ ``vocab_size`` can come
+    out, as in the JAX engine.  The tree-routed MoE archs route through
+    their packed hard tree (K1 on the card) in prefill and decode.
+
+    The engine holds the model's working copy (``model.cast_for_compute()``),
+    made once here: weights in the activation dtype, router and norm scales
+    shared in f32.  A model with a tree router that is not packed is
+    refused; a kernel launch that fails raises out of ``run``.  Greedy
+    sampling is ``argmax``; ``temperature > 0`` samples with a
+    ``torch.Generator`` on the model's device seeded from ``seed``.
+    """
+
+    def __init__(self, model, *, max_batch: int, max_len: int,
+                 temperature: float = 0.0, seed: int = 0,
+                 registry: obs.Registry | None = None,
+                 tracer: obs.Tracer | None = None):
+        unpacked = [r for r in model.tree_routers() if r.packed is None]
+        if unpacked:
+            raise RuntimeError(f"{len(unpacked)} router trees are not packed: load or init the "
+                               "weights (or call model.pack_routers()) before serving")
+        self.model = model.cast_for_compute()
+        self.device = self.model.device
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.temperature = temperature
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.obs = registry if registry is not None else obs.Registry()
+        self.tracer = tracer if tracer is not None else obs.NULL_TRACER
+        self.stats = EngineStats(self.obs)
+
+    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+        if self.temperature <= 0.0:
+            return logits.argmax(dim=-1).cpu().numpy()
+        probs = torch.softmax(logits.float() / self.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self.generator)[:, 0].cpu().numpy()
+
+    def _pad_wave(self, wave: list[Request], pad_to: Optional[int]) -> np.ndarray:
+        lens = {r.prompt.shape[0] for r in wave}
+        width = pad_to or max(lens)
+        toks = np.zeros((self.max_batch, width), np.int32)
+        for i, r in enumerate(wave):
+            p = r.prompt[-width:]
+            toks[i, width - p.shape[0]:] = p      # left-pad
+        return toks
+
+    def run(self, requests: list[Request], *, pad_to: Optional[int] = None) -> list[Request]:
+        """Serve all requests in ``max_batch``-sized waves."""
+        queue = list(requests)
+        while queue:
+            wave, queue = queue[: self.max_batch], queue[self.max_batch:]
+            self._run_wave(wave, pad_to)
+        return requests
+
+    def _tokens(self, toks: np.ndarray) -> dict:
+        return {"tokens": torch.from_numpy(toks).to(self.device)}
+
+    def _run_wave(self, wave: list[Request], pad_to: Optional[int]) -> None:
+        with self.tracer.span("serve.wave", cat="serve", engine="lm", requests=len(wave)):
+            self.stats.m_waves.inc()
+            toks = self._pad_wave(wave, pad_to)
+            t0 = time.perf_counter()
+            with self.tracer.span("serve.prefill", cat="serve", width=toks.shape[1]):
+                logits, cache = self.model.prefill(self._tokens(toks), max_len=self.max_len)
+                _synchronize(self.device)
+            self.stats.m_prefill_s.inc(time.perf_counter() - t0)
+            nxt = self._sample(logits[:, -1, :])
+            for i, r in enumerate(wave):
+                r.out_tokens.append(int(nxt[i]))
+            budget = max(r.max_new_tokens for r in wave)
+            t0 = time.perf_counter()
+            with self.tracer.span("serve.decode", cat="serve") as dspan:
+                steps = 0
+                for _ in range(budget - 1):
+                    live = [r for r in wave if len(r.out_tokens) < r.max_new_tokens]
+                    if not live:
+                        break
+                    step_tok = np.array(
+                        [[r.out_tokens[-1]] for r in wave]
+                        + [[0]] * (self.max_batch - len(wave)),
+                        np.int32,
+                    )
+                    logits, cache = self.model.decode_step(cache, self._tokens(step_tok))
+                    nxt = self._sample(logits[:, -1, :])
+                    self.stats.m_decode_steps.inc()
+                    steps += 1
+                    for i, r in enumerate(wave):
+                        if len(r.out_tokens) < r.max_new_tokens:
+                            r.out_tokens.append(int(nxt[i]))
+                        else:
+                            self.stats.m_idle.inc()
+                _synchronize(self.device)
+                dspan.set(steps=steps)
+            self.stats.m_decode_s.inc(time.perf_counter() - t0)
+            for r in wave:
+                r.done = True
 
 
 # ---------------------------------------------------------------------------

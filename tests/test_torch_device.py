@@ -798,3 +798,104 @@ def test_executor_and_engine_across_distinct_cards_on_card(cuda_device, tmp_path
     assert eng.plan.decomposition == "records" and eng.plan.n_devices > 1
     want = majority_vote(torch.from_numpy(ref[:, :20_000]), 7).numpy()
     assert np.array_equal(np.concatenate([r.out for r in reqs]), want)
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path: the tree router on K1 onehot
+# ---------------------------------------------------------------------------
+
+
+def _lm_smoke(depth: int = 3):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config("granite-moe")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, router_tree_depth=depth))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [3, 4, 6])          # N 15, 31, 127
+@pytest.mark.parametrize("tokens", [4, 512])
+def test_tree_router_launches_k1_onehot_equal_to_plain_on_card(cuda_device, depth, tokens):
+    from repro_torch.models.layers import moe as moel
+
+    cfg = _lm_smoke(depth)
+    n_int = 2**depth - 1
+    g = torch.Generator(device=cuda_device).manual_seed(depth)
+    proj = torch.randn((cfg.d_model, n_int), generator=g, device=cuda_device) * 0.2
+    thr = torch.randn((n_int,), generator=g, device=cuda_device) * 0.1
+    x = torch.randn((1, tokens, cfg.d_model), generator=g, device=cuda_device).to(torch.bfloat16)
+    router = moel.TreeRouter(cfg)
+    router.pack(thr)
+    assert router.packed.n_nodes == 2 ** (depth + 1) - 1
+    K.reset_launches()
+    got = router(x, proj)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["speculative/onehot"] == 1 and sum(K.LAUNCHES.values()) == 1
+    z = moel.router_features(x, proj).reshape(-1, n_int)
+    p = router.packed
+    want = K.speculative_plain(sanitize_records(z), p.attr_idx, p.attr_select, p.threshold, p.child,
+                               p.class_val, total_jumps=_jumps(depth), jump_mode="onehot")
+    assert got.shape == (1, tokens) and torch.equal(got.reshape(-1), want)
+    assert int(got.min()) >= 0 and int(got.max()) < cfg.moe.n_experts
+
+
+@pytest.mark.gpu
+def test_smoke_model_routes_alike_on_card_and_on_cpu(cuda_device):
+    """The same weights on the CPU (K1's plain version) and on the card (K1):
+    the same experts for every token of every layer, logits within 1e-4 (f32
+    on both; cuBLAS and the CPU sum in different orders, a few ulps of
+    logits of magnitude ~4)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config("granite-moe")
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    card.pack_routers()
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 512, size=(4, 33)).astype(np.int32))
+    routes = {"cpu": [], "cuda": []}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        hooks = [r.register_forward_hook(lambda m, a, out, n=name: routes[n].append(out.cpu()))
+                 for r in model.tree_routers()]
+        with torch.no_grad():
+            logits, _ = model({"tokens": toks.to(model.device)}, serve_hard_tree=True)
+        for h in hooks:
+            h.remove()
+        routes[name].append(logits.cpu())
+    *r_cpu, l_cpu = routes["cpu"]
+    *r_card, l_card = routes["cuda"]
+    assert len(r_cpu) == len(r_card) == cfg.n_layers
+    assert all(torch.equal(a, b) for a, b in zip(r_cpu, r_card))
+    torch.testing.assert_close(l_card, l_cpu, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_lm_engine_on_card_raises_and_never_falls_back(cuda_device, monkeypatch):
+    """A CUDA model whose router is not packed is refused; a K1 launch that
+    fails raises out of ServeEngine.run (no plain-version fallback)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServeEngine
+
+    model = build_model(get_smoke_config("granite-moe"), device=cuda_device)
+    with pytest.raises(RuntimeError, match="not packed"):
+        ServeEngine(model, max_batch=2, max_len=16)
+    model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    eng = ServeEngine(model, max_batch=2, max_len=16)
+    reqs = [Request(uid=i, prompt=np.arange(8, dtype=np.int32) + i, max_new_tokens=3) for i in range(2)]
+    K.reset_launches()
+    eng.run(reqs)
+    assert K.LAUNCHES["speculative/onehot"] == model.cfg.n_layers * 3     # prefill + 2 decode steps
+
+    class FailingLibrary:
+        def __getattr__(self, name):
+            if name == "tree_eval_error_string":
+                return lambda err: b"injected failure"
+            return lambda *args: 700       # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(K, "_library", lambda: FailingLibrary())
+    with pytest.raises(RuntimeError, match="k1_speculative launch failed"):
+        eng.run([Request(uid=9, prompt=np.arange(8, dtype=np.int32), max_new_tokens=2)])
