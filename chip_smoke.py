@@ -24,6 +24,27 @@ Phases, each printing its own lines:
    decode step under the profiler (device busy, idle share, time and
    launches by kind), K1 at the router's decode (M 4) and prefill (M 512)
    shapes against its plain version and bound, the step's byte bound;
+2t. lm-train — the LM training path, in a child process of its own after
+   2l (``chip_smoke.py --lm-train``; the two would not fit together):
+   granite-moe-3b-a800m at full width (seed 0, remat "full"), its
+   ``AdamWState`` (memory after each), ``train_loop`` for 6 steps of
+   ``pipeline_for(cfg, ShapeConfig("train", 128, 4, "train"), seed=0)``
+   (one 512-token MoE group a step, ``TrainConfig(lr=3e-4, warmup_steps=1,
+   total_steps=6, ckpt_every=0)``): loss, grad norm, lr, step ms and
+   tokens/s a step, peak memory; every number finite, step 0's loss equal
+   to ``model.loss`` on batch 0 just before it within 1e-5, and the loss on
+   batch 0 lower after the steps; one step under the profiler (device busy,
+   idle share, launches, device time by kind: GEMMs, dispatch/combine
+   einsums, MoE elementwise, attention, loss, optimizer); then, the
+   optimizer state freed, the trained routers (stale until
+   ``pack_routers``) serve one prefill and 4 decode steps: K1 onehot
+   launched once a layer a step (160) and no other kernel, every route
+   ``torch.equal`` to K1's plain version and to ``hard_tree_route`` with
+   routers packed fresh from the trained thresholds; at the smoke width
+   (f32) one train step on the card against the CPU port within 1e-5, and
+   the fault-tolerant loop (checkpoints every 2 steps, a
+   ``SimulatedFailure`` at step 3) replaying an uninterrupted run's losses
+   within 1e-5;
 3. kernels against plain versions — K1 (gather, onehot), K2, K3 (gather,
    onehot) and K4 on adversarial records (ties, ±inf, NaN) and trees of depth
    0–9 (one with N > 128), M ∈ {1, 7, 65,536}; K5 (gather, onehot) and K6 on
@@ -131,7 +152,9 @@ over phase 6f, where K3 gather, K4, K5 in both forms, K6, and K7/K8 must
 launch (the phase prints them by part: served waves, re-tune candidates,
 anytime stages, shard bodies, the chunker), and in phase 2l's own window
 over its served run, where K1 onehot must launch 2,048 times and no other
-kernel.  The ``kernels`` line's ``launches`` is the sum of the four windows.  Any mismatch, missing launch
+kernel, and in phase 2t's over the serve from the trained weights (160 K1
+onehot launches).  The ``kernels`` line's ``launches`` is the sum of the
+five windows.  Any mismatch, missing launch
 or exception exits non-zero.
 """
 
@@ -1910,23 +1933,20 @@ def lm_dropped(experts: torch.Tensor, moe, e_pad: int) -> tuple[int, int]:
     return int((counts - cap).clamp(min=0).sum()), n * g * moe.top_k
 
 
-def lm_step_breakdown(step, card) -> None:
-    """One decode step under the profiler (CPU and CUDA): device busy, idle
-    share, device time by kind and the device events a step launches.
+def lm_profiled_kinds(step, ranges) -> tuple[float, list, dict]:
+    """``step()`` once warm, then once under the profiler (CPU and CUDA), with
+    a ``record_function`` range opened around each function of ``ranges``
+    ((module, attribute, label or label(*args))) for that step only.
 
-    K1 is told by its kernel name; the other kinds by the op that launched
-    each kernel (the profiler attaches a kernel to its launching op) and the
-    ranges this function opens, for this step only, around
-    ``attention._grouped_attention`` (attention), ``moe.moe_apply`` (the MoE
-    layer) and ``torch.einsum`` (the dispatch and combine einsums by their
-    equations).  The ranges' own mirrors on the device timeline are not
+    Returns (host wall ms, the device events, {kind: (ms, kernels)}).  K1 is
+    told by its kernel name; every other kernel by the op that launched it
+    (the profiler attaches a kernel to its launching op) and the ranges
+    around that op; a kernel of the backward pass also by the ranges around
+    the forward op its autograd node came from (matched by sequence number
+    and thread).  The ranges' own mirrors on the device timeline are not
     device work and are left out.
     """
     from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.models.layers import attention as lm_attn
-    from repro_torch.models.layers import moe as lm_moe
-
-    real = (torch.einsum, lm_attn._grouped_attention, lm_moe.moe_apply)
 
     def ranged(label, fn):
         def run(*args, **kw):
@@ -1937,9 +1957,9 @@ def lm_step_breakdown(step, card) -> None:
 
     step()
     torch.cuda.synchronize()
-    torch.einsum = ranged(lambda eq, *_: f"lm.einsum {eq}", real[0])
-    lm_attn._grouped_attention = ranged("lm.attention", real[1])
-    lm_moe.moe_apply = ranged("lm.moe", real[2])
+    real = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in ranges]
+    for (mod, attr, fn), (_, _, label) in zip(real, ranges):
+        setattr(mod, attr, ranged(label, fn))
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1947,22 +1967,38 @@ def lm_step_breakdown(step, card) -> None:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
     finally:
-        torch.einsum, lm_attn._grouped_attention, lm_moe.moe_apply = real
+        for mod, attr, fn in real:
+            setattr(mod, attr, fn)
     events = prof.events()
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False) and not e.key.startswith("lm.")]
-    check(len(device) > 0, "the profiler saw no device event in the decode step")
-    busy = union_length([(e.time_range.start, e.time_range.end) for e in device]) / 1e3
-    total = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    check(len(device) > 0, "the profiler saw no device event in the profiled step")
     k1 = [e for e in device if "speculative_kernel" in e.key]
     kinds = {"K1": (sum(e.time_range.elapsed_us() for e in k1) / 1e3, len(k1))}
+    forward = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and e.sequence_nr >= 0 \
+                and not e.name.startswith("autograd::engine"):
+            forward.setdefault((e.thread, e.sequence_nr), e)
+
+    def chain(node):
+        nodes = []
+        while node is not None:
+            nodes.append(node)
+            node = node.cpu_parent
+        return nodes
+
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
             continue
-        labels, node = [], e
-        while node is not None:
-            labels.append(node.name)
-            node = node.cpu_parent
+        nodes = chain(e)
+        grad = next((n for n in nodes if n.name.startswith("autograd::engine::evaluate_function")), None)
+        # a kernel inside a range is forward work (a recompute in the backward
+        # pass too); one outside every range belongs to its autograd node
+        if not any(n.name.startswith("lm.") for n in nodes) and grad is not None \
+                and (grad.fwd_thread, grad.sequence_nr) in forward:
+            nodes += chain(forward[(grad.fwd_thread, grad.sequence_nr)])
+        labels = [n.name for n in nodes]
         for kern in e.kernels:
             if "speculative_kernel" in kern.name:
                 continue
@@ -1974,18 +2010,42 @@ def lm_step_breakdown(step, card) -> None:
                 kind = "GEMMs"
             elif "Memcpy" in kern.name or "Memset" in kern.name:
                 kind = "copies"
+            elif "lm.optimizer" in labels:
+                kind = "optimizer (AdamW, clipping)"
+            elif "lm.loss" in labels:
+                kind = "loss (masked softmax, gold logit, sums)"
             elif "lm.moe" in labels:
                 kind = "elementwise in the MoE (routing, dispatch/combine build)"
             else:
                 kind = "elementwise outside the MoE"
             ms, n = kinds.get(kind, (0.0, 0))
             kinds[kind] = (ms + kern.duration / 1e3, n + 1)
+    return wall, device, kinds
+
+
+def kinds_line(wall: float, device: list, kinds: dict) -> str:
+    busy = union_length([(e.time_range.start, e.time_range.end) for e in device]) / 1e3
+    total = sum(e.time_range.elapsed_us() for e in device) / 1e3
     seen = sum(n for _, n in kinds.values())
     parts = "; ".join(f"{k} {ms:.4f} ms x{n}" for k, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]))
-    print(f"[lm-serve] {card}: one decode step (B {LM_BATCH}) under the profiler: host wall {wall:.3f} ms, "
-          f"device busy {busy:.4f} ms, idle share {1 - busy / wall:.1%}; {len(device)} device events "
-          f"(launches) a step, {total:.4f} ms of device time; by kind: {parts} ({seen} kernels placed by "
-          f"the op that launched them)")
+    return (f"host wall {wall:.3f} ms, device busy {busy:.4f} ms, idle share {1 - busy / wall:.1%}; "
+            f"{len(device)} device events (launches) a step, {total:.4f} ms of device time; by kind: {parts} "
+            f"({seen} kernels placed by the op that launched them)")
+
+
+def lm_step_breakdown(step, card) -> None:
+    """One decode step under the profiler (:func:`lm_profiled_kinds`), with
+    ranges around ``attention._grouped_attention`` (attention),
+    ``moe.moe_apply`` (the MoE layer) and ``torch.einsum`` (the dispatch and
+    combine einsums by their equations)."""
+    from repro_torch.models.layers import attention as lm_attn
+    from repro_torch.models.layers import moe as lm_moe
+
+    wall, device, kinds = lm_profiled_kinds(step, [
+        (torch, "einsum", lambda eq, *_: f"lm.einsum {eq}"),
+        (lm_attn, "_grouped_attention", "lm.attention"),
+        (lm_moe, "moe_apply", "lm.moe")])
+    print(f"[lm-serve] {card}: one decode step (B {LM_BATCH}) under the profiler: {kinds_line(wall, device, kinds)}")
 
 
 def phase_lm_serve(dev, card, cfg=None) -> dict:
@@ -2196,23 +2256,286 @@ def phase_lm_serve(dev, card, cfg=None) -> dict:
     return {"k1_onehot_launches": launches["speculative/onehot"], "max_abs_err": err}
 
 
-def run_lm_serve_child(card) -> dict:
-    """Phase 2l in a process of its own (``chip_smoke.py --lm-serve``): its
-    21 GiB of weights are freed when it ends, and its profiler sessions do
-    not count against the later phases' (a process's late sessions lose
-    kernels).  Its lines are printed here; its result line is parsed."""
+# ---------------------------------------------------------------------------
+# phase 2t: the LM training path (loss → AdamW → train_loop), then serving
+# the trained weights through K1
+# ---------------------------------------------------------------------------
+
+
+LM_TRAIN_STEPS, LM_TRAIN_SEQ, LM_TRAIN_BATCH = 6, 128, 4     # B 4 × S 128: one 512-token MoE group
+LM_TRAIN_DECODE = 4
+LM_TRAIN_TOL = 1e-5
+LM_RESTART_STEPS, LM_RESTART_EVERY, LM_RESTART_FAIL = 8, 2, 3
+LM_TRAIN_RESULT = "[lm-train] result "
+LM_TRAIN_TIMEOUT_S = 900
+
+
+def lm_train_ranges():
+    """The profiler ranges of a train step: the serve step's, each block, and
+    the loss and the optimizer (patched where the train path looks them up)."""
+    from repro_torch.models import lm as lm_model
+    from repro_torch.models.layers import attention as lm_attn
+    from repro_torch.models.layers import moe as lm_moe
+    from repro_torch.train import step as lm_step
+    from repro_torch.utils import losses as lm_losses
+
+    return [(lm_model.Block, "forward", "lm.block"),                # every block's work, recomputed too
+            (torch, "einsum", lambda eq, *_: f"lm.einsum {eq}"),
+            (lm_attn, "_grouped_attention", "lm.attention"),
+            (lm_moe, "moe_apply", "lm.moe"),
+            (lm_model, "chunked_softmax_xent", "lm.loss"),
+            (lm_losses, "_chunk_sums", "lm.loss"),       # the chunks' recompute in the backward pass
+            (lm_step, "adamw_apply", "lm.optimizer")]
+
+
+def close_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got − want| / (|want| + max |want|) (the CPU tests' comparison)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    return float(((got - want).abs() / (want.abs() + scale + 1e-30)).max()) if want.numel() else 0.0
+
+
+def lm_train_card_vs_cpu(dev, card) -> float:
+    """One train step of the f32 smoke model on the card and on the CPU, from
+    the same weights, batch and optimizer state: loss, grad norm, lr, every
+    parameter and moment.  Returns the largest relative difference."""
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_smoke_config
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import device_batch, make_train_step
+
+    cfg = get_smoke_config("granite-moe")
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    pipe = pipeline_for(cfg, ShapeConfig("train", 32, 2, "train"), seed=0)
+    runs, start = [], None
+    for where in ("cpu", dev):
+        model = build_model(cfg, device=where)
+        if start is None:
+            model.init(torch.Generator(device="cpu").manual_seed(0))
+            start = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(start)
+        opt = adamw_init(model)
+        model, opt, metrics = make_train_step(model, tcfg)(model, opt, device_batch(pipe(0), where))
+        runs.append((model, opt, metrics))
+    (cm, co, cmet), (gm, go, gmet) = runs
+    errs = {k: (close_rel(gmet[k], cmet[k]), "") for k in cmet}
+    named = dict(cm.named_parameters())
+    for n, p in gm.named_parameters():
+        for kind, got, want in (("params", p, named[n]), ("m", go.m[n], co.m[n]), ("v", go.v[n], co.v[n])):
+            errs[kind] = max(errs.get(kind, (0.0, "")), (close_rel(got, want), f" ({n})"))
+    worst = max(e for e, _ in errs.values())
+    print(f"[lm-train] {card}: one train step of {cfg.name} (f32, B 2 x S 32) on the card against the CPU port "
+          f"from the same weights: largest relative difference "
+          + ", ".join(f"{k} {v:.3g}{at}" for k, (v, at) in errs.items())
+          + f" (tolerance {LM_TRAIN_TOL}: |card - cpu| <= tol * (|cpu| + max |cpu|) a tensor)")
+    check(worst <= LM_TRAIN_TOL, f"the card's train step differs from the CPU's by {worst}")
+    return worst
+
+
+def lm_train_restart(dev, card) -> None:
+    """The fault-tolerant loop on the card at smoke width: checkpoints every
+    2 steps, a ``SimulatedFailure`` at step 3, the restore reading the
+    checkpoint in place; the replayed losses against an uninterrupted run's."""
+    import tempfile
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_smoke_config
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import LoopState, SimulatedFailure, device_batch, make_train_step, train_loop
+
+    cfg = get_smoke_config("granite-moe")
+    pipe = pipeline_for(cfg, ShapeConfig("train", 32, 2, "train"), seed=0)
+    batches = lambda i: device_batch(pipe(i), dev)   # noqa: E731
+    reports = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for every, fail in ((0, None), (LM_RESTART_EVERY, LM_RESTART_FAIL)):
+            tcfg = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=LM_RESTART_STEPS, ckpt_every=every,
+                               ckpt_dir=os.path.join(tmp, f"ckpt_{every}"))
+            model = build_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+            state = LoopState(model=model, opt_state=adamw_init(model), step=0)
+            fired = []
+
+            def injector(i, fail=fail, fired=fired):
+                if i == fail and not fired:
+                    fired.append(i)
+                    raise SimulatedFailure(f"injected at step {i}")
+
+            def restore_fn(last, state=state, tcfg=tcfg):
+                ckpt.restore(tcfg.ckpt_dir, last, {"params": state.model, "opt": state.opt_state})
+                return LoopState(model=state.model, opt_state=state.opt_state, step=last)
+
+            _, report = train_loop(state, make_train_step(model, tcfg), batches, tcfg,
+                                   failure_injector=injector, restore_fn=restore_fn)
+            reports.append(report)
+    clean, faulty = reports
+    resumed = LM_RESTART_FAIL - (LM_RESTART_FAIL % LM_RESTART_EVERY)     # the latest checkpoint's step
+    want = clean.losses[:LM_RESTART_FAIL] + clean.losses[resumed:]
+    err = max(abs(a - b) / abs(b) for a, b in zip(faulty.losses, want)) if len(want) == len(faulty.losses) else 1.0
+    print(f"[lm-train] {card}: restart at smoke width: checkpoints every {LM_RESTART_EVERY} steps, a "
+          f"SimulatedFailure at step {LM_RESTART_FAIL}, restored from step {resumed}: restarts {faulty.restarts}, "
+          f"final step {faulty.final_step}, {len(faulty.losses)} losses (steps 0-{LM_RESTART_FAIL - 1}, then "
+          f"{resumed}-{LM_RESTART_STEPS - 1} again); largest relative difference from the uninterrupted run "
+          f"{err:.3g} (rtol {LM_TRAIN_TOL}: sums that atomics accumulate on the card need not repeat bit for bit)")
+    check(faulty.restarts == 1 and faulty.final_step == LM_RESTART_STEPS and clean.restarts == 0,
+          f"restarts {faulty.restarts}, final step {faulty.final_step}")
+    check(err <= LM_TRAIN_TOL, f"the replayed losses differ from the uninterrupted run's by {err}")
+
+
+def phase_lm_train(dev, card, cfg=None) -> dict:
+    """The LM training path at granite-moe-3b-a800m's full width; see the
+    module docstring (phase 2t).  Returns K1 onehot's launches in the window
+    of the serve from the trained weights and the largest disagreement of a
+    captured route with K1's plain version."""
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import moe as lm_moe
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import LoopState, device_batch, make_train_step, train_loop
+
+    t_phase = time.perf_counter()
+    cfg = cfg or get_config(LM_ARCH)
+    moe, depth = cfg.moe, cfg.moe.tree_depth()
+    n_int = 2**depth - 1
+    gib = 2.0**30
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    built = sum(p.numel() for p in model.parameters())
+    print(f"[lm-train] {cfg.name} at full width: {cfg.n_layers} layers, remat {model.parallel.remat!r}, "
+          f"{built:,} f32 parameters (seed 0); {card}: memory allocated {torch.cuda.memory_allocated() / gib:.3f} GiB")
+    opt = adamw_init(model)
+    torch.cuda.synchronize()
+    print(f"[lm-train] {card}: with the AdamWState (m, v in f32): memory allocated "
+          f"{torch.cuda.memory_allocated() / gib:.3f} GiB")
+
+    tcfg = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=LM_TRAIN_STEPS, ckpt_every=0)
+    pipe = pipeline_for(cfg, ShapeConfig("train", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train"), seed=0)
+    batches = lambda i: device_batch(pipe(i), dev)   # noqa: E731
+    batch0 = batches(0)
+    with torch.no_grad():
+        before, _ = model.loss(batch0)
+    before = float(before)
+
+    train_step = make_train_step(model, tcfg)
+    seen = []
+
+    def step(m, o, b):
+        out = train_step(m, o, b)
+        torch.cuda.synchronize()
+        seen.append(out[2])
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    state, report = train_loop(LoopState(model=model, opt_state=opt, step=0), step, batches, tcfg)
+    peak = torch.cuda.max_memory_allocated() / gib
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    for i, (metrics, dt) in enumerate(zip(seen, report.step_times)):
+        vals = {k: float(v) for k, v in metrics.items()}
+        check(all(np.isfinite(v) for v in vals.values()), f"step {i}: {vals}")
+        print(f"[lm-train] {card}: step {i}: loss {vals['loss']:.6f} (nll {vals['nll']:.6f}, aux {vals['aux']:.6f}), "
+              f"grad norm {vals['grad_norm']:.6f}, lr {vals['lr']:.6g}, {dt * 1e3:.1f} ms (host clock, after "
+              f"synchronize), {tokens / dt:,.0f} tokens/s")
+    with torch.no_grad():
+        after, _ = model.loss(batch0)
+    after = float(after)
+    err0 = abs(report.losses[0] - before) / abs(before)
+    steady = report.step_times[1:]
+    print(f"[lm-train] {card}: {LM_TRAIN_STEPS} steps of B {LM_TRAIN_BATCH} x S {LM_TRAIN_SEQ}: steady mean "
+          f"{np.mean(steady) * 1e3:.1f} ms a step, min {min(steady) * 1e3:.1f} ms, first {report.step_times[0] * 1e3:.1f} ms; "
+          f"{tokens / np.mean(steady):,.0f} tokens/s; peak memory {peak:.3f} GiB during the steps; loss on batch 0 "
+          f"{before:.6f} before, {after:.6f} after; step 0 reported {report.losses[0]:.6f} (relative difference "
+          f"{err0:.3g} from model.loss just before it)")
+    check(report.final_step == LM_TRAIN_STEPS and report.restarts == 0, f"final step {report.final_step}")
+    check(err0 <= LM_TRAIN_TOL, f"step 0's loss {report.losses[0]} is not model.loss {before}")
+    check(np.isfinite(after) and after < before, f"the loss on batch 0 did not fall: {before} -> {after}")
+
+    wall, device, kinds = lm_profiled_kinds(lambda: train_step(model, opt, batches(LM_TRAIN_STEPS)),
+                                            lm_train_ranges())
+    print(f"[lm-train] {card}: one train step (B {LM_TRAIN_BATCH} x S {LM_TRAIN_SEQ}, forward + block "
+          f"recompute + backward + AdamW) under the profiler: {kinds_line(wall, device, kinds)}")
+
+    # serve from the trained weights: the routers' thresholds moved
+    del opt, state
+    stale = sum(r.stale for r in model.tree_routers())
+    check(stale == cfg.n_layers, f"{stale} of {cfg.n_layers} routers stale after training")
+    print(f"[lm-train] after training {stale} of {cfg.n_layers} routers are stale (router_thr moved); "
+          f"DecoderModel.pack_routers() packs them again")
+    model.pack_routers()
+    work = model.cast_for_compute()
+    captured = []
+    hooks = [r.register_forward_hook(lambda r, a, out: captured.append((r, a[0], a[1], out)))
+             for r in work.tree_routers()]
+    toks = batch0["tokens"]
+    K.reset_launches()
+    try:
+        logits, cache = work.prefill({"tokens": toks}, max_len=LM_TRAIN_SEQ + LM_TRAIN_DECODE + 1)
+        for _ in range(LM_TRAIN_DECODE):
+            tok = logits[:, -1].argmax(-1, keepdim=True).int()
+            logits, cache = work.decode_step(cache, {"tokens": tok})
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    launches = dict(K.LAUNCHES)
+    expect = cfg.n_layers * (1 + LM_TRAIN_DECODE)
+    check(launches["speculative/onehot"] == expect and sum(launches.values()) == expect,
+          f"serving the trained weights launched {launches}, not K1 onehot {expect} times")
+    check(len(captured) == expect and bool(torch.isfinite(logits).all()), f"{len(captured)} routes captured")
+    err, fresh_equal = 0, 0
+    for i, (router, h2, proj, experts) in enumerate(captured):
+        z = lm_moe.router_features(h2, proj).reshape(-1, n_int)
+        p = router.packed
+        plain = K.speculative_plain(sanitize_records(z), p.attr_idx, p.attr_select, p.threshold, p.child,
+                                    p.class_val, total_jumps=ops._total_jumps(p.max_depth), jump_mode="onehot")
+        got = experts.reshape(-1)
+        check(torch.equal(got, plain), f"route {i}: K1 routed {int((got != plain).sum())} tokens otherwise than plain")
+        err = max(err, max_abs_err(got, plain))
+        layer = model.layers[i % cfg.n_layers]
+        fresh = lm_moe.pack_router(cfg, layer.moe.router_thr.detach().clone())
+        want = lm_moe.hard_tree_route({"router_proj": proj}, h2, cfg=cfg, e_pad=lm_moe.padded_experts(moe),
+                                      packed=fresh)
+        check(torch.equal(experts, want), f"route {i}: the trained router routes otherwise than a fresh pack")
+        fresh_equal += 1
+    print(f"[lm-train] served the trained weights ({cfg.dtype} working copy): one prefill (B {LM_TRAIN_BATCH} x "
+          f"S {LM_TRAIN_SEQ}) and {LM_TRAIN_DECODE} decode steps: K1 onehot launched {launches['speculative/onehot']} "
+          f"times ({cfg.n_layers} layers x {1 + LM_TRAIN_DECODE}), no other kernel; all {len(captured)} routes "
+          f"torch.equal to K1's plain version on the same z and to hard_tree_route with routers packed fresh from "
+          f"the trained router_thr ({fresh_equal})")
+    del work, cache, logits, model
+    torch.cuda.empty_cache()
+
+    lm_train_card_vs_cpu(dev, card)
+    lm_train_restart(dev, card)
+    print(f"[lm-train] phase took {time.perf_counter() - t_phase:.1f} s on the host of {card}")
+    return {"k1_onehot_launches": launches["speculative/onehot"], "max_abs_err": err}
+
+
+def run_lm_child(card, flag: str, result_prefix: str, timeout_s: int) -> dict:
+    """One LM phase in a process of its own (``chip_smoke.py --lm-serve`` or
+    ``--lm-train``): its weights are freed when it ends, and its profiler
+    sessions do not count against the later phases' (a process's late
+    sessions lose kernels).  Its lines are printed here; its result line is
+    parsed."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--lm-serve"],
-                          stdout=subprocess.PIPE, text=True, timeout=LM_TIMEOUT_S)
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), flag],
+                          stdout=subprocess.PIPE, text=True, timeout=timeout_s)
     result = None
+    tag = result_prefix.split()[0]
     for line in proc.stdout.splitlines():
-        if line.startswith(LM_RESULT):
-            result = json.loads(line[len(LM_RESULT):])
+        if line.startswith(result_prefix):
+            result = json.loads(line[len(result_prefix):])
         else:
             print(line)
     check(proc.returncode == 0 and result is not None,
-          f"the [lm-serve] phase exited with {proc.returncode} after {time.perf_counter() - t0:.1f} s")
-    print(f"[lm-serve] child process took {time.perf_counter() - t0:.1f} s on the host of {card}")
+          f"the {tag} phase exited with {proc.returncode} after {time.perf_counter() - t0:.1f} s")
+    print(f"{tag} child process took {time.perf_counter() - t0:.1f} s on the host of {card}")
     return result
 
 
@@ -2250,6 +2573,8 @@ def main() -> None:
                         help="earlier checkouts whose kernels to time in turns with this tree's, one after another")
     parser.add_argument("--lm-serve", action="store_true",
                         help="run phase 2l (the LM serving path) alone; the full run starts it so, in a child")
+    parser.add_argument("--lm-train", action="store_true",
+                        help="run phase 2t (the LM training path) alone; the full run starts it so, in a child")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -2261,6 +2586,10 @@ def main() -> None:
         _build.build(K.SOURCE)
         print(LM_RESULT + json.dumps(phase_lm_serve(dev, card)))
         return
+    if args.lm_train:
+        _build.build(K.SOURCE)
+        print(LM_TRAIN_RESULT + json.dumps(phase_lm_train(dev, card)))
+        return
     print(f"[device] {kind}; nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
@@ -2268,7 +2597,8 @@ def main() -> None:
     print(f"[build] {_build.library_path(K.SOURCE).name} in {time.perf_counter() - t0:.1f} s on the host of {card}")
     for line in ptxas_lines(report):
         print(f"[build] {line}")
-    lm = run_lm_serve_child(card)
+    lm = run_lm_child(card, "--lm-serve", LM_RESULT, LM_TIMEOUT_S)
+    lm_train = run_lm_child(card, "--lm-train", LM_TRAIN_RESULT, LM_TRAIN_TIMEOUT_S)
 
     errs = phase_kernels(dev)
     errs |= phase_quant_kernels(dev)
@@ -2348,8 +2678,8 @@ def main() -> None:
         print(f"[parent] {root}")
         phase_parent(dev, images[0], enc, forest, plan, second, layouts, root, card)
     check(len(timings) == len(K.LAUNCHES), f"timed {len(timings)} kernels, not {len(K.LAUNCHES)}")
-    launches["speculative/onehot"] += lm["k1_onehot_launches"]
-    errs["speculative/onehot"] = max(errs["speculative/onehot"], lm["max_abs_err"])
+    launches["speculative/onehot"] += lm["k1_onehot_launches"] + lm_train["k1_onehot_launches"]
+    errs["speculative/onehot"] = max(errs["speculative/onehot"], lm["max_abs_err"], lm_train["max_abs_err"])
     kernels = []
     for row in timings:
         wrapper = row["name"].split("/")[0]

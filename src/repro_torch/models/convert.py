@@ -10,6 +10,9 @@ anyone moving trained weights) carry the JAX package's parameters across:
 layers stacked (L, …); each stacked leaf is split along axis 0 into the
 model's ``ModuleList``.  Every leaf's path and shape is checked against the
 model's schema, and the routers are packed again from the new thresholds.
+
+:func:`load_jax_opt_state` carries a JAX ``AdamWState`` across the same
+way, so both packages can start training from one optimizer state.
 """
 
 from __future__ import annotations
@@ -37,6 +40,28 @@ def _paths(tree: dict, prefix: str = "") -> set[str]:
     return out
 
 
+def _check_tree(model, tree: dict) -> dict:
+    """The schema's leaves by path, after checking ``tree`` has exactly them."""
+    schema = dict(sch.leaves(model.schema()))
+    missing = sorted(set(schema) - _paths(tree))
+    extra = sorted(_paths(tree) - set(schema))
+    if missing or extra:
+        raise ValueError(f"JAX tree does not match the model: missing {missing}, unexpected {extra}")
+    return schema
+
+
+def _split(model, tree: dict, path: str, spec) -> list[tuple[str, torch.Tensor]]:
+    """(parameter name, f32 CPU tensor) of one JAX leaf, split by layer when stacked."""
+    arr = np.asarray(_leaf(tree, path))
+    if tuple(arr.shape) != tuple(spec.shape):
+        raise ValueError(f"{path}: JAX leaf has shape {arr.shape}, the model {spec.shape}")
+    src = torch.tensor(arr, dtype=torch.float32)
+    if path.startswith("layers."):
+        rest = path[len("layers."):]
+        return [(f"layers.{i}.{rest}", src[i]) for i in range(len(model.layers))]
+    return [(path, src)]
+
+
 @torch.no_grad()
 def load_jax_params(model, tree: dict):
     """Copy ``tree`` (the JAX parameters as numpy) into ``model`` in place.
@@ -44,21 +69,28 @@ def load_jax_params(model, tree: dict):
     Raises ``ValueError`` on a missing or unexpected leaf or a shape that
     differs from the schema's.  Returns ``model``.
     """
-    schema = dict(sch.leaves(model.schema()))
-    missing = sorted(set(schema) - _paths(tree))
-    extra = sorted(_paths(tree) - set(schema))
-    if missing or extra:
-        raise ValueError(f"JAX tree does not match the model: missing {missing}, unexpected {extra}")
-    for path, spec in schema.items():
-        arr = np.asarray(_leaf(tree, path))
-        if tuple(arr.shape) != tuple(spec.shape):
-            raise ValueError(f"{path}: JAX leaf has shape {arr.shape}, the model {spec.shape}")
-        src = torch.tensor(arr, dtype=torch.float32)
-        params = model.layer_params(path)
-        if path.startswith("layers."):
-            for i, p in enumerate(params):
-                p.copy_(src[i])
-        else:
-            params[0].copy_(src)
+    named = dict(model.named_parameters())
+    for path, spec in _check_tree(model, tree).items():
+        for name, src in _split(model, tree, path, spec):
+            named[name].copy_(src)
     model.pack_routers()
     return model
+
+
+def load_jax_opt_state(model, state):
+    """The port's ``AdamWState`` for ``model`` from a JAX ``AdamWState``
+    (``m``, ``v``: parameter trees as numpy, ``count``), on the model's
+    device; stacked moments are split by layer as :func:`load_jax_params`
+    splits the weights.  Raises ``ValueError`` as that function does."""
+    from repro_torch.optim.adamw import AdamWState
+
+    m_tree, v_tree, count = state
+    dev = model.device
+    moments = []
+    for tree in (m_tree, v_tree):
+        schema = _check_tree(model, tree)
+        moments.append({name: src.to(dev) for path, spec in schema.items()
+                        for name, src in _split(model, tree, path, spec)})
+    order = [name for name, _ in model.named_parameters()]
+    m, v = ({name: mom[name] for name in order} for mom in moments)
+    return AdamWState(m=m, v=v, count=torch.tensor(int(np.asarray(count)), dtype=torch.int32, device=dev))

@@ -18,8 +18,11 @@ Routing options
 The hardened tables are packed once, when weights are loaded
 (:meth:`TreeRouter.pack`), where the JAX code rebuilds them in every traced
 call: eager torch would pay a host build and a host-to-device copy per layer
-per step.  ``z = x @ router_proj`` stays a full-f32 product (no TF32): a
-TF32 ``z`` would route tokens differently.
+per step.  A pack records the version of the ``router_thr`` tensor it was
+built from; once training (or any in-place write) moves the thresholds, the
+router raises instead of routing on stale tables, until it is packed again.
+``z = x @ router_proj`` stays a full-f32 product (no TF32): a TF32 ``z``
+would route tokens differently.
 
 Dispatch
 --------
@@ -159,23 +162,39 @@ class TreeRouter(nn.Module):
     ``forward(x, router_proj)`` takes the layer's normed hidden state
     (``h2``, grouped) and returns its expert ids.  It holds the packed
     router tables (:meth:`pack`), built once when weights are loaded and
-    never rebuilt behind the caller's back: a missing pack raises, and after
-    changing ``router_thr`` the owner must pack again
-    (``DecoderModel.pack_routers``).
+    never rebuilt behind the caller's back: a missing pack raises, and so
+    does a stale one (``router_thr`` written since the pack); the owner packs
+    again (``DecoderModel.pack_routers``).
     """
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
         self.packed: Optional[ops.PackedTree] = None
+        # (the thresholds packed from, their version then): a tuple, so that
+        # the parameter is not registered on this module too
+        self._source: Optional[tuple[torch.Tensor, int]] = None
 
     def pack(self, router_thr: torch.Tensor) -> None:
         self.packed = pack_router(self.cfg, router_thr)
+        self._source = (router_thr, router_thr._version)
+
+    def share_pack(self, other: "TreeRouter") -> None:
+        """Route with ``other``'s tables (a working copy sharing its thresholds)."""
+        self.packed, self._source = other.packed, other._source
+
+    @property
+    def stale(self) -> bool:
+        """True when the thresholds were written after the pack (an optimizer step)."""
+        return self._source is not None and self._source[0]._version != self._source[1]
 
     def forward(self, x: torch.Tensor, router_proj: torch.Tensor) -> torch.Tensor:
         if self.packed is None:
             raise RuntimeError("the router tree is not packed: load or init the weights "
                                "(or call DecoderModel.pack_routers()) first")
+        if self.stale:
+            raise RuntimeError("router_thr changed since the router tree was packed (a training step?): "
+                               "call DecoderModel.pack_routers() before routing hard")
         return hard_tree_route({"router_proj": router_proj}, x, cfg=self.cfg,
                                e_pad=padded_experts(self.cfg.moe), packed=self.packed)
 

@@ -13,18 +13,31 @@ The port's counterpart of the JAX package's ``models/lm.py``:
   * full-sequence attention is blockwise past one KV block;
   * decode writes the stacked KV cache in place.
 
-Modes: ``forward`` (teacher-forced logits), ``prefill`` (forward + cache),
-``decode_step`` (one token against the cache).  ``loss`` waits for the
-losses port; the ``hybrid`` family (SSM) is not ported.
+Modes: ``forward`` (teacher-forced logits), ``loss`` (the chunked
+cross-entropy plus the MoE aux loss, for training), ``prefill`` (forward +
+cache), ``decode_step`` (one token against the cache).  The ``hybrid``
+family (SSM) is not ported.
+
+Rematerialization follows ``ParallelConfig.remat`` block by block, as the
+JAX package's ``_remat`` wraps its scanned layer body, and only while grad
+is enabled (the serving paths run under ``no_grad`` and never checkpoint):
+``"none"`` saves every activation, ``"full"`` (the default) recomputes each
+block in the backward pass (non-reentrant ``torch.utils.checkpoint``),
+``"dots"`` saves the blocks' matmul outputs (``aten.mm``: the products with
+no batch dims, as JAX's ``dots_with_no_batch_dims_saveable``) and recomputes
+the rest.  ``"offload"`` (residuals to pinned host memory) is not ported
+(ROADMAP.md §1 item 5).  Remat changes no number.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch import _device
 from repro_torch.configs.base import ModelConfig, ParallelConfig
@@ -34,8 +47,15 @@ from repro_torch.models.layers.mlp import MLP, RMSNorm, rmsnorm_schema, mlp_sche
 from repro_torch.models.layers.moe import MoE, TreeRouter, moe_schema
 from repro_torch.models.layers.rope import positions_for
 from repro_torch.parallel.sharding import pad_vocab
+from repro_torch.utils.losses import chunked_softmax_xent
 
 FAMILIES = ("dense", "moe", "vlm")
+REMAT_MODES = ("none", "full", "dots", "offload")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of products with no batch dims."""
+    return CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class DecodeCache(NamedTuple):
@@ -152,7 +172,8 @@ class DecoderModel(nn.Module):
         return [m for m in self.modules() if isinstance(m, TreeRouter)]
 
     def pack_routers(self) -> None:
-        """Harden and pack every layer's router tree (after a change of weights)."""
+        """Harden and pack every layer's router tree (after a change of weights:
+        a router whose ``router_thr`` changed since its pack refuses to route)."""
         for layer in self.layers:
             if self.cfg.moe is not None:
                 layer.moe.pack_router()
@@ -170,7 +191,7 @@ class DecoderModel(nn.Module):
         work.load_state_dict(sch.cast_for_compute(self.state_dict(), cfg.act_dtype), assign=True)
         work.requires_grad_(False)
         for mine, theirs in zip(work.tree_routers(), self.tree_routers()):
-            mine.packed = theirs.packed
+            mine.share_pack(theirs)
         return work
 
     @property
@@ -196,7 +217,9 @@ class DecoderModel(nn.Module):
         if cfg.embeds_input:
             x = batch["embeds"].to(cfg.act_dtype)
         else:
-            x = self.embed_table[batch["tokens"].long()].to(cfg.act_dtype)
+            # the table is cast before the gather, as in JAX: in training the
+            # gradient then accumulates repeated tokens in the activation dtype
+            x = self.embed_table.to(cfg.act_dtype)[batch["tokens"].long()]
         b, s = x.shape[:2]
         positions = batch.get("positions")
         if positions is None and cfg.rope_style != "none":
@@ -204,19 +227,35 @@ class DecoderModel(nn.Module):
         return x, positions
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        if self.cfg.tie_embeddings:
-            w = self.embed_table.to(x.dtype).T
-        else:
-            w = self.lm_head.w.to(x.dtype)
-        return x @ w
+        return x @ self._out_w(x.dtype)
+
+    def _remat(self, fn):
+        """``fn`` (one block) wrapped as ``parallel.remat`` says; see the module
+        docstring.  As in the JAX package, only the scanned layer stack is
+        rematerialized."""
+        mode = self.parallel.remat
+        if mode not in REMAT_MODES:
+            raise ValueError(f"remat {mode!r} is not one of {REMAT_MODES}")
+        if mode == "none" or not torch.is_grad_enabled() or not self.parallel.scan_layers:
+            return fn
+        if mode == "offload":
+            raise NotImplementedError("remat='offload' (residuals to pinned host memory) is not ported: "
+                                      "ROADMAP.md §1 item 5")
+        kw = {"use_reentrant": False, "preserve_rng_state": False}
+        if mode == "dots":
+            kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+        return functools.partial(checkpoint, fn, **kw)
 
     def hidden(self, batch: dict, *, serve_hard_tree: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
         """Final normed hidden states (B,S,D) + aux loss."""
         x, positions = self.embed(batch)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer, is_g in zip(self.layers, self._is_global_flags()):
-            x, a, _, _ = layer(x, positions, is_g, serve_hard_tree=serve_hard_tree,
-                               kv_block=self.parallel.attn_kv_block)
+            def block(x, layer=layer, is_g=is_g):
+                x, a, _, _ = layer(x, positions, is_g, serve_hard_tree=serve_hard_tree,
+                                   kv_block=self.parallel.attn_kv_block)
+                return x, a
+            x, a = self._remat(block)(x)
             if a is not None:
                 aux = aux + a
         return self.final_norm(x), aux
@@ -225,6 +264,19 @@ class DecoderModel(nn.Module):
         """Full-sequence forward. Returns (logits (B,S,V_pad), aux_loss)."""
         x, aux = self.hidden(batch, serve_hard_tree=serve_hard_tree)
         return self.logits(x), aux
+
+    def _out_w(self, dtype: torch.dtype) -> torch.Tensor:
+        if self.cfg.tie_embeddings:
+            return self.embed_table.to(dtype).T
+        return self.lm_head.w.to(dtype)
+
+    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """(total, {"nll", "aux"}): the chunked next-token cross-entropy over
+        ``batch["labels"]`` (negative ids masked, the padded vocabulary
+        excluded) plus the MoE load-balance loss, all 0-d f32."""
+        x, aux = self.hidden(batch)
+        nll, _ = chunked_softmax_xent(x, self._out_w(x.dtype), batch["labels"], vocab_size=self.cfg.vocab_size)
+        return nll + aux, {"nll": nll, "aux": aux}
 
     # ------------------------------- decode -------------------------------
 

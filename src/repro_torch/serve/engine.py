@@ -146,8 +146,8 @@ class ServeEngine:
 
     The engine holds the model's working copy (``model.cast_for_compute()``),
     made once here: weights in the activation dtype, router and norm scales
-    shared in f32.  A model with a tree router that is not packed is
-    refused; a kernel launch that fails raises out of ``run``.  Greedy
+    shared in f32.  A model with a tree router that is not packed, or
+    whose thresholds moved since the pack, is refused; a kernel launch that fails raises out of ``run``.  Greedy
     sampling is ``argmax``; ``temperature > 0`` samples with a
     ``torch.Generator`` on the model's device seeded from ``seed``.
     """
@@ -156,9 +156,9 @@ class ServeEngine:
                  temperature: float = 0.0, seed: int = 0,
                  registry: obs.Registry | None = None,
                  tracer: obs.Tracer | None = None):
-        unpacked = [r for r in model.tree_routers() if r.packed is None]
+        unpacked = [r for r in model.tree_routers() if r.packed is None or r.stale]
         if unpacked:
-            raise RuntimeError(f"{len(unpacked)} router trees are not packed: load or init the "
+            raise RuntimeError(f"{len(unpacked)} router trees are not packed, or stale: load or init the "
                                "weights (or call model.pack_routers()) before serving")
         self.model = model.cast_for_compute()
         self.device = self.model.device

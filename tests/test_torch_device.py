@@ -86,6 +86,10 @@ def cuda_device():
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    # the training path's modules (the data pipeline is a copy of a jax-free module)
+    for name in ("utils/losses.py", "optim/adamw.py", "train/step.py", "train/loop.py", "ckpt/checkpoint.py",
+                 "data/pipeline.py", "configs/shapes.py", "launch/train.py", "models/lm.py", "models/convert.py"):
+        assert REPO / "src" / "repro_torch" / name in files, name
     offenders = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
                  for f in files for m in FORBIDDEN_IMPORT.finditer(f.read_text())]
     assert offenders == []
@@ -899,3 +903,99 @@ def test_lm_engine_on_card_raises_and_never_falls_back(cuda_device, monkeypatch)
     monkeypatch.setattr(K, "_library", lambda: FailingLibrary())
     with pytest.raises(RuntimeError, match="k1_speculative launch failed"):
         eng.run([Request(uid=9, prompt=np.arange(8, dtype=np.int32), max_new_tokens=2)])
+
+
+# ---------------------------------------------------------------------------
+# the LM training path on the card
+# ---------------------------------------------------------------------------
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got − want| / (|want| + max |want|), the CPU parity tests' measure."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float(((got - want).abs() / (want.abs() + want.abs().max() + 1e-30)).max())
+
+
+def _smoke_train(device, start=None, steps: int = 1):
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_smoke_config
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import device_batch, make_train_step
+
+    cfg = get_smoke_config("granite-moe")
+    model = build_model(cfg, device=device)
+    if start is None:
+        model.init(torch.Generator(device=device).manual_seed(0))
+    else:
+        model.load_state_dict(start)
+    start = {k: v.detach().clone().cpu() for k, v in model.state_dict().items()}
+    opt = adamw_init(model)
+    step = make_train_step(model, TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10))
+    pipe = pipeline_for(cfg, ShapeConfig("train", 32, 2, "train"), seed=0)
+    metrics = None
+    for i in range(steps):
+        model, opt, metrics = step(model, opt, device_batch(pipe(i), device))
+    return model, opt, metrics, start
+
+
+@pytest.mark.gpu
+def test_smoke_train_step_on_card_equals_cpu(cuda_device):
+    """One f32 train step of the granite smoke model on the card and on the
+    CPU from the same weights: metrics, parameters and moments within 1e-5
+    relative to each tensor's scale (cuBLAS and the CPU sum in other orders)."""
+    cm, co, cmet, start = _smoke_train("cpu")
+    gm, go, gmet, _ = _smoke_train(cuda_device, start)
+    assert all(v.device.type == "cuda" and v.dim() == 0 for v in gmet.values())
+    for k in cmet:
+        assert _rel(gmet[k], cmet[k]) <= 1e-5, k
+    named = dict(cm.named_parameters())
+    for n, p in gm.named_parameters():
+        assert p.device.type == "cuda" and go.m[n].device.type == "cuda"
+        assert _rel(p, named[n]) <= 1e-5, n
+        assert _rel(go.m[n], co.m[n]) <= 1e-5 and _rel(go.v[n], co.v[n]) <= 1e-5, n
+    assert go.count.device.type == "cuda" and int(go.count) == 1
+
+
+@pytest.mark.gpu
+def test_trained_router_on_card_routes_like_a_fresh_pack(cuda_device):
+    from repro_torch.models.layers import moe as moel
+
+    model, _, _, _ = _smoke_train(cuda_device, steps=2)
+    assert all(r.stale for r in model.tree_routers())
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, 512, size=(4, 33)).astype(np.int32)).to(cuda_device)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="pack_routers"):
+        model({"tokens": toks}, serve_hard_tree=True)
+    model.pack_routers()
+    routes = []
+    hooks = [r.register_forward_hook(lambda m, a, out: routes.append((a, out))) for r in model.tree_routers()]
+    K.reset_launches()
+    with torch.no_grad():
+        model({"tokens": toks}, serve_hard_tree=True)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    assert K.LAUNCHES["speculative/onehot"] == model.cfg.n_layers
+    for layer, (args, out) in zip(model.layers, routes):
+        fresh = moel.pack_router(model.cfg, layer.moe.router_thr.detach().clone())
+        want = moel.hard_tree_route({"router_proj": args[1]}, args[0], cfg=model.cfg,
+                                    e_pad=moel.padded_experts(model.cfg.moe), packed=fresh)
+        assert torch.equal(out, want)
+
+
+@pytest.mark.gpu
+def test_checkpoint_restore_onto_card_round_trips(cuda_device, tmp_path):
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.optim.adamw import adamw_init
+
+    model, opt, _, _ = _smoke_train(cuda_device)
+    ckpt.save(str(tmp_path), 1, {"params": model, "opt": opt})
+    other, _, _, _ = _smoke_train(cuda_device, steps=0)
+    other_opt = adamw_init(other)
+    ckpt.restore(str(tmp_path), 1, {"params": other, "opt": other_opt})
+    for (n, a), b in zip(model.named_parameters(), other.parameters()):
+        assert b.device.type == "cuda" and torch.equal(a, b), n
+    for n in opt.m:
+        assert torch.equal(opt.m[n], other_opt.m[n]) and torch.equal(opt.v[n], other_opt.v[n])
+    assert other_opt.count.device.type == "cuda" and int(other_opt.count) == 1
+    assert not any(r.stale for r in other.tree_routers())
