@@ -45,6 +45,34 @@ Phases, each printing its own lines:
    the fault-tolerant loop (checkpoints every 2 steps, a
    ``SimulatedFailure`` at step 3) replaying an uninterrupted run's losses
    within 1e-5;
+2f. lm-families — the remaining LM families and the tree head, in a child
+   process of its own after 2t (``chip_smoke.py --lm-families``), each
+   model at full width (nothing cut; f32 masters from a generator seeded
+   0; built, used and freed one after another): hymba-1.5b (hybrid:
+   attention beside an SSM head, sliding window 1,024 with 3 global layers)
+   through ``ServeEngine`` (8 requests of 128 seeded ids, 32 new tokens,
+   greedy, ``max_batch`` 4), then a wave of 4 prompts of 1,280 ids (past
+   the window; five 256-step SSM chunks), 8 new tokens; xlstm-125m
+   (``XLSTMModel``) through ``ServeEngine``, 8 × 128, 32 new;
+   whisper-medium (``EncDecModel``, which no engine serves) driven as the
+   JAX package's tests drive it: ``prefill({"embeds", "tokens"})`` of 4
+   requests (seeded frame embeddings (4, 1,500, 1,024) × 0.02, 16-token
+   prompts), then 31 greedy ``decode_step``s; then ``tree_head_classify``
+   with 7 classes (depth 3, N 15, A 7) over that prefill's encoder output
+   (M 6,000 frame records), twice.  Gates: every served token in range;
+   K1 onehot launched exactly once a tree-head call and no other kernel in
+   the phase's window (from its start to the tree head); every class
+   ``torch.equal`` to K1's plain version; the f32 model on the same
+   masters (B 2, S 17): prefill's last logits within 2e-2 of the
+   teacher-forced forward, and decode's, for all three (hymba's prefill
+   restarts the SSM state, as JAX's does; the gap that makes stays within
+   the gate at this init); each family's f32 smoke model on the card equal to the CPU port
+   within 1e-4.  Printed for each model: parameters, peak memory, served
+   prefill ms per wave and decode ms a step, tokens/s, steady prefill and
+   decode ms (host clock and CUDA events), the decode step's byte bound,
+   one decode step under the profiler (device busy, idle share, launches
+   and time by kind); K1 at the tree head's shape against its plain
+   version and bound;
 3. kernels against plain versions — K1 (gather, onehot), K2, K3 (gather,
    onehot) and K4 on adversarial records (ties, ±inf, NaN) and trees of depth
    0–9 (one with N > 128), M ∈ {1, 7, 65,536}; K5 (gather, onehot) and K6 on
@@ -152,9 +180,10 @@ over phase 6f, where K3 gather, K4, K5 in both forms, K6, and K7/K8 must
 launch (the phase prints them by part: served waves, re-tune candidates,
 anytime stages, shard bodies, the chunker), and in phase 2l's own window
 over its served run, where K1 onehot must launch 2,048 times and no other
-kernel, and in phase 2t's over the serve from the trained weights (160 K1
-onehot launches).  The ``kernels`` line's ``launches`` is the sum of the
-five windows.  Any mismatch, missing launch
+kernel, in phase 2t's over the serve from the trained weights (160 K1
+onehot launches), and in phase 2f's from its start to the tree head (2 K1
+onehot launches, no other kernel).  The ``kernels`` line's ``launches`` is
+the sum of the six windows.  Any mismatch, missing launch
 or exception exits non-zero.
 """
 
@@ -1933,10 +1962,13 @@ def lm_dropped(experts: torch.Tensor, moe, e_pad: int) -> tuple[int, int]:
     return int((counts - cap).clamp(min=0).sum()), n * g * moe.top_k
 
 
-def lm_profiled_kinds(step, ranges) -> tuple[float, list, dict]:
+def lm_profiled_kinds(step, ranges, range_kinds: dict | None = None) -> tuple[float, list, dict]:
     """``step()`` once warm, then once under the profiler (CPU and CUDA), with
     a ``record_function`` range opened around each function of ``ranges``
     ((module, attribute, label or label(*args))) for that step only.
+    ``range_kinds`` (label → kind) names the kind of a kernel launched
+    inside such a range that no earlier rule places (the SSM's and the
+    xLSTM's elementwise work).
 
     Returns (host wall ms, the device events, {kind: (ms, kernels)}).  K1 is
     told by its kernel name; every other kernel by the op that launched it
@@ -2014,6 +2046,8 @@ def lm_profiled_kinds(step, ranges) -> tuple[float, list, dict]:
                 kind = "optimizer (AdamW, clipping)"
             elif "lm.loss" in labels:
                 kind = "loss (masked softmax, gold logit, sums)"
+            elif any(label in labels for label in range_kinds or {}):
+                kind = next(k for label, k in range_kinds.items() if label in labels)
             elif "lm.moe" in labels:
                 kind = "elementwise in the MoE (routing, dispatch/combine build)"
             else:
@@ -2517,9 +2551,367 @@ def phase_lm_train(dev, card, cfg=None) -> dict:
     return {"k1_onehot_launches": launches["speculative/onehot"], "max_abs_err": err}
 
 
+# ---------------------------------------------------------------------------
+# phase 2f: the remaining LM families (hybrid, xLSTM, encoder-decoder) at full
+# width, and the tree token head on K1
+# ---------------------------------------------------------------------------
+
+
+FAM_ARCHS = ("hymba-1.5b", "xlstm-125m", "whisper-medium")
+FAM_PARAMS = {"hymba-1.5b": 1_661_956_800, "xlstm-125m": 204_706_560, "whisper-medium": 657_188_864}
+FAM_REQUESTS, FAM_PROMPT, FAM_NEW, FAM_BATCH = 8, 128, 32, 4
+FAM_LONG_PROMPT, FAM_LONG_NEW = 1_280, 8   # past hymba's 1,024-token window; five 256-step SSM chunks
+FAM_WHISPER_PROMPT = 16
+FAM_TREE_CLASSES = 7                       # the paper's seven segmentation classes: depth 3, N 15, A 7
+FAM_DECODE_TIMED = 8
+FAM_CPU_TOL = 1e-4        # tests/test_torch_device.py::test_new_families_on_card_equal_cpu
+LM_FAMILIES_RESULT = "[lm-families] result "
+LM_FAMILIES_TIMEOUT_S = 900
+
+
+def fam_ranges(family: str):
+    """The profiler ranges of one decode step and the kinds they name."""
+    from repro_torch.models.layers import attention as lm_attn
+    from repro_torch.models.layers import ssm as lm_ssm
+    from repro_torch.models.layers import xlstm as lm_xl
+
+    if family == "ssm":
+        return ([(lm_xl, "mlstm_decode", "lm.mlstm"), (lm_xl, "slstm_decode", "lm.slstm")],
+                {"lm.mlstm": "elementwise in the mLSTM", "lm.slstm": "elementwise in the sLSTM"})
+    ranges = [(lm_attn, "_grouped_attention", "lm.attention")]
+    if family == "hybrid":
+        return ranges + [(lm_ssm, "ssm_decode", "lm.ssm")], {"lm.ssm": "elementwise in the SSM"}
+    return ranges, {}
+
+
+def fam_build(cfg, dev, card):
+    """``build_model`` at full width, f32 masters from a generator seeded 0."""
+    from repro_torch.models import build_model
+    from repro_torch.models import schema as lm_schema
+
+    gib = 2.0**30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    built = sum(p.numel() for p in model.parameters())
+    count = lm_schema.param_count(model.schema())
+    print(f"[lm-families] {cfg.name} ({type(model).__name__}) at full width: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV; {built:,} parameters allocated = the JAX "
+          f"schema's {count:,} (cfg.n_params() {cfg.n_params():,}, the reference's own estimate); f32 masters "
+          f"drawn from a seeded torch.Generator on the card in {time.perf_counter() - t0:.1f} s; {card}: memory "
+          f"allocated {torch.cuda.memory_allocated() / gib:.3f} GiB")
+    check(built == count, f"{built} parameters allocated, the schema declares {count}")
+    if cfg.name in FAM_PARAMS:
+        check(cfg.n_params() == FAM_PARAMS[cfg.name], f"cfg.n_params() {cfg.n_params()} is not {FAM_PARAMS[cfg.name]}")
+    return model
+
+
+def fam_batch(cfg, dev, batch: int, seq: int, seed: int) -> dict:
+    """Seeded ids (B, S), and for the encoder-decoder seeded frame embeddings
+    (B, F, D) × 0.02, as tests/test_arch_smoke.py makes them."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(batch, seq)).astype(np.int32)).to(dev)}
+    if cfg.family == "audio":
+        emb = rng.normal(size=(batch, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32) * 0.02
+        out["embeds"] = torch.from_numpy(emb).to(dev)
+    return out
+
+
+def fam_consistency(model, dev, card) -> tuple[float, float]:
+    """The f32 model on the same masters (B 2, S 17): the last logits of
+    ``prefill`` and of one ``decode_step`` against the teacher-forced
+    forward, both gated within 2e-2.  The hybrid's prefill restarts the SSM
+    state (ROADMAP.md §3 item 13); at this init the state's share of the
+    logits is small enough that its decode stays within the gate too (the
+    gap the restart makes is pinned on the CPU, with weights that carry)."""
+    m32 = model.cast_for_compute("float32")
+    check(all(a.data_ptr() == b.data_ptr() for a, b in zip(m32.parameters(), model.parameters())),
+          "the f32 model does not share the masters")
+    batch = fam_batch(model.cfg, dev, 2, 17, seed=1)
+    prompt = {k: (v[:, :16] if k == "tokens" else v) for k, v in batch.items()}
+    with torch.no_grad():
+        full, _ = m32(batch)
+        lp, cache = m32.prefill(prompt, max_len=24)
+        ld, _ = m32.decode_step(cache, {"tokens": batch["tokens"][:, 16:17]})
+    check(bool(torch.isfinite(full).all() and torch.isfinite(lp).all() and torch.isfinite(ld).all())
+          and full.shape == (2, 17, model.v_pad), f"{model.cfg.name}: f32 logits not finite or misshapen")
+    err_p = float((lp[:, -1] - full[:, 15]).abs().max())
+    err_d = float((ld[:, 0] - full[:, 16]).abs().max())
+    hybrid = model.cfg.family == "hybrid"
+    print(f"[lm-families] {card}: {model.cfg.name} f32 consistency at full width (B 2, S 17, the same masters): "
+          f"max |prefill - forward| {err_p:.3g} at position 15, max |decode - forward| {err_d:.3g} at position 16"
+          f"{' (the prefill restarts the SSM state, as in JAX)' if hybrid else ''}, logits max "
+          f"{float(full.abs().max()):.3g}; tolerance {LM_TOL} (rtol and atol), the JAX smoke test's")
+    check(torch.allclose(lp[:, -1], full[:, 15], rtol=LM_TOL, atol=LM_TOL),
+          f"{model.cfg.name}: f32 prefill disagrees with forward by {err_p}")
+    check(torch.allclose(ld[:, 0], full[:, 16], rtol=LM_TOL, atol=LM_TOL),
+          f"{model.cfg.name}: f32 decode disagrees with forward by {err_d}")
+    return err_p, err_d
+
+
+def fam_decode_bytes(work, cache) -> tuple[int, int]:
+    """(weight bytes, state bytes) one decode step must read: the working
+    weights the step uses (not the embedding table, of which it gathers B
+    rows, unless it is the tied output head; not an encoder's), and the
+    caches' filled part."""
+    cfg = work.cfg
+    skip = ("enc_layers.", "enc_norm.", "pos_embed") + (() if cfg.tie_embeddings else ("embed.table",))
+    weights = sum(p.numel() * p.element_size() for n, p in work.named_parameters() if not n.startswith(skip))
+    size = lambda t: t.numel() * t.element_size()   # noqa: E731
+    if cfg.family == "ssm":
+        state = sum(size(t) for st in cache.states for t in st)
+    elif cfg.family == "audio":
+        state = 2 * size(cache.self_kv.k[:, :, :cache.pos]) + 2 * size(cache.cross_kv.k)
+    else:
+        state = 2 * size(cache.kv.k[:, :, :cache.pos]) + size(cache.ssm.conv) + size(cache.ssm.h)
+    return weights, state
+
+
+def fam_steady(work, batch: dict, card) -> None:
+    """Three prefills and ``FAM_DECODE_TIMED`` decode steps outside the
+    served window (host clock after synchronize, and CUDA events), the
+    step's byte bound, then one decode step under the profiler."""
+    cfg = work.cfg
+    pre = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = work.prefill(batch, max_len=batch["tokens"].shape[1] + FAM_DECODE_TIMED + 2)
+        torch.cuda.synchronize()
+        pre.append((time.perf_counter() - t0) * 1e3)
+    tok = logits[:, -1].argmax(-1, keepdim=True).int()
+    host, events = [], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(FAM_DECODE_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        logits, cache = work.decode_step(cache, {"tokens": tok})
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+        tok = logits[:, -1].argmax(-1, keepdim=True).int()
+    b, s = batch["tokens"].shape
+    weights, state = fam_decode_bytes(work, cache)
+    w_ms, s_ms = weights / roofline.HBM_BW * 1e3, state / roofline.HBM_BW * 1e3
+    print(f"[lm-families] {card}: {cfg.name} steady prefill ms (B {b} x S {s}, host clock after synchronize): "
+          f"{', '.join(f'{ms:.3f}' for ms in pre)}; decode step ms over {FAM_DECODE_TIMED} steps (B {b}, no "
+          f"sampling): host clock mean {np.mean(host):.3f} min {min(host):.3f}, CUDA events mean "
+          f"{np.mean(events):.3f} min {min(events):.3f}; {b / np.mean(host) * 1e3:.1f} tokens/s at the host-clock "
+          f"mean; byte bound of a step: the {cfg.dtype} weights it reads ({weights / 1e9:.3f} GB) {w_ms:.3f} ms + "
+          f"its state ({state / 1e6:.2f} MB) {s_ms:.4f} ms = {w_ms + s_ms:.3f} ms at "
+          f"{roofline.HBM_BW / 1e12:.2f} TB/s")
+    ranges, kinds = fam_ranges(cfg.family)
+    step = lambda: work.decode_step(cache, {"tokens": tok})   # noqa: E731
+    wall, device, by_kind = lm_profiled_kinds(step, ranges, kinds)
+    print(f"[lm-families] {card}: {cfg.name} one decode step (B {b}) under the profiler: "
+          f"{kinds_line(wall, device, by_kind)}")
+
+
+def fam_served_line(name: str, engine, tracer, served_s: float, reqs, card) -> None:
+    gib = 2.0**30
+    spans = [e.dur_us / 1e3 for e in tracer.events() if e.name == "serve.prefill"]
+    s = engine.stats
+    decode_tokens = sum(len(r.out_tokens) - 1 for r in reqs)
+    print(f"[lm-families] {card}: {name} served in {served_s:.3f} s: prefill ms per wave (host clock after "
+          f"synchronize): {', '.join(f'{ms:.3f}' for ms in spans)}; decode {s.decode_s * 1e3:.3f} ms for "
+          f"{s.decode_steps} steps ({s.decode_s * 1e3 / max(s.decode_steps, 1):.3f} ms a step with sampling), "
+          f"{decode_tokens / s.decode_s:.1f} decode tokens/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / gib:.3f} GiB")
+
+
+def fam_check_tokens(reqs, v_pad: int, new: int) -> None:
+    for r in reqs:
+        check(r.done and len(r.out_tokens) == new and all(0 <= t < v_pad for t in r.out_tokens),
+              f"request {r.uid}: {r.out_tokens}")
+
+
+def fam_serve_engine(cfg, dev, card, waves) -> None:
+    """``ServeEngine`` (its bf16 working copy) over ``waves``: (requests,
+    prompt length, new tokens) each, one engine for all."""
+    from repro_torch.serve import Request, ServeEngine
+
+    model = fam_build(cfg, dev, card)
+    tracer = obs.Tracer()
+    engine = ServeEngine(model, max_batch=FAM_BATCH, max_len=max(p + n for _, p, n in waves), tracer=tracer)
+    rng = np.random.default_rng(0)
+    torch.cuda.reset_peak_memory_stats()
+    steps = 0
+    t0 = time.perf_counter()
+    for n_req, prompt, new in waves:
+        reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, prompt).astype(np.int32), max_new_tokens=new)
+                for i in range(n_req)]
+        engine.run(reqs, pad_to=prompt)
+        fam_check_tokens(reqs, model.v_pad, new)
+        steps += -(-n_req // FAM_BATCH) * (new - 1)
+        print(f"[lm-families] {cfg.name}: {n_req} requests (prompts of {prompt} seeded ids, {new} new tokens, "
+              f"greedy, max_batch {FAM_BATCH}); out tokens: "
+              + "; ".join(f"req {r.uid}: {r.out_tokens[:6]}..." for r in reqs[:2]))
+    served_s = time.perf_counter() - t0
+    check(engine.stats.decode_steps == steps, f"{engine.stats.decode_steps} decode steps, not {steps}")
+    fam_served_line(cfg.name, engine, tracer, served_s, reqs, card)
+    fam_consistency(model, dev, card)
+    fam_steady(engine.model, fam_batch(cfg, dev, FAM_BATCH, FAM_PROMPT, seed=2), card)
+
+
+def fam_tree_head(cfg, enc: torch.Tensor, card) -> dict:
+    """``tree_head_classify`` with ``FAM_TREE_CLASSES`` classes over the
+    encoder's frames (M = B × F records), twice, each call building the
+    head's tables as JAX does.  Reads the phase's launch counts (every
+    launch since the phase began must be these two K1 onehot calls), then
+    holds each class against K1's plain version on the same ``z`` and
+    tables, and times K1 at this shape."""
+    import dataclasses
+
+    from repro_torch.models import schema as lm_schema
+    from repro_torch.models.layers import moe as lm_moe
+    from repro_torch.models.layers import tree_head as th
+
+    hcfg = dataclasses.replace(cfg, tree_head_classes=FAM_TREE_CLASSES)
+    depth = th.tree_head_depth(FAM_TREE_CLASSES)
+    n_int, n_nodes = 2**depth - 1, 2 ** (depth + 1) - 1
+    gen = torch.Generator(device=enc.device).manual_seed(0)
+    params = {name: lm_schema.init_leaf_(torch.empty(s.shape, dtype=s.dtype, device=enc.device), s, gen)
+              for name, s in lm_schema.leaves(th.tree_head_schema(hcfg))}
+    classes = th.tree_head_classify(params, enc, cfg=hcfg)
+    again = th.tree_head_classify(params, enc, cfg=hcfg)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    m = classes.numel()
+    print(f"[lm-families] tree head ({FAM_TREE_CLASSES} classes: depth {depth}, N {n_nodes}, A {n_int}) over the "
+          f"encoder output {tuple(enc.shape)} (M {m} frame records), twice: launches in the phase's window {dict((k, v) for k, v in launches.items() if v)}; classes per id "
+          f"{torch.bincount(classes.reshape(-1).long(), minlength=FAM_TREE_CLASSES).tolist()}")
+    check(launches["speculative/onehot"] == 2 and sum(launches.values()) == 2,
+          f"the phase launched {launches}, not K1 onehot once a tree-head call and nothing else")
+    z = sanitize_records(lm_moe.router_features(enc, params["proj"]).reshape(-1, n_int))
+    packed = th.pack_tree_head(hcfg, params["thr"])
+    tabs = (packed.attr_idx, packed.attr_select, packed.threshold, packed.child, packed.class_val)
+    jumps = ops._total_jumps(depth)
+    plain = K.speculative_plain(z, *tabs, total_jumps=jumps, jump_mode="onehot")
+    for got in (classes, again):
+        check(torch.equal(got.reshape(-1), plain),
+              f"the tree head classed {int((got.reshape(-1) != plain).sum())} of {m} frames otherwise than K1's plain version")
+    check(int(classes.min()) >= 0 and int(classes.max()) < FAM_TREE_CLASSES, "a class outside [0, 7)")
+    # K1 at the head's shape, against its plain version and bound
+    bm = ops.choose_block_m(n_nodes, n_int, algorithm="speculative", jump_mode="onehot")
+    ms, n = profiled_ms([("tree-head", lambda i: K.speculative(z, *tabs, total_jumps=jumps, jump_mode="onehot",
+                                                               block_m=bm))], 1, 200)["tree-head"]
+    plain_ms = event_ms(lambda i: K.speculative_plain(z, *tabs, total_jumps=jumps, jump_mode="onehot"), 1, 50)
+    bnd, by = bound(m, n_int, 1, n_nodes, m * depth)
+    print(f"[lm-families] {card}: K1 onehot at the tree head's shape M {m}, N {n_nodes}, A {n_int} (block_m {bm}; "
+          f"{launch_shape('speculative/onehot', m, n_nodes, n_int, bm)}): {ms:.4f} ms (profiler, {n} launches), "
+          f"plain {plain_ms:.4f} ms (CUDA events), bound {bnd:.3g} ms ({by}, launch/roofline.py), "
+          f"{bnd / ms:.2%} of the bound; library: none")
+    return {"k1_onehot_launches": launches["speculative/onehot"], "max_abs_err": max_abs_err(classes.reshape(-1), plain)}
+
+
+def fam_whisper(cfg, dev, card) -> dict:
+    """The encoder-decoder as the JAX package's tests drive it (no engine
+    serves it, ROADMAP.md §3 item 16): its bf16 working copy, one
+    ``prefill({"embeds", "tokens"})`` of ``FAM_BATCH`` requests, then a
+    greedy ``decode_step`` loop; the tree head over the prefill's encoder
+    output."""
+    gib = 2.0**30
+    model = fam_build(cfg, dev, card)
+    work = model.cast_for_compute()
+    batch = fam_batch(cfg, dev, FAM_BATCH, FAM_WHISPER_PROMPT, seed=0)
+    encoded = []
+    hook = work.enc_norm.register_forward_hook(lambda mod, args, out: encoded.append(out))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        logits, cache = work.prefill(batch, max_len=FAM_WHISPER_PROMPT + FAM_NEW)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    out = [logits[:, -1].argmax(-1).int()]
+    t0 = time.perf_counter()
+    for _ in range(FAM_NEW - 1):
+        logits, cache = work.decode_step(cache, {"tokens": out[-1][:, None]})
+        out.append(logits[:, -1].argmax(-1).int())
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    toks = torch.stack(out, dim=1).cpu()
+    check(toks.shape == (FAM_BATCH, FAM_NEW) and int(toks.min()) >= 0 and int(toks.max()) < model.v_pad,
+          f"whisper tokens {toks}")
+    check(cache.pos == FAM_WHISPER_PROMPT + FAM_NEW - 1, f"cache at {cache.pos}")
+    print(f"[lm-families] {cfg.name}: {FAM_BATCH} requests (frame embeddings {tuple(batch['embeds'].shape)} x 0.02, "
+          f"prompts of {FAM_WHISPER_PROMPT} seeded ids, {FAM_NEW} new tokens, greedy) by prefill + decode_step; "
+          f"out tokens: " + "; ".join(f"req {i}: {toks[i, :6].tolist()}..." for i in range(2)))
+    print(f"[lm-families] {card}: {cfg.name} served: prefill {pre_ms:.3f} ms (B {FAM_BATCH}: the encoder over "
+          f"{cfg.encoder.n_frames} frames and the {FAM_WHISPER_PROMPT}-token prompt, host clock after synchronize); "
+          f"decode {dec_s * 1e3:.3f} ms for {FAM_NEW - 1} steps ({dec_s * 1e3 / (FAM_NEW - 1):.3f} ms a step with "
+          f"sampling), {FAM_BATCH * (FAM_NEW - 1) / dec_s:.1f} decode tokens/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / gib:.3f} GiB")
+    check(len(encoded) == 1, f"captured {len(encoded)} encoder outputs")
+    head = fam_tree_head(cfg, encoded[0], card)
+    fam_consistency(model, dev, card)
+    fam_steady(work, batch, card)
+    return head
+
+
+def fam_card_vs_cpu(dev, card) -> None:
+    """Each family's f32 smoke model from the same weights on the CPU and on
+    the card: forward, prefill and one decode step within ``FAM_CPU_TOL``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+
+    for arch in ("hymba", "xlstm", "whisper"):
+        cfg = get_smoke_config(arch)
+        outs = []
+        state = None
+        for where in ("cpu", dev):
+            model = build_model(cfg, device=where)
+            if state is None:
+                model.init(torch.Generator(device="cpu").manual_seed(0))
+                state = model.state_dict()
+            else:
+                model.load_state_dict(state)
+            batch = fam_batch(cfg, where, 2, 17, seed=0)
+            with torch.no_grad():
+                full, _ = model(batch)
+            lp, cache = model.prefill({k: (v[:, :16] if k == "tokens" else v) for k, v in batch.items()}, max_len=24)
+            ld, _ = model.decode_step(cache, {"tokens": batch["tokens"][:, 16:17]})
+            outs.append([t.cpu() for t in (full, lp, ld)])
+        errs = [float((a - b).abs().max()) for a, b in zip(*outs)]
+        print(f"[lm-families] {card}: {cfg.name} (f32) on the card against the CPU port from the same weights: "
+              f"max |card - cpu| forward {errs[0]:.3g}, prefill {errs[1]:.3g}, decode {errs[2]:.3g} "
+              f"(tolerance {FAM_CPU_TOL}, rtol and atol)")
+        check(all(torch.allclose(a, b, rtol=FAM_CPU_TOL, atol=FAM_CPU_TOL) for a, b in zip(outs[1], outs[0])),
+              f"{cfg.name}: the card differs from the CPU by {errs}")
+
+
+def phase_lm_families(dev, card, cfgs=None) -> dict:
+    """The hybrid, xLSTM and encoder-decoder families at full width, and the
+    tree head on K1; see the module docstring (phase 2f).  Returns K1
+    onehot's launches in the phase's window (the tree head's) and the
+    largest disagreement of a class with K1's plain version."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    cfgs = cfgs or [get_config(a) for a in FAM_ARCHS]
+    hymba, xlstm, whisper = cfgs
+    K.reset_launches()
+    fam_serve_engine(hymba, dev, card, [(FAM_REQUESTS, FAM_PROMPT, FAM_NEW),
+                                        (FAM_BATCH, FAM_LONG_PROMPT, FAM_LONG_NEW)])
+    torch.cuda.empty_cache()
+    fam_serve_engine(xlstm, dev, card, [(FAM_REQUESTS, FAM_PROMPT, FAM_NEW)])
+    torch.cuda.empty_cache()
+    fam_card_vs_cpu(dev, card)
+    check(sum(K.LAUNCHES.values()) == 0, f"the families launched kernels of ours: {K.LAUNCHES}")
+    head = fam_whisper(whisper, dev, card)
+    torch.cuda.empty_cache()
+    print(f"[lm-families] phase took {time.perf_counter() - t_phase:.1f} s on the host of {card}")
+    return head
+
+
 def run_lm_child(card, flag: str, result_prefix: str, timeout_s: int) -> dict:
-    """One LM phase in a process of its own (``chip_smoke.py --lm-serve`` or
-    ``--lm-train``): its weights are freed when it ends, and its profiler
+    """One LM phase in a process of its own (``chip_smoke.py --lm-serve``,
+    ``--lm-train`` or ``--lm-families``): its weights are freed when it ends, and its profiler
     sessions do not count against the later phases' (a process's late
     sessions lose kernels).  Its lines are printed here; its result line is
     parsed."""
@@ -2575,6 +2967,9 @@ def main() -> None:
                         help="run phase 2l (the LM serving path) alone; the full run starts it so, in a child")
     parser.add_argument("--lm-train", action="store_true",
                         help="run phase 2t (the LM training path) alone; the full run starts it so, in a child")
+    parser.add_argument("--lm-families", action="store_true",
+                        help="run phase 2f (the hybrid, xLSTM and encoder-decoder families and the tree head) "
+                             "alone; the full run starts it so, in a child")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -2590,6 +2985,10 @@ def main() -> None:
         _build.build(K.SOURCE)
         print(LM_TRAIN_RESULT + json.dumps(phase_lm_train(dev, card)))
         return
+    if args.lm_families:
+        _build.build(K.SOURCE)
+        print(LM_FAMILIES_RESULT + json.dumps(phase_lm_families(dev, card)))
+        return
     print(f"[device] {kind}; nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
@@ -2599,6 +2998,7 @@ def main() -> None:
         print(f"[build] {line}")
     lm = run_lm_child(card, "--lm-serve", LM_RESULT, LM_TIMEOUT_S)
     lm_train = run_lm_child(card, "--lm-train", LM_TRAIN_RESULT, LM_TRAIN_TIMEOUT_S)
+    lm_families = run_lm_child(card, "--lm-families", LM_FAMILIES_RESULT, LM_FAMILIES_TIMEOUT_S)
 
     errs = phase_kernels(dev)
     errs |= phase_quant_kernels(dev)
@@ -2678,8 +3078,9 @@ def main() -> None:
         print(f"[parent] {root}")
         phase_parent(dev, images[0], enc, forest, plan, second, layouts, root, card)
     check(len(timings) == len(K.LAUNCHES), f"timed {len(timings)} kernels, not {len(K.LAUNCHES)}")
-    launches["speculative/onehot"] += lm["k1_onehot_launches"] + lm_train["k1_onehot_launches"]
-    errs["speculative/onehot"] = max(errs["speculative/onehot"], lm["max_abs_err"], lm_train["max_abs_err"])
+    for child in (lm, lm_train, lm_families):
+        launches["speculative/onehot"] += child["k1_onehot_launches"]
+        errs["speculative/onehot"] = max(errs["speculative/onehot"], child["max_abs_err"])
     kernels = []
     for row in timings:
         wrapper = row["name"].split("/")[0]

@@ -37,6 +37,12 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.embeds_input:
         raise SystemExit("vlm archs need precomputed embeddings; see examples/")
+    if cfg.family == "audio":
+        # as in the JAX package, whose engine passes only {"tokens"}: the
+        # encoder-decoder's prefill needs frame embeddings too
+        raise SystemExit(f"{cfg.name} is an encoder-decoder: ServeEngine passes only tokens, and its prefill "
+                         "needs frame embeddings; drive model.prefill({'embeds', 'tokens'}) and decode_step "
+                         "directly (ROADMAP.md §3 item 16)")
     device = _device.resolve(None, args.device)
     model = build_model(cfg, device=device)
     model.init(torch.Generator(device=device).manual_seed(0))

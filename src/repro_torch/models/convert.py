@@ -6,10 +6,13 @@ anyone moving trained weights) carry the JAX package's parameters across:
     tree = jax.tree.map(np.asarray, params)     # on the JAX side
     load_jax_params(model, tree)                # on the port's
 
-``tree`` is the JAX model's nested dict of numpy arrays with the scanned
-layers stacked (L, …); each stacked leaf is split along axis 0 into the
-model's ``ModuleList``.  Every leaf's path and shape is checked against the
-model's schema, and the routers are packed again from the new thresholds.
+``tree`` is the JAX model's nested dict of numpy arrays.  A stacked leaf
+(the decoder's ``layers``, the encoder-decoder's ``enc_layers`` and
+``dec_layers``: a leading (L, …) axis) is split along axis 0 into the
+model's ``ModuleList`` of that name; every other leaf (``pos_embed``, the
+xLSTM's per-layer ``layers.layer_003.…``) is the parameter of its own path.
+Every leaf's path and shape is checked against the model's schema, and the
+routers are packed again from the new thresholds.
 
 :func:`load_jax_opt_state` carries a JAX ``AdamWState`` across the same
 way, so both packages can start training from one optimizer state.
@@ -56,10 +59,10 @@ def _split(model, tree: dict, path: str, spec) -> list[tuple[str, torch.Tensor]]
     if tuple(arr.shape) != tuple(spec.shape):
         raise ValueError(f"{path}: JAX leaf has shape {arr.shape}, the model {spec.shape}")
     src = torch.tensor(arr, dtype=torch.float32)
-    if path.startswith("layers."):
-        rest = path[len("layers."):]
-        return [(f"layers.{i}.{rest}", src[i]) for i in range(len(model.layers))]
-    return [(path, src)]
+    names = model.stacked_names(path)
+    if names is None:
+        return [(path, src)]
+    return [(name, src[i]) for i, name in enumerate(names)]
 
 
 @torch.no_grad()

@@ -1,2 +1,3 @@
-"""The decoder's layers: RoPE, MLP and RMSNorm, attention, and the MoE block
-with its tree router."""
+"""The models' layers: RoPE, MLP and RMSNorm, attention (self and cross), the
+MoE block with its tree router, the SSM and xLSTM blocks, and the tree
+token head."""

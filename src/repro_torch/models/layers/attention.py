@@ -1,4 +1,5 @@
-"""Grouped-query attention with RoPE/M-RoPE, sliding windows and KV-cache decode.
+"""Grouped-query attention with RoPE/M-RoPE, sliding windows, cross-attention
+and KV-cache decode.
 
 The port's counterpart of the JAX package's ``models/layers/attention.py``,
 in the same formulation (plain torch, no library attention kernel):
@@ -13,11 +14,10 @@ in the same formulation (plain torch, no library attention kernel):
     per chunk from global positions;
   * decode (Sq = 1) takes the direct path against the whole cache, which
     is written in place (a slice copy at the cache position) where JAX
-    returns a new one.
-
-The cross-attention functions and the full-sequence ``attention`` (the
-encoder-decoder's; the decoder calls the pieces) wait for the
-encoder-decoder port.
+    returns a new one;
+  * cross-attention (the encoder-decoder's) projects K/V from the encoder
+    output, unmasked and without RoPE; serving computes them once per
+    request (:func:`cross_cache_from_encoder`).
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ DEFAULT_KV_BLOCK = 1024
 
 
 def attn_schema(cfg: ModelConfig) -> dict:
+    """``wq``, ``wk``, ``wv``, ``wo``; a cross-attention block's are the same."""
     hd = cfg.head_dim_
     d = cfg.d_model
     return {
@@ -193,6 +194,24 @@ def causal_mask(sq: int, sk: int, *, window: int = 0, offset: int = 0, device=No
     return m
 
 
+def attention(
+    params: dict,
+    x: torch.Tensor,                  # (B, S, D)
+    *,
+    cfg: ModelConfig,
+    positions: Optional[torch.Tensor],
+    causal: bool = True,
+    window: int = 0,
+    is_global=None,
+    kv_x: Optional[torch.Tensor] = None,   # cross-attention source
+) -> torch.Tensor:
+    """Full-sequence attention (train / prefill / encoder / cross)."""
+    q, k, v = _project_qkv(params, x, kv_x, cfg, positions)
+    out = grouped_attention(q, k, v, cfg=cfg, causal=causal and kv_x is None, window=window,
+                            is_global=is_global)
+    return out @ params["wo"].to(x.dtype)
+
+
 def decode_mask(cache_pos: int, s_max: int, *, window: int = 0, is_global=None, device=None) -> torch.Tensor:
     """(Sk,) validity for one decode step against a cache of length s_max."""
     t = torch.arange(s_max, device=device)
@@ -230,6 +249,23 @@ def attention_decode(
     valid = decode_mask(cache_pos, s_max, window=window, is_global=is_global, device=x.device)
     out = _grouped_attention(q, cache.k, cache.v, valid, cfg)
     return out @ params["wo"].to(x.dtype), cache
+
+
+def cross_cache_from_encoder(params: dict, enc_out: torch.Tensor, cfg: ModelConfig) -> KVCache:
+    """Cross-attention K/V from the encoder output, once per request."""
+    b, sk, _ = enc_out.shape
+    hd = cfg.head_dim_
+    k = (enc_out @ params["wk"].to(enc_out.dtype)).reshape(b, sk, cfg.n_kv_heads, hd)
+    v = (enc_out @ params["wv"].to(enc_out.dtype)).reshape(b, sk, cfg.n_kv_heads, hd)
+    return KVCache(k=k, v=v)
+
+
+def cross_attention_cached(params: dict, x: torch.Tensor, cross: KVCache, *, cfg: ModelConfig) -> torch.Tensor:
+    """Cross-attention of ``x`` (B, S, D) against precomputed encoder K/V."""
+    b, s, _ = x.shape
+    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, cfg.head_dim_)
+    out = grouped_attention(q, cross.k, cross.v, cfg=cfg, causal=False)
+    return out @ params["wo"].to(x.dtype)
 
 
 class Attention(SchemaModule):

@@ -1,4 +1,4 @@
-"""Decoder-only LM for the dense / moe / vlm families, on one device.
+"""Decoder-only LM for the dense / moe / hybrid / vlm families, on one device.
 
 The port's counterpart of the JAX package's ``models/lm.py``:
 
@@ -8,15 +8,23 @@ The port's counterpart of the JAX package's ``models/lm.py``:
     ``params["layers"]["moe"]["router_proj"][3]``;
   * the f32 master weights are cast to the activation dtype where they are
     used, as JAX's ``cast_for_compute`` does inside every call; a serving
-    engine makes its working copy once (:meth:`DecoderModel.cast_for_compute`)
+    engine makes its working copy once (:meth:`SchemaModel.cast_for_compute`)
     so that no call re-casts;
   * full-sequence attention is blockwise past one KV block;
-  * decode writes the stacked KV cache in place.
+  * decode writes the stacked KV cache (and the hybrid family's stacked
+    SSM state) in place.
+
+The ``hybrid`` family (hymba) runs an SSM head beside attention in every
+block, on the same normed input, and adds ``0.5 · (attention + ssm)`` to
+the residual; its sliding windows lift on ``global_attn_layers``.  Its
+prefill carries the SSM's conv tail into the cache but, as the JAX
+package's does (``src/repro/models/lm.py:384-387``), restarts the SSM's
+``h`` from zero, so the first decode step after a prefill does not continue
+the prompt's scan (ROADMAP.md §3 item 13).
 
 Modes: ``forward`` (teacher-forced logits), ``loss`` (the chunked
 cross-entropy plus the MoE aux loss, for training), ``prefill`` (forward +
-cache), ``decode_step`` (one token against the cache).  The ``hybrid``
-family (SSM) is not ported.
+cache), ``decode_step`` (one token against the cache).
 
 Rematerialization follows ``ParallelConfig.remat`` block by block, as the
 JAX package's ``_remat`` wraps its scanned layer body, and only while grad
@@ -31,13 +39,10 @@ the rest.  ``"offload"`` (residuals to pinned host memory) is not ported
 
 from __future__ import annotations
 
-import dataclasses
-import functools
-from typing import Any, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch import _device
 from repro_torch.configs.base import ModelConfig, ParallelConfig
@@ -46,26 +51,23 @@ from repro_torch.models.layers import attention as attn
 from repro_torch.models.layers.mlp import MLP, RMSNorm, rmsnorm_schema, mlp_schema
 from repro_torch.models.layers.moe import MoE, TreeRouter, moe_schema
 from repro_torch.models.layers.rope import positions_for
+from repro_torch.models.layers.ssm import SSM, SSMState, ssm_schema, ssm_state_shape
 from repro_torch.parallel.sharding import pad_vocab
 from repro_torch.utils.losses import chunked_softmax_xent
 
-FAMILIES = ("dense", "moe", "vlm")
-REMAT_MODES = ("none", "full", "dots", "offload")
-
-
-def _save_dots(ctx, op, *args, **kwargs):
-    """The ``"dots"`` policy: keep the outputs of products with no batch dims."""
-    return CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default else CheckpointPolicy.PREFER_RECOMPUTE
+DECODER_FAMILIES = ("dense", "moe", "hybrid", "vlm")
+FAMILIES = DECODER_FAMILIES + ("ssm", "audio")    # every family models.build_model builds
 
 
 class DecodeCache(NamedTuple):
     kv: attn.KVCache          # stacked (L, B, S_max, KV, hd)
-    ssm: Optional[Any]        # the hybrid family's SSM state; None here
+    ssm: Optional[SSMState]   # the hybrid family's, stacked (L, …); else None
     pos: int                  # tokens already in the cache
 
 
 class Block(nn.Module):
-    """One transformer block: attention, then the MoE or dense MLP."""
+    """One transformer block: attention (beside an SSM head in the hybrid
+    family), then the MoE or dense MLP."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -77,6 +79,8 @@ class Block(nn.Module):
             self.moe = MoE(cfg, device)
         else:
             self.mlp = MLP(cfg, device)
+        if cfg.family == "hybrid":
+            self.ssm = SSM(cfg, device)
 
     def _ffn(self, h2, *, group_size: int, serve_hard_tree: bool):
         if self.cfg.moe is not None:
@@ -84,39 +88,50 @@ class Block(nn.Module):
         return self.mlp(h2), None
 
     def forward(self, x, positions, is_global, *, serve_hard_tree=False, kv_block):
-        """Full sequence. Returns (x, aux, k, v); k/v feed prefill's cache."""
+        """Full sequence. Returns (x, aux, k, v, ssm state); k/v and the SSM's
+        terminal state (hybrid; else None) feed prefill's cache."""
         h = self.ln1(x)
         a, k, v = self.attn(h, positions, window=self.cfg.sliding_window, is_global=is_global,
                             kv_block=kv_block)
-        x = x + a
+        sstate = None
+        if self.cfg.family == "hybrid":
+            sm, sstate = self.ssm(h, return_state=True)
+            x = x + 0.5 * (a + sm)
+        else:
+            x = x + a
         y, aux = self._ffn(self.ln2(x), group_size=512, serve_hard_tree=serve_hard_tree)
-        return x + y, aux, k, v
+        return x + y, aux, k, v, sstate
 
-    def decode(self, x, kv: attn.KVCache, pos: int, positions, is_global):
-        """One token for every sequence against this layer's cache (written in place)."""
+    def decode(self, x, kv: attn.KVCache, pos: int, positions, is_global, sstate: Optional[SSMState] = None):
+        """One token for every sequence against this layer's cache (written in
+        place). Returns (x, the new SSM state or None)."""
         h = self.ln1(x)
         a, _ = self.attn.decode(h, kv, pos, positions, window=self.cfg.sliding_window, is_global=is_global)
-        x = x + a
+        if self.cfg.family == "hybrid":
+            s_out, sstate = self.ssm.decode(h, sstate)
+            x = x + 0.5 * (a + s_out)
+        else:
+            x = x + a
         h2 = self.ln2(x)
         # decode routes all B·1 tokens as one group
         moe = self.cfg.moe
         y, _ = self._ffn(h2, group_size=h2.shape[0] * h2.shape[1],
                          serve_hard_tree=moe is not None and moe.router == "tree")
-        return x + y
+        return x + y, sstate
 
 
-class DecoderModel(nn.Module):
+class DecoderModel(sch.SchemaModel):
     """The decoder LM; ``device=None`` is the card (raises without one)."""
 
     def __init__(self, cfg: ModelConfig, device=None, parallel: ParallelConfig | None = None):
         super().__init__()
-        if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} ({cfg.name}) is not ported yet: it needs the SSM, xLSTM or "
-                "encoder-decoder layers (ROADMAP.md §1 item 5)")
+        if cfg.family not in DECODER_FAMILIES:
+            raise ValueError(f"family {cfg.family!r} ({cfg.name}) is not a decoder-only family: "
+                             "build it with models.build_model")
         dev = _device.resolve(None, device)
         self.cfg = cfg
         self.parallel = parallel or ParallelConfig()
+        self.stacks = {"layers": cfg.n_layers}
         self.v_pad = pad_vocab(cfg.vocab_size)
         # The table's module is named "embed" for the state_dict key
         # "embed.table"; the method embed() shadows the attribute, so the
@@ -136,6 +151,8 @@ class DecoderModel(nn.Module):
             out["moe"] = moe_schema(cfg)
         else:
             out["mlp"] = mlp_schema(cfg)
+        if cfg.family == "hybrid":
+            out["ssm"] = ssm_schema(cfg)
         return out
 
     def schema(self) -> dict:
@@ -150,23 +167,10 @@ class DecoderModel(nn.Module):
             out["lm_head"] = {"w": sch.PSpec((cfg.d_model, self.v_pad), dtype=cfg.p_dtype)}
         return out
 
-    def layer_params(self, path: str) -> list[torch.Tensor]:
-        """The parameters behind one schema path: L of them for a ``layers.`` path."""
-        if path.startswith("layers."):
-            rest = path[len("layers."):]
-            return [dict(layer.named_parameters())[rest] for layer in self.layers]
-        return [dict(self.named_parameters())[path]]
-
-    @torch.no_grad()
-    def init(self, generator: torch.Generator) -> "DecoderModel":
-        """Draw every weight from ``generator`` (on the model's device), leaf by
-        leaf as the schema declares them, each stacked leaf layer by layer
-        at the stack's fan-in; then pack the routers."""
-        for path, spec in sch.leaves(self.schema()):
-            for p in self.layer_params(path):
-                sch.init_leaf_(p, spec, generator)
-        self.pack_routers()
-        return self
+    def jax_leaf_dims(self) -> dict[str, int]:
+        if not self.parallel.scan_layers:      # JAX's tree is then per layer
+            return {n: p.ndim for n, p in self.named_parameters()}
+        return super().jax_leaf_dims()
 
     def tree_routers(self) -> list[TreeRouter]:
         return [m for m in self.modules() if isinstance(m, TreeRouter)]
@@ -177,26 +181,6 @@ class DecoderModel(nn.Module):
         for layer in self.layers:
             if self.cfg.moe is not None:
                 layer.moe.pack_router()
-
-    def cast_for_compute(self, dtype: str | None = None) -> "DecoderModel":
-        """The working copy: a model whose weights are in the activation dtype.
-
-        ``dtype`` replaces the config's activation dtype.  Leaves kept in f32
-        by design (router, norm scales) and leaves already in the dtype are
-        the master tensors, shared; the packed routers are shared too.
-        With ``dtype="float32"`` every weight is shared and nothing is copied.
-        """
-        cfg = self.cfg if dtype is None else dataclasses.replace(self.cfg, dtype=dtype)
-        work = DecoderModel(cfg, device="meta", parallel=self.parallel)
-        work.load_state_dict(sch.cast_for_compute(self.state_dict(), cfg.act_dtype), assign=True)
-        work.requires_grad_(False)
-        for mine, theirs in zip(work.tree_routers(), self.tree_routers()):
-            mine.share_pack(theirs)
-        return work
-
-    @property
-    def device(self) -> torch.device:
-        return self.final_norm.scale.device
 
     @property
     def embed_table(self) -> torch.Tensor:
@@ -234,17 +218,12 @@ class DecoderModel(nn.Module):
         docstring.  As in the JAX package, only the scanned layer stack is
         rematerialized."""
         mode = self.parallel.remat
-        if mode not in REMAT_MODES:
-            raise ValueError(f"remat {mode!r} is not one of {REMAT_MODES}")
-        if mode == "none" or not torch.is_grad_enabled() or not self.parallel.scan_layers:
+        if not self.parallel.scan_layers:
             return fn
-        if mode == "offload":
+        if mode == "offload" and torch.is_grad_enabled():
             raise NotImplementedError("remat='offload' (residuals to pinned host memory) is not ported: "
                                       "ROADMAP.md §1 item 5")
-        kw = {"use_reentrant": False, "preserve_rng_state": False}
-        if mode == "dots":
-            kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
-        return functools.partial(checkpoint, fn, **kw)
+        return sch.checkpointed(fn, mode)
 
     def hidden(self, batch: dict, *, serve_hard_tree: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
         """Final normed hidden states (B,S,D) + aux loss."""
@@ -252,8 +231,8 @@ class DecoderModel(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer, is_g in zip(self.layers, self._is_global_flags()):
             def block(x, layer=layer, is_g=is_g):
-                x, a, _, _ = layer(x, positions, is_g, serve_hard_tree=serve_hard_tree,
-                                   kv_block=self.parallel.attn_kv_block)
+                x, a, _, _, _ = layer(x, positions, is_g, serve_hard_tree=serve_hard_tree,
+                                      kv_block=self.parallel.attn_kv_block)
                 return x, a
             x, a = self._remat(block)(x)
             if a is not None:
@@ -285,16 +264,22 @@ class DecoderModel(nn.Module):
         return self.init_cache(batch, max_len, device="meta")
 
     def init_cache(self, batch: int, max_len: int, device=None) -> DecodeCache:
-        shape, dtype = attn.cache_shape(self.cfg, batch, max_len)
+        cfg = self.cfg
+        shape, dtype = attn.cache_shape(cfg, batch, max_len)
         dev = self.device if device is None else device
-        k = torch.zeros((self.cfg.n_layers, *shape), dtype=dtype, device=dev)
-        return DecodeCache(kv=attn.KVCache(k=k, v=torch.zeros_like(k)), ssm=None, pos=0)
+        k = torch.zeros((cfg.n_layers, *shape), dtype=dtype, device=dev)
+        sstate = None
+        if cfg.family == "hybrid":
+            conv_shape, conv_dtype, h_shape, h_dtype = ssm_state_shape(cfg, batch)
+            sstate = SSMState(conv=torch.zeros((cfg.n_layers, *conv_shape), dtype=conv_dtype, device=dev),
+                              h=torch.zeros((cfg.n_layers, *h_shape), dtype=h_dtype, device=dev))
+        return DecodeCache(kv=attn.KVCache(k=k, v=torch.zeros_like(k)), ssm=sstate, pos=0)
 
     @torch.no_grad()
     def decode_step(self, cache: DecodeCache, batch: dict) -> tuple[torch.Tensor, DecodeCache]:
         """One token for every sequence in the batch: ``{"tokens": (B,1)}`` (or
         ``{"embeds": (B,1,D)}``); positions are ``cache.pos``.  Writes the
-        cache in place and returns it with ``pos + 1``."""
+        cache (KV and SSM state) in place and returns it with ``pos + 1``."""
         cfg = self.cfg
         x, _ = self.embed(batch)
         b = x.shape[0]
@@ -307,17 +292,23 @@ class DecoderModel(nn.Module):
             positions = None
         for i, (layer, is_g) in enumerate(zip(self.layers, self._is_global_flags())):
             kv = attn.KVCache(k=cache.kv.k[i], v=cache.kv.v[i])
-            x = layer.decode(x, kv, pos, positions, is_g)
+            ss = None if cache.ssm is None else SSMState(conv=cache.ssm.conv[i], h=cache.ssm.h[i])
+            x, new_ss = layer.decode(x, kv, pos, positions, is_g, ss)
+            if new_ss is not None:
+                cache.ssm.conv[i].copy_(new_ss.conv)
+                cache.ssm.h[i].copy_(new_ss.h)
         logits = self.logits(self.final_norm(x))
-        return logits, DecodeCache(kv=cache.kv, ssm=None, pos=pos + 1)
+        return logits, cache._replace(pos=pos + 1)
 
     @torch.no_grad()
     def prefill(self, batch: dict, max_len: int | None = None) -> tuple[torch.Tensor, DecodeCache]:
-        """Forward + KV-cache construction; the tree router routes hard.
+        """Forward + cache construction; the tree router routes hard.
 
         ``max_len``: cache capacity; defaults to the prompt length.  Serving
         passes prompt + generation budget.  Returns the last position's
-        logits (B,1,V_pad) and the cache with ``pos`` = prompt length.
+        logits (B,1,V_pad) and the cache with ``pos`` = prompt length.  The
+        hybrid family's SSM state gets the conv tail and a zero ``h`` (see
+        the module docstring).
         """
         cfg = self.cfg
         x, positions = self.embed(batch)
@@ -325,9 +316,11 @@ class DecoderModel(nn.Module):
         cache = self.init_cache(b, max(s, max_len or s))
         hard = cfg.moe is not None and cfg.moe.router == "tree"
         for i, (layer, is_g) in enumerate(zip(self.layers, self._is_global_flags())):
-            x, _, k, v = layer(x, positions, is_g, serve_hard_tree=hard,
-                               kv_block=self.parallel.attn_kv_block)
+            x, _, k, v, ss = layer(x, positions, is_g, serve_hard_tree=hard,
+                                   kv_block=self.parallel.attn_kv_block)
             cache.kv.k[i, :, :s] = k
             cache.kv.v[i, :, :s] = v
+            if ss is not None:
+                cache.ssm.conv[i] = ss.conv        # h stays zero, as in JAX
         logits = self.logits(self.final_norm(x[:, -1:, :]))
         return logits, cache._replace(pos=s)

@@ -5,16 +5,22 @@ declares its parameters as a nested dict of :class:`PSpec`; the modules
 allocate their ``nn.Parameter``s from it, :func:`param_count` counts it
 with no allocation, and :func:`init_params` / :func:`init_leaf_` fill it.
 ``PSpec`` carries no ``PartitionSpec``: the port's LM runs on one device.
+:class:`SchemaModel` is the model protocol the three model classes share
+(the JAX package's models share it by convention): how the schema's leaves
+map onto the module's parameters, ``init``, the working copy, and
+:func:`checkpointed`, their block-by-block rematerialization.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Iterator
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,3 +159,112 @@ class SchemaModule(nn.Module):
     def params(self) -> dict:
         """The module's own weights by leaf name, as the functions take them."""
         return dict(self._parameters)
+
+
+REMAT_MODES = ("none", "full", "dots", "offload")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of products with no batch dims."""
+    return CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpointed(fn, mode: str):
+    """``fn`` (one block) rematerialized as ``mode`` (``ParallelConfig.remat``)
+    says, for the three model classes: ``fn`` itself for "none" and while
+    grad is disabled; non-reentrant ``torch.utils.checkpoint`` recomputing
+    the whole block for "full" and "offload" (as the JAX xLSTM and
+    encoder-decoder treat it; the decoder refuses "offload" before this);
+    "dots" saves the block's ``aten.mm`` outputs (the products with no batch
+    dims, as JAX's ``dots_with_no_batch_dims_saveable``)."""
+    if mode not in REMAT_MODES:
+        raise ValueError(f"remat {mode!r} is not one of {REMAT_MODES}")
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {"use_reentrant": False, "preserve_rng_state": False}
+    if mode == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, **kw)
+
+
+class SchemaModel(nn.Module):
+    """A model whose parameters are the leaves of its JAX schema.
+
+    ``stacks`` names the schema's stacked subtrees (a scanned layer stack in
+    JAX: every leaf carries a leading (L, …) axis) with their number of
+    layers; the model holds each as a ``ModuleList`` of that name, so the
+    stacked leaf ``layers.attn.wq`` is the parameters ``layers.0.attn.wq``,
+    ``layers.1.attn.wq``, ….  Every other leaf is the parameter of its own
+    path (an unstacked JAX layer ``layers.layer_003.block.up`` too).
+
+    Subclasses set ``cfg``, ``parallel`` and ``stacks`` and define
+    ``schema()``; the methods here are the model protocol that the loader,
+    the optimizer, the checkpoints and the serving engine read.
+    """
+
+    stacks: dict
+
+    def stacked_names(self, path: str) -> list[str] | None:
+        """The per-layer parameter names behind a stacked schema path, or None."""
+        head, _, rest = path.partition(".")
+        if head not in self.stacks:
+            return None
+        return [f"{head}.{i}.{rest}" for i in range(self.stacks[head])]
+
+    def schema_path(self, name: str) -> str:
+        """The schema path of parameter ``name`` (the layer index dropped in a stack)."""
+        head, _, rest = name.partition(".")
+        return f"{head}.{rest.partition('.')[2]}" if head in self.stacks else name
+
+    def layer_params(self, path: str) -> list[torch.Tensor]:
+        """The parameters behind one schema path: L of them for a stacked path."""
+        named = dict(self.named_parameters())
+        return [named[n] for n in self.stacked_names(path) or [path]]
+
+    def jax_leaf_dims(self) -> dict[str, int]:
+        """Parameter name → the dims of the JAX leaf that holds it (one more
+        than its own in a stack)."""
+        dims = {path: len(s.shape) for path, s in leaves(self.schema())}
+        return {n: dims[self.schema_path(n)] for n, _ in self.named_parameters()}
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator):
+        """Draw every weight from ``generator`` (on the model's device), leaf by
+        leaf as the schema declares them, each stacked leaf layer by layer
+        at the stack's fan-in; then pack the routers."""
+        for path, spec in leaves(self.schema()):
+            for p in self.layer_params(path):
+                init_leaf_(p, spec, generator)
+        self.pack_routers()
+        return self
+
+    def tree_routers(self) -> list:
+        """The hard tree routers the model serves through (K1); none by default."""
+        return []
+
+    def pack_routers(self) -> None:
+        """Harden and pack every router tree after a change of weights."""
+
+    def _meta_copy(self, cfg) -> "SchemaModel":
+        return type(self)(cfg, device="meta", parallel=self.parallel)
+
+    def cast_for_compute(self, dtype: str | None = None):
+        """The working copy: a model whose weights are in the activation dtype.
+
+        ``dtype`` replaces the config's activation dtype.  Leaves kept in f32
+        by design (router, norm scales, gate biases, SSM decay) and leaves
+        already in the dtype are the master tensors, shared; the packed
+        routers are shared too.  With ``dtype="float32"`` every weight is
+        shared and nothing is copied.
+        """
+        cfg = self.cfg if dtype is None else dataclasses.replace(self.cfg, dtype=dtype)
+        work = self._meta_copy(cfg)
+        work.load_state_dict(cast_for_compute(self.state_dict(), cfg.act_dtype), assign=True)
+        work.requires_grad_(False)
+        for mine, theirs in zip(work.tree_routers(), self.tree_routers()):
+            mine.share_pack(theirs)
+        return work
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device

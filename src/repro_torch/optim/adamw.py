@@ -19,9 +19,10 @@ step where this one adds ``wd·p`` to the step.
 of *its* parameter tree, where the scanned layers are stacked (L, …): so
 every layer's norm scales and router thresholds are decayed, and only
 ``final_norm.scale`` is not.  The port's per-layer tensors are 1-D, so for a
-model the default is taken from ``model.schema()`` when
-``model.parallel.scan_layers`` (:func:`default_decay_mask`), and from each
-tensor's ``ndim`` otherwise.  The ZeRO-1 state shardings
+model the default is taken from the dims of the JAX leaf that holds each
+tensor (``model.jax_leaf_dims()``, :func:`default_decay_mask`): one more
+than its own in a stack, its own where JAX does not stack (``scan_layers``
+off, the xLSTM's unstacked layers).  The ZeRO-1 state shardings
 (``adamw_state_shapes`` / ``adamw_state_specs``) wait for the multi-card
 LM work.
 """
@@ -63,20 +64,10 @@ def adamw_init(params) -> AdamWState:
 def default_decay_mask(model) -> dict:
     """The JAX default mask (``ndim >= 2`` on JAX's parameter tree) by parameter name.
 
-    With ``scan_layers`` the JAX tree stacks the layers, so a per-layer
-    tensor is decayed when its stacked leaf (one more dim) has two dims.
+    A stacked JAX leaf (the scanned layers) has one more dim than the
+    port's per-layer tensor: ``model.jax_leaf_dims()`` counts the JAX one.
     """
-    named = dict(model.named_parameters())
-    if not model.parallel.scan_layers:
-        return {k: p.ndim >= 2 for k, p in named.items()}
-    from repro_torch.models import schema as sch
-
-    stacked = {path: len(spec.shape) for path, spec in sch.leaves(model.schema())}
-    out = {}
-    for k in named:
-        path = "layers." + k.split(".", 2)[2] if k.startswith("layers.") else k
-        out[k] = stacked[path] >= 2
-    return out
+    return {name: dims >= 2 for name, dims in model.jax_leaf_dims().items()}
 
 
 def lr_at(cfg: TrainConfig, step) -> torch.Tensor:

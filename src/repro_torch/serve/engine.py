@@ -32,7 +32,10 @@ so a measurement taken while waves are served sees their contention.
 
 :class:`ServeEngine` serves the LM (:mod:`repro_torch.models`): batched
 prefill and decode over waves of prompts, the tree-routed MoE routing
-through K1 on the card.
+through K1 on the card.  It serves every model whose prefill takes
+``{"tokens"}`` (the decoder families, hybrid included, and the xLSTM); the
+encoder-decoder's needs frame embeddings too, and the JAX engine passes
+none, so neither engine serves it.
 """
 
 from __future__ import annotations
@@ -132,7 +135,7 @@ def _synchronize(device: torch.device) -> None:
 
 
 class ServeEngine:
-    """Wave-batched decoding over one :class:`repro_torch.models.DecoderModel`.
+    """Wave-batched decoding over one model of :mod:`repro_torch.models`.
 
     Requests are served in *waves*: up to ``max_batch`` prompts, left-padded
     with token 0 to one width (no attention mask, positions from 0), go

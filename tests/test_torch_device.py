@@ -86,9 +86,11 @@ def cuda_device():
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
-    # the training path's modules (the data pipeline is a copy of a jax-free module)
+    # the training path's modules (the data pipeline is a copy of a jax-free module) and the LM families'
     for name in ("utils/losses.py", "optim/adamw.py", "train/step.py", "train/loop.py", "ckpt/checkpoint.py",
-                 "data/pipeline.py", "configs/shapes.py", "launch/train.py", "models/lm.py", "models/convert.py"):
+                 "data/pipeline.py", "configs/shapes.py", "launch/train.py", "models/lm.py", "models/convert.py",
+                 "models/layers/ssm.py", "models/layers/xlstm.py", "models/xlstm_lm.py", "models/encdec.py",
+                 "models/layers/tree_head.py"):
         assert REPO / "src" / "repro_torch" / name in files, name
     offenders = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
                  for f in files for m in FORBIDDEN_IMPORT.finditer(f.read_text())]
@@ -903,6 +905,68 @@ def test_lm_engine_on_card_raises_and_never_falls_back(cuda_device, monkeypatch)
     monkeypatch.setattr(K, "_library", lambda: FailingLibrary())
     with pytest.raises(RuntimeError, match="k1_speculative launch failed"):
         eng.run([Request(uid=9, prompt=np.arange(8, dtype=np.int32), max_new_tokens=2)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("classes,frames", [(7, 6000), (7, 5), (16, 512)])
+def test_tree_head_launches_k1_onehot_equal_to_plain_on_card(cuda_device, classes, frames):
+    """The tree head's serving path: one K1 onehot launch a call, every class
+    equal to K1's plain version on the same ``z``."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.layers import moe as moel
+    from repro_torch.models.layers import tree_head as th
+
+    cfg = dataclasses.replace(get_smoke_config("whisper"), tree_head_classes=classes)
+    depth = th.tree_head_depth(classes)
+    g = torch.Generator(device=cuda_device).manual_seed(classes)
+    params = {"proj": torch.randn((cfg.d_model, 2**depth - 1), generator=g, device=cuda_device) * 0.2,
+              "thr": torch.randn((2**depth - 1,), generator=g, device=cuda_device) * 0.1}
+    x = torch.randn((2, frames, cfg.d_model), generator=g, device=cuda_device)
+    K.reset_launches()
+    got = th.tree_head_classify(params, x, cfg=cfg)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["speculative/onehot"] == 1 and sum(K.LAUNCHES.values()) == 1
+    z = moel.router_features(x, params["proj"]).reshape(-1, 2**depth - 1)
+    packed = th.pack_tree_head(cfg, params["thr"])
+    want = K.speculative_plain(sanitize_records(z), packed.attr_idx, packed.attr_select, packed.threshold,
+                               packed.child, packed.class_val, total_jumps=_jumps(depth), jump_mode="onehot")
+    assert got.shape == (2, frames) and torch.equal(got.reshape(-1), want)
+    assert int(got.min()) >= 0 and int(got.max()) < classes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["hymba", "xlstm", "whisper"])
+def test_new_families_on_card_equal_cpu(cuda_device, arch):
+    """The same f32 smoke weights on the CPU and on the card: forward,
+    prefill and one decode step within 1e-4 (cuBLAS and the CPU sum in
+    other orders: a few ulps of logits of magnitude ~4), no kernel of ours
+    launched (these families route nothing)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config(arch)
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 17)).astype(np.int32))}
+    if cfg.family == "audio":
+        batch["embeds"] = torch.from_numpy((rng.normal(size=(2, cfg.encoder.n_frames, cfg.d_model)) * 0.02)
+                                           .astype(np.float32))
+    outs = {}
+    K.reset_launches()
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        b = {k: v.to(model.device) for k, v in batch.items()}
+        with torch.no_grad():
+            full, _ = model(b)
+        lp, cache = model.prefill({k: (v[:, :16] if k == "tokens" else v) for k, v in b.items()}, max_len=24)
+        ld, _ = model.decode_step(cache, {"tokens": b["tokens"][:, 16:17]})
+        outs[name] = [t.cpu() for t in (full, lp, ld)]
+    assert sum(K.LAUNCHES.values()) == 0
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------

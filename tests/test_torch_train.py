@@ -317,11 +317,11 @@ def test_remat_modes_give_equal_gradients(arch):
 
 
 def test_remat_checkpoints_blocks_only_while_grad_is_enabled(monkeypatch):
-    import repro_torch.models.lm as lm
+    import repro_torch.models.schema as sch
 
     calls = []
-    real = lm.checkpoint
-    monkeypatch.setattr(lm, "checkpoint", lambda fn, *a, **kw: calls.append(kw) or real(fn, *a, **kw))
+    real = sch.checkpoint
+    monkeypatch.setattr(sch, "checkpoint", lambda fn, *a, **kw: calls.append(kw) or real(fn, *a, **kw))
     model = _port("yi")
     batch = device_batch(_batch("yi"), "cpu")
     with torch.no_grad():

@@ -3,9 +3,9 @@ fault-tolerant loop, the data pipeline, losses and the launcher.
 
 Mirrors ``tests/test_substrates.py`` (``TestAdamW``, ``TestCheckpoint``,
 ``TestFaultTolerantLoop``, ``TestDataPipeline``, ``TestLosses``) and the two
-training tests of ``tests/test_arch_smoke.py`` for the ported families
-(dense, moe, vlm), plus what the port adds: checkpoints of a model and its
-``AdamWState`` restored in place, a restart whose replayed losses equal an
+training tests of ``tests/test_arch_smoke.py`` for every family, plus what
+the port adds: checkpoints of a model and its ``AdamWState`` restored in
+place, a restart whose replayed losses equal an
 uninterrupted run's, and the ``launch.train`` command.
 """
 
@@ -330,7 +330,7 @@ class TestLosses:
 
 
 # ---------------------------------------------------------------------------
-# test_arch_smoke.py's training tests, for the ported families
+# test_arch_smoke.py's training tests, for every family
 # ---------------------------------------------------------------------------
 
 
@@ -374,11 +374,13 @@ def test_smoke_loss_decreases(arch):
     assert losses[-1] < losses[0], (arch, losses)
 
 
-def test_unported_families_raise():
+def test_every_arch_builds():
+    """Every architecture's family is ported: the smoke and train tests above
+    run all ten, and each builds on ``meta``."""
+    assert PORTED == ARCH_IDS
     for arch in ARCH_IDS:
-        if arch not in PORTED:
-            with pytest.raises(NotImplementedError):
-                build_model(get_smoke_config(arch), device="meta")
+        model = build_model(get_smoke_config(arch), device="meta")
+        assert all(p.device.type == "meta" for p in model.parameters()), arch
 
 
 # ---------------------------------------------------------------------------
