@@ -26,7 +26,12 @@ Phases, each printing its own lines:
    shapes against its plain version and bound, the step's byte bound;
 2t. lm-train — the LM training path, in a child process of its own after
    2l (``chip_smoke.py --lm-train``; the two would not fit together):
-   granite-moe-3b-a800m at full width (seed 0, remat "full"), its
+   granite-moe-3b-a800m at full width (seed 0, remat "full"); remat
+   "offload" against "full" on the same weights and first batch, in turns
+   (full, offload, offload, full): the memory allocated right after the
+   forward lower under "offload" by the 32 block inputs that go to pinned
+   host memory (50,331,648 B, within 10%), the loss and every gradient
+   within 1e-6 of each tensor's scale, forward + backward ms; its
    ``AdamWState`` (memory after each), ``train_loop`` for 6 steps of
    ``pipeline_for(cfg, ShapeConfig("train", 128, 4, "train"), seed=0)``
    (one 512-token MoE group a step, ``TrainConfig(lr=3e-4, warmup_steps=1,
@@ -73,6 +78,26 @@ Phases, each printing its own lines:
    one decode step under the profiler (device busy, idle share, launches
    and time by kind); K1 at the tree head's shape against its plain
    version and bound;
+2g. lm-families-train — the same three families trained, in a child process
+   of its own after 2f (``chip_smoke.py --lm-families-train``), each at full
+   width (f32 masters from a generator seeded 0, remat "full"; built,
+   trained and freed one after another): hymba-1.5b first takes remat
+   "offload" against "full" as 2t does (52,428,800 B of block inputs);
+   then each its ``AdamWState`` and ``train_loop`` over
+   ``pipeline_for(cfg, ShapeConfig("train", 128, 4, "train"), seed=0)``
+   (``TrainConfig(lr=3e-4, warmup_steps=1, total_steps=steps,
+   ckpt_every=0)``), 4 steps for hymba and xlstm-125m, 2 for
+   whisper-medium (its encoder's attention runs 375 blocks a layer): loss,
+   grad norm, lr, step ms and tokens/s a step, peak memory; every number
+   finite, step 0's loss equal to ``model.loss`` on batch 0 within 1e-5,
+   the loss on batch 0 lower after the steps; for hymba and xLSTM one more
+   step under the profiler (device busy, idle share, launches and device
+   time by kind: GEMMs, the SSM's or the mLSTM's and sLSTM's elementwise
+   work, attention, loss, optimizer; whisper's step, millions of kernels,
+   is more than a profiler session keeps); then each family's smoke width
+   (f32), one train step on the card against the CPU port, the model's
+   part (loss, gradients) and AdamW's (on the card's gradients) each
+   within 1e-5; no kernel of ours launches in the phase;
 3. kernels against plain versions — K1 (gather, onehot), K2, K3 (gather,
    onehot) and K4 on adversarial records (ties, ±inf, NaN) and trees of depth
    0–9 (one with N > 128), M ∈ {1, 7, 65,536}; K5 (gather, onehot) and K6 on
@@ -161,6 +186,18 @@ Phases, each printing its own lines:
    stage leaves); each row names its CTA, table chunk and grid, and each
    speculative row the jump path it took (registers or shared memory); then
    K3 at N on both sides of the path cut-offs (32, 64) on random forests;
+obs-smoke — after 6f, ``repro_torch.obs.smoke.main`` on the card (its
+   ``ForestServeEngine`` on the card's default devices, metrics and tracing
+   on): the Perfetto nesting ``serve.wave`` → ``stream.eval`` →
+   ``kernel.dispatch``, the Prometheus text and JSON snapshot, the
+   duplicate-metric guard, a flight bundle on a forced breach, the
+   profiler's counter tracks; it must launch a forest kernel of ours (the
+   one the engine's tuner resolves);
+examples — then the five ``examples/*_torch.py`` with their default
+   arguments, one after another, each in a child process of its own: every exit
+   code 0 and each one's wall time, the quickstart's five EXACT MATCH lines
+   (K1 and K2 among them), ``tree_router_moe`` routing on K1 onehot; the
+   segmentation service's classifier on image 0 equal to ``eval_serial``;
 8. the ``kernels`` JSON line, the card line, and the ``ok`` line.
 
     python3 chip_smoke.py --parent DIR [DIR ...]
@@ -182,9 +219,10 @@ anytime stages, shard bodies, the chunker), and in phase 2l's own window
 over its served run, where K1 onehot must launch 2,048 times and no other
 kernel, in phase 2t's over the serve from the trained weights (160 K1
 onehot launches), and in phase 2f's from its start to the tree head (2 K1
-onehot launches, no other kernel).  The ``kernels`` line's ``launches`` is
-the sum of the six windows.  Any mismatch, missing launch
-or exception exits non-zero.
+onehot launches, no other kernel), in phase 2g's (no launch), over
+[obs-smoke] and in the children of [examples] (each child prints its own
+counts).  The ``kernels`` line's ``launches`` is the sum of these windows.
+Any mismatch, missing launch or exception exits non-zero.
 """
 
 from __future__ import annotations
@@ -1963,7 +2001,7 @@ def lm_dropped(experts: torch.Tensor, moe, e_pad: int) -> tuple[int, int]:
 
 
 def lm_profiled_kinds(step, ranges, range_kinds: dict | None = None) -> tuple[float, list, dict]:
-    """``step()`` once warm, then once under the profiler (CPU and CUDA), with
+    """``step()`` once to warm up, then once under the profiler (CPU and CUDA), with
     a ``record_function`` range opened around each function of ``ranges``
     ((module, attribute, label or label(*args))) for that step only.
     ``range_kinds`` (label → kind) names the kind of a kernel launched
@@ -2323,8 +2361,10 @@ def lm_train_ranges():
 
 
 def close_rel(got: torch.Tensor, want: torch.Tensor) -> float:
-    """max |got − want| / (|want| + max |want|) (the CPU tests' comparison)."""
-    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    """max |got − want| / (|want| + max |want|) (the CPU tests' comparison),
+    in f64 on ``want``'s device."""
+    want = want.detach().double()
+    got = got.detach().to(want.device, torch.float64)
     scale = float(want.abs().max()) if want.numel() else 0.0
     return float(((got - want).abs() / (want.abs() + scale + 1e-30)).max()) if want.numel() else 0.0
 
@@ -2365,6 +2405,83 @@ def lm_train_card_vs_cpu(dev, card) -> float:
           + ", ".join(f"{k} {v:.3g}{at}" for k, (v, at) in errs.items())
           + f" (tolerance {LM_TRAIN_TOL}: |card - cpu| <= tol * (|cpu| + max |cpu|) a tensor)")
     check(worst <= LM_TRAIN_TOL, f"the card's train step differs from the CPU's by {worst}")
+    return worst
+
+
+def train_step_card_vs_cpu(dev, arch: str) -> tuple[dict, float]:
+    """One f32 smoke train step of ``arch`` through ``make_train_step`` on the
+    CPU and on ``dev``, from the same weights, batch and optimizer state.
+
+    Returns ({part: (largest relative difference, the tensor where)}, the
+    largest difference of the parameters after the whole step).  The parts
+    are the step's metrics (loss, nll, aux, grad norm, lr) and the gradients
+    it hands AdamW (caught at its call of ``adamw_apply``), then AdamW's
+    parameters and moments, applied from the start on both sides to the
+    card's gradients.  The whole step's parameters are returned apart: AdamW's
+    first update, g / (|g| + eps) a parameter, magnifies the last bits in
+    which the two sides' gradients differ wherever |g| is near eps (ROADMAP
+    §3)."""
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_smoke_config
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import adamw_init, default_decay_mask
+    from repro_torch.train import device_batch, make_train_step
+    from repro_torch.train import step as lm_step
+
+    cfg = get_smoke_config(arch)
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    batch = pipeline_for(cfg, ShapeConfig("train", 32, 2, "train"), seed=0)(0)
+    real = lm_step.adamw_apply
+    runs, start = [], None
+    for where in ("cpu", dev):
+        model = build_model(cfg, device=where)
+        if start is None:
+            model.init(torch.Generator(device="cpu").manual_seed(0))
+            start = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(start)
+        caught = {}
+
+        def catch(params, grads, *args, **kw):
+            caught.update(grads)
+            return real(params, grads, *args, **kw)
+
+        lm_step.adamw_apply = catch
+        try:
+            model, _, metrics = make_train_step(model, tcfg)(model, adamw_init(model), device_batch(batch, where))
+        finally:
+            lm_step.adamw_apply = real
+        runs.append((model, metrics, caught))
+    (cm, cmet, cg), (gm, gmet, gg) = runs
+    errs = {k: (close_rel(gmet[k], cmet[k]), "") for k in cmet}
+    named = dict(cm.named_parameters())
+    whole = max(close_rel(p, named[n]) for n, p in gm.named_parameters())
+    for n, g in gg.items():
+        errs["grads"] = max(errs.get("grads", (0.0, "")), (close_rel(g, cg[n]), f" ({n})"))
+    opts = []
+    for model, grads in ((cm, {n: g.cpu() for n, g in gg.items()}), (gm, gg)):
+        model.load_state_dict({k: v.to(model.device) for k, v in start.items()})
+        opts.append(adamw_init(model))
+        real(model, grads, opts[-1], tcfg, decay_mask=default_decay_mask(model))
+    co, go = opts
+    for n, p in gm.named_parameters():
+        for kind, got, want in (("params", p, named[n]), ("m", go.m[n], co.m[n]), ("v", go.v[n], co.v[n])):
+            errs[kind] = max(errs.get(kind, (0.0, "")), (close_rel(got, want), f" ({n})"))
+    return errs, whole
+
+
+def fam_train_card_vs_cpu(dev, card, arch: str) -> float:
+    """:func:`train_step_card_vs_cpu` printed and gated at ``LM_TRAIN_TOL``;
+    returns the largest gated difference."""
+    errs, whole = train_step_card_vs_cpu(dev, arch)
+    worst = max(e for e, _ in errs.values())
+    print(f"{FAM_TRAIN_TAG} {card}: one train step (make_train_step) of {arch}-smoke (f32, B 2 x S 32) on the card "
+          f"against the CPU port from the same weights: largest relative difference "
+          + ", ".join(f"{k} {v:.3g}{at}" for k, (v, at) in errs.items())
+          + f" (params, m, v: AdamW applied on both sides to the card's gradients; tolerance {LM_TRAIN_TOL}: "
+          f"|card - cpu| <= tol * (|cpu| + max |cpu|) a tensor); parameters after the whole step {whole:.3g}, "
+          f"not gated (ROADMAP §3)")
+    check(worst <= LM_TRAIN_TOL, f"{arch}: the card's train step differs from the CPU's by {worst}")
     return worst
 
 
@@ -2419,6 +2536,58 @@ def lm_train_restart(dev, card) -> None:
     check(err <= LM_TRAIN_TOL, f"the replayed losses differ from the uninterrupted run's by {err}")
 
 
+OFFLOAD_TOL = 1e-6       # tests/test_torch_device.py::test_offload_smoke_train_step_on_card_equals_full
+OFFLOAD_BYTES_RTOL = 0.10
+
+
+def remat_offload_check(model, batch: dict, card, tag: str) -> None:
+    """Remat "offload" against "full" on the same weights and batch, in turns
+    (full, offload, offload, full): the memory still allocated right after
+    the forward (``model.loss``), which must be lower under "offload" by the
+    block inputs that go to pinned host memory (L x B x S x d_model in the
+    activation dtype, within 10%); the loss and every gradient of each run
+    against the first "full" run's, within ``OFFLOAD_TOL`` of each tensor's
+    scale; the forward + backward ms of each run (host clock after
+    synchronize).  Leaves the model at "full"."""
+    import dataclasses
+
+    cfg = model.cfg
+    b, s = batch["tokens"].shape
+    want = cfg.n_layers * b * s * cfg.d_model * torch.empty((), dtype=cfg.act_dtype).element_size()
+    params = list(model.parameters())
+    ref, runs = None, []
+    for mode in ("full", "offload", "offload", "full"):
+        model.parallel = dataclasses.replace(model.parallel, remat=mode)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, _ = model.loss(batch)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if ref is None:
+            ref, err = (loss.detach(), grads), 0.0
+        else:
+            err = max([close_rel(loss, ref[0])] + [close_rel(g, r) for g, r in zip(grads, ref[1])])
+        runs.append((mode, held, ms, err))
+        del loss, grads
+    model.parallel = dataclasses.replace(model.parallel, remat="full")
+    del ref
+    torch.cuda.empty_cache()
+    saved = runs[3][1] - runs[2][1]
+    print(f"{tag} {card}: {cfg.name} remat 'offload' against 'full' (same weights, batch B {b} x S {s}), in turns: "
+          + "; ".join(f"{mode}: {held:,} B allocated after the forward, forward + backward {ms:.1f} ms, largest "
+                      f"relative difference from the first full run {err:.3g}" for mode, held, ms, err in runs)
+          + f"; offload holds {saved:,} B less after the forward (predicted {want:,} B: {cfg.n_layers} block inputs "
+          f"of {b} x {s} x {cfg.d_model} {cfg.dtype} in pinned host memory; tolerance {OFFLOAD_BYTES_RTOL:.0%}); "
+          f"gradient tolerance {OFFLOAD_TOL} (the card's scatter-adds may sum in another order)")
+    check(abs(saved - want) <= OFFLOAD_BYTES_RTOL * want,
+          f"{cfg.name}: offload saved {saved} B after the forward, not {want} B")
+    check(all(err <= OFFLOAD_TOL for *_, err in runs), f"{cfg.name}: offload or a rerun differs from full: {runs}")
+
+
 def phase_lm_train(dev, card, cfg=None) -> dict:
     """The LM training path at granite-moe-3b-a800m's full width; see the
     module docstring (phase 2t).  Returns K1 onehot's launches in the window
@@ -2444,15 +2613,16 @@ def phase_lm_train(dev, card, cfg=None) -> dict:
     built = sum(p.numel() for p in model.parameters())
     print(f"[lm-train] {cfg.name} at full width: {cfg.n_layers} layers, remat {model.parallel.remat!r}, "
           f"{built:,} f32 parameters (seed 0); {card}: memory allocated {torch.cuda.memory_allocated() / gib:.3f} GiB")
+    pipe = pipeline_for(cfg, ShapeConfig("train", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train"), seed=0)
+    batches = lambda i: device_batch(pipe(i), dev)   # noqa: E731
+    batch0 = batches(0)
+    remat_offload_check(model, batch0, card, "[lm-train]")
     opt = adamw_init(model)
     torch.cuda.synchronize()
     print(f"[lm-train] {card}: with the AdamWState (m, v in f32): memory allocated "
           f"{torch.cuda.memory_allocated() / gib:.3f} GiB")
 
     tcfg = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=LM_TRAIN_STEPS, ckpt_every=0)
-    pipe = pipeline_for(cfg, ShapeConfig("train", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train"), seed=0)
-    batches = lambda i: device_batch(pipe(i), dev)   # noqa: E731
-    batch0 = batches(0)
     with torch.no_grad():
         before, _ = model.loss(batch0)
     before = float(before)
@@ -2584,7 +2754,7 @@ def fam_ranges(family: str):
     return ranges, {}
 
 
-def fam_build(cfg, dev, card):
+def fam_build(cfg, dev, card, tag: str = "[lm-families]"):
     """``build_model`` at full width, f32 masters from a generator seeded 0."""
     from repro_torch.models import build_model
     from repro_torch.models import schema as lm_schema
@@ -2597,7 +2767,7 @@ def fam_build(cfg, dev, card):
     torch.cuda.synchronize()
     built = sum(p.numel() for p in model.parameters())
     count = lm_schema.param_count(model.schema())
-    print(f"[lm-families] {cfg.name} ({type(model).__name__}) at full width: {cfg.n_layers} layers, d_model "
+    print(f"{tag} {cfg.name} ({type(model).__name__}) at full width: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV; {built:,} parameters allocated = the JAX "
           f"schema's {count:,} (cfg.n_params() {cfg.n_params():,}, the reference's own estimate); f32 masters "
           f"drawn from a seeded torch.Generator on the card in {time.perf_counter() - t0:.1f} s; {card}: memory "
@@ -2909,9 +3079,125 @@ def phase_lm_families(dev, card, cfgs=None) -> dict:
     return head
 
 
+# ---------------------------------------------------------------------------
+# phase 2g: the hybrid, xLSTM and encoder-decoder families trained at full width
+# ---------------------------------------------------------------------------
+
+
+FAM_TRAIN_STEPS = {"hybrid": 4, "ssm": 4, "audio": 2}   # whisper's encoder runs 375 attention blocks a layer
+FAM_TRAIN_SEQ, FAM_TRAIN_BATCH = 128, 4
+FAM_TRAIN_TAG = "[lm-families-train]"
+LM_FAMILIES_TRAIN_RESULT = FAM_TRAIN_TAG + " result "
+LM_FAMILIES_TRAIN_TIMEOUT_S = 900
+
+
+def fam_train_ranges(family: str):
+    """The profiler ranges of the hybrid's or the xLSTM's train step and the
+    kinds they name: the train step's, and the SSM's or the xLSTM's
+    sequence functions."""
+    from repro_torch.models.layers import ssm as lm_ssm
+    from repro_torch.models.layers import xlstm as lm_xl
+
+    ranges = lm_train_ranges()
+    if family == "hybrid":
+        return ranges + [(lm_ssm, "ssm_apply", "lm.ssm")], {"lm.ssm": "elementwise in the SSM"}
+    return (ranges + [(lm_xl, "mlstm_apply", "lm.mlstm"), (lm_xl, "slstm_apply", "lm.slstm")],
+            {"lm.mlstm": "elementwise in the mLSTM", "lm.slstm": "elementwise in the sLSTM"})
+
+
+def fam_train(cfg, dev, card) -> None:
+    """One family at full width: ``build_model`` (f32 masters, seed 0, remat
+    "full"), hymba's offload check, ``AdamWState``, ``train_loop`` for
+    ``FAM_TRAIN_STEPS`` steps of B 4 x S 128, the gates, one step under the
+    profiler; see the module docstring (phase 2g)."""
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import LoopState, device_batch, make_train_step, train_loop
+
+    gib = 2.0**30
+    steps = FAM_TRAIN_STEPS[cfg.family]
+    t0 = time.perf_counter()
+    model = fam_build(cfg, dev, card, FAM_TRAIN_TAG)
+    pipe = pipeline_for(cfg, ShapeConfig("train", FAM_TRAIN_SEQ, FAM_TRAIN_BATCH, "train"), seed=0)
+    batches = lambda i: device_batch(pipe(i), dev)   # noqa: E731
+    batch0 = batches(0)
+    if cfg.family == "hybrid":
+        remat_offload_check(model, batch0, card, FAM_TRAIN_TAG)
+    opt = adamw_init(model)
+    torch.cuda.synchronize()
+    print(f"{FAM_TRAIN_TAG} {card}: {cfg.name} remat {model.parallel.remat!r}, with the AdamWState (m, v in f32): "
+          f"memory allocated {torch.cuda.memory_allocated() / gib:.3f} GiB")
+    tcfg = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=steps, ckpt_every=0)
+    with torch.no_grad():
+        before, _ = model.loss(batch0)
+    before = float(before)
+    train_step = make_train_step(model, tcfg)
+    seen = []
+
+    def step(m, o, b):
+        out = train_step(m, o, b)
+        torch.cuda.synchronize()
+        seen.append(out[2])
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    state, report = train_loop(LoopState(model=model, opt_state=opt, step=0), step, batches, tcfg)
+    peak = torch.cuda.max_memory_allocated() / gib
+    tokens = FAM_TRAIN_BATCH * FAM_TRAIN_SEQ
+    for i, (metrics, dt) in enumerate(zip(seen, report.step_times)):
+        vals = {k: float(v) for k, v in metrics.items()}
+        check(all(np.isfinite(v) for v in vals.values()), f"{cfg.name} step {i}: {vals}")
+        print(f"{FAM_TRAIN_TAG} {card}: {cfg.name} step {i}: loss {vals['loss']:.6f} (nll {vals['nll']:.6f}, aux "
+              f"{vals['aux']:.6f}), grad norm {vals['grad_norm']:.6f}, lr {vals['lr']:.6g}, {dt * 1e3:.1f} ms (host "
+              f"clock, after synchronize), {tokens / dt:,.0f} tokens/s")
+    with torch.no_grad():
+        after, _ = model.loss(batch0)
+    after = float(after)
+    err0 = abs(report.losses[0] - before) / abs(before)
+    later = report.step_times[1:]
+    print(f"{FAM_TRAIN_TAG} {card}: {cfg.name} {steps} steps of B {FAM_TRAIN_BATCH} x S {FAM_TRAIN_SEQ}: after the "
+          f"first, mean {np.mean(later) * 1e3:.1f} ms a step, min {min(later) * 1e3:.1f} ms, first "
+          f"{report.step_times[0] * 1e3:.1f} ms; {tokens / np.mean(later):,.0f} tokens/s; peak memory {peak:.3f} GiB "
+          f"during the steps; loss on batch 0 {before:.6f} before, {after:.6f} after; step 0 reported "
+          f"{report.losses[0]:.6f} (relative difference {err0:.3g} from model.loss just before it)")
+    check(report.final_step == steps and report.restarts == 0, f"{cfg.name}: final step {report.final_step}")
+    check(err0 <= LM_TRAIN_TOL, f"{cfg.name}: step 0's loss {report.losses[0]} is not model.loss {before}")
+    check(np.isfinite(after) and after < before, f"{cfg.name}: the loss on batch 0 did not fall: {before} -> {after}")
+    if cfg.family == "audio":
+        print(f"{FAM_TRAIN_TAG} {card}: {cfg.name} one train step under the profiler: not measured (its encoder and "
+              f"cross-attention run {cfg.encoder.n_frames // 4} blocks of 4 keys a layer, millions of kernels a step: "
+              f"more events than one profiler session keeps)")
+    else:
+        ranges, kinds = fam_train_ranges(cfg.family)
+        wall, device, by_kind = lm_profiled_kinds(lambda: train_step(model, opt, batches(steps)), ranges, kinds)
+        print(f"{FAM_TRAIN_TAG} {card}: {cfg.name} one train step (B {FAM_TRAIN_BATCH} x S {FAM_TRAIN_SEQ}, forward "
+              f"+ block recompute + backward + AdamW) under the profiler: {kinds_line(wall, device, by_kind)}")
+    del state, opt, model
+    torch.cuda.empty_cache()
+    print(f"{FAM_TRAIN_TAG} {cfg.name} took {time.perf_counter() - t0:.1f} s on the host of {card}")
+
+
+def phase_lm_families_train(dev, card, cfgs=None) -> dict:
+    """The hybrid, xLSTM and encoder-decoder families trained at full width,
+    one after another, then each one's smoke width on the card against the
+    CPU; no kernel of ours launches.  See the module docstring (phase 2g)."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    K.reset_launches()
+    for cfg in cfgs or [get_config(a) for a in FAM_ARCHS]:
+        fam_train(cfg, dev, card)
+    for arch in ("hymba", "xlstm", "whisper"):
+        fam_train_card_vs_cpu(dev, card, arch)
+    check(sum(K.LAUNCHES.values()) == 0, f"training the families launched kernels of ours: {K.LAUNCHES}")
+    print(f"{FAM_TRAIN_TAG} phase took {time.perf_counter() - t_phase:.1f} s on the host of {card}")
+    return {"k1_onehot_launches": 0, "max_abs_err": 0}
+
+
 def run_lm_child(card, flag: str, result_prefix: str, timeout_s: int) -> dict:
     """One LM phase in a process of its own (``chip_smoke.py --lm-serve``,
-    ``--lm-train`` or ``--lm-families``): its weights are freed when it ends, and its profiler
+    ``--lm-train``, ``--lm-families`` or ``--lm-families-train``): its weights are freed when it ends, and its profiler
     sessions do not count against the later phases' (a process's late
     sessions lose kernels).  Its lines are printed here; its result line is
     parsed."""
@@ -2929,6 +3215,103 @@ def run_lm_child(card, flag: str, result_prefix: str, timeout_s: int) -> dict:
           f"the {tag} phase exited with {proc.returncode} after {time.perf_counter() - t0:.1f} s")
     print(f"{tag} child process took {time.perf_counter() - t0:.1f} s on the host of {card}")
     return result
+
+
+# ---------------------------------------------------------------------------
+# [obs-smoke] and [examples]: the port's observability smoke and its five
+# example scripts on the card
+# ---------------------------------------------------------------------------
+
+
+def phase_obs_smoke(card) -> dict:
+    """``repro_torch.obs.smoke.main`` on the card (its engine's default
+    devices), its artifacts in a temporary directory; every check it makes
+    must pass and it must launch a forest kernel of ours.  Returns the
+    launches of its window."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.obs import smoke
+
+    K.reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(out):
+        rc = smoke.main(["--out", tmp])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    for line in out.getvalue().splitlines():
+        print(f"[obs-smoke] {line}")
+    print(f"[obs-smoke] {card}: python -m repro_torch.obs.smoke on the card: exit {rc} in {wall:.1f} s on the host; "
+          f"launches {dict((k, v) for k, v in launches.items() if v)}")
+    check(rc == 0, f"the observability smoke returned {rc}")
+    check(any(v for k, v in launches.items() if k.startswith("fused_")),
+          f"the observability smoke launched no forest kernel of ours: {launches}")
+    return launches
+
+
+EXAMPLES = ("quickstart", "segmentation_service", "serve_lm", "train_lm", "tree_router_moe")
+EXAMPLE_LAUNCHES = "[examples] launches "
+# runs an example as ``__main__`` in a child process, then prints the child's
+# kernel launches (the parent cannot count them)
+EXAMPLE_RUNNER = ("import json, runpy, sys; sys.argv = sys.argv[1:]; runpy.run_path(sys.argv[0], run_name='__main__'); "
+                  "from repro_torch.kernels.tree_eval import kernel as K; "
+                  f"print({EXAMPLE_LAUNCHES!r} + json.dumps(K.LAUNCHES))")
+EXAMPLES_TIMEOUT_S = 600
+
+
+def phase_examples(dev, card) -> dict:
+    """The five ``examples/*_torch.py`` on the card with their default
+    arguments, one after another, each in a child process of its own: every
+    exit code 0, the quickstart's five EXACT MATCH lines; then the
+    segmentation service's classifier on one image against ``eval_serial``.
+    Returns the children's launches, summed."""
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(root / "src"), os.environ.get("PYTHONPATH", "")]))
+    total = {name: 0 for name in K.LAUNCHES}
+    outs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        env["TMPDIR"] = tmp       # train_lm's checkpoints
+        for name in EXAMPLES:
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", EXAMPLE_RUNNER, str(root / "examples" / f"{name}_torch.py")],
+                                  stdout=subprocess.PIPE, text=True, env=env, cwd=tmp, timeout=EXAMPLES_TIMEOUT_S)
+            outs[name] = proc.stdout
+            launches = {}
+            for line in proc.stdout.splitlines():
+                if line.startswith(EXAMPLE_LAUNCHES):
+                    launches = json.loads(line[len(EXAMPLE_LAUNCHES):])
+                else:
+                    print(f"[examples] {name}: {line}")
+            ran = dict((k, v) for k, v in launches.items() if v)
+            print(f"[examples] {card}: examples/{name}_torch.py (default arguments) exit {proc.returncode}, "
+                  f"{time.perf_counter() - t0:.1f} s wall on the host; launches {ran}")
+            check(proc.returncode == 0 and launches, f"examples/{name}_torch.py exited with {proc.returncode}")
+            for k, v in launches.items():
+                total[k] += v
+    quick = outs["quickstart"]
+    check(quick.count("EXACT MATCH") == 5 and "MISMATCH" not in quick,
+          f"the quickstart printed {quick.count('EXACT MATCH')} EXACT MATCH lines, not 5")
+    check(total["speculative/gather"] > 0 and total["data_parallel"] > 0 and total["speculative/onehot"] > 0,
+          f"the examples did not launch K1 (gather, onehot) and K2: {total}")
+
+    spec = importlib.util.spec_from_file_location("segmentation_service_torch",
+                                                  root / "examples" / "segmentation_service_torch.py")
+    service = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(service)
+    data = make_segmentation(seed=0)
+    enc = service.trained_tree(data)
+    image, _ = replicated_dataset(data, M_IMAGE, seed=1)
+    got = service.classifier(enc, dev)(image)
+    want = eval_serial(enc, image)
+    print(f"[examples] segmentation service's classifier on the card, image 0 ({M_IMAGE} records): "
+          f"{int((got != want).sum())} classes differ from eval_serial")
+    check(np.array_equal(got, want), "the segmentation service's classes differ from eval_serial")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -2970,6 +3353,9 @@ def main() -> None:
     parser.add_argument("--lm-families", action="store_true",
                         help="run phase 2f (the hybrid, xLSTM and encoder-decoder families and the tree head) "
                              "alone; the full run starts it so, in a child")
+    parser.add_argument("--lm-families-train", action="store_true",
+                        help="run phase 2g (the hybrid, xLSTM and encoder-decoder families trained) alone; the "
+                             "full run starts it so, in a child")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -2989,6 +3375,10 @@ def main() -> None:
         _build.build(K.SOURCE)
         print(LM_FAMILIES_RESULT + json.dumps(phase_lm_families(dev, card)))
         return
+    if args.lm_families_train:
+        _build.build(K.SOURCE)
+        print(LM_FAMILIES_TRAIN_RESULT + json.dumps(phase_lm_families_train(dev, card)))
+        return
     print(f"[device] {kind}; nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
@@ -2999,6 +3389,8 @@ def main() -> None:
     lm = run_lm_child(card, "--lm-serve", LM_RESULT, LM_TIMEOUT_S)
     lm_train = run_lm_child(card, "--lm-train", LM_TRAIN_RESULT, LM_TRAIN_TIMEOUT_S)
     lm_families = run_lm_child(card, "--lm-families", LM_FAMILIES_RESULT, LM_FAMILIES_TIMEOUT_S)
+    lm_families_train = run_lm_child(card, "--lm-families-train", LM_FAMILIES_TRAIN_RESULT,
+                                     LM_FAMILIES_TRAIN_TIMEOUT_S)
 
     errs = phase_kernels(dev)
     errs |= phase_quant_kernels(dev)
@@ -3062,6 +3454,11 @@ def main() -> None:
         check(forest_launches[name] > 0, f"kernel {name} was not launched on the forest-serve path")
     launches = {name: count + forest_launches[name] for name, count in launches.items()}
 
+    for name, count in phase_obs_smoke(card).items():
+        launches[name] += count
+    for name, count in phase_examples(dev, card).items():
+        launches[name] += count
+
     plan = cascade_plan(dev, forest, images[0], 2, 1.0)
     phase_breakdown(dev, images[0], enc, forest, plan, card)
     timings = phase_timing(dev, images[0], enc, forest, int(depths.sum()), forest_depths, card)
@@ -3078,7 +3475,7 @@ def main() -> None:
         print(f"[parent] {root}")
         phase_parent(dev, images[0], enc, forest, plan, second, layouts, root, card)
     check(len(timings) == len(K.LAUNCHES), f"timed {len(timings)} kernels, not {len(K.LAUNCHES)}")
-    for child in (lm, lm_train, lm_families):
+    for child in (lm, lm_train, lm_families, lm_families_train):
         launches["speculative/onehot"] += child["k1_onehot_launches"]
         errs["speculative/onehot"] = max(errs["speculative/onehot"], child["max_abs_err"])
     kernels = []

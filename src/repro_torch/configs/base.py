@@ -195,7 +195,7 @@ class ParallelConfig:
 
     batch_axes: tuple = ("data",)   # ("pod","data") on the multi-pod mesh
     model_axis: str = "model"
-    remat: str = "full"             # "none" | "full" | "dots"
+    remat: str = "full"             # "none" | "full" | "dots" | "offload"
     scan_layers: bool = True
     seq_shard: bool = True          # sequence-parallel residual stream
     attn_kv_block: int = 1024       # blockwise-attention KV chunk

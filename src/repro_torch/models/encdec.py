@@ -18,7 +18,8 @@ the port clamps alike (ROADMAP.md §3 item 15).
 
 Rematerialization, while grad is enabled, of every encoder and decoder
 layer: ``"none"``, ``"dots"``, else (``"full"``, ``"offload"``) the whole
-layer, as the JAX model's ``_remat``.
+layer, as the JAX model's ``_remat`` (only the decoder families move a
+saved input to the host under ``"offload"``).
 """
 
 from __future__ import annotations

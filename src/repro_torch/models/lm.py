@@ -33,12 +33,15 @@ is enabled (the serving paths run under ``no_grad`` and never checkpoint):
 block in the backward pass (non-reentrant ``torch.utils.checkpoint``),
 ``"dots"`` saves the blocks' matmul outputs (``aten.mm``: the products with
 no batch dims, as JAX's ``dots_with_no_batch_dims_saveable``) and recomputes
-the rest.  ``"offload"`` (residuals to pinned host memory) is not ported
-(ROADMAP.md §1 item 5).  Remat changes no number.
+the rest.  ``"offload"`` recomputes each block as ``"full"`` does and keeps
+the one tensor that ``"full"`` saves, the block's input (JAX's ``"resid"``),
+in pinned host memory until the backward pass needs it.  Remat changes no
+number.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -57,6 +60,33 @@ from repro_torch.utils.losses import chunked_softmax_xent
 
 DECODER_FAMILIES = ("dense", "moe", "hybrid", "vlm")
 FAMILIES = DECODER_FAMILIES + ("ssm", "audio")    # every family models.build_model builds
+
+
+def _to_host(t: torch.Tensor):
+    """Saved-tensor pack hook of ``"offload"``: a copy of ``t`` in host memory
+    (pinned for a CUDA tensor).  The copy is queued without a host sync on
+    the current stream, the stream that frees ``t``: the caching allocator
+    hands ``t``'s memory only to later work on that stream, which runs after
+    the copy."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+    host.copy_(t, non_blocking=True)
+    return t.device, host
+
+
+def _to_device(packed) -> torch.Tensor:
+    device, host = packed
+    return host.to(device, non_blocking=True)
+
+
+def _offloaded(checkpointed_block, x):
+    """A block under a non-reentrant checkpoint whose saved input goes to the
+    host.  The checkpoint saves its inputs through the hooks active around
+    it and its block's own saves through its own hooks, so ``x`` is the one
+    tensor packed (``tests/test_torch_train.py`` counts it).
+    ``torch.autograd.graph.save_on_cpu`` would move it too, but its copy
+    waits for the card, a host sync a block."""
+    with torch.autograd.graph.saved_tensors_hooks(_to_host, _to_device):
+        return checkpointed_block(x)
 
 
 class DecodeCache(NamedTuple):
@@ -221,8 +251,7 @@ class DecoderModel(sch.SchemaModel):
         if not self.parallel.scan_layers:
             return fn
         if mode == "offload" and torch.is_grad_enabled():
-            raise NotImplementedError("remat='offload' (residuals to pinned host memory) is not ported: "
-                                      "ROADMAP.md §1 item 5")
+            return functools.partial(_offloaded, sch.checkpointed(fn, "full"))
         return sch.checkpointed(fn, mode)
 
     def hidden(self, batch: dict, *, serve_hard_tree: bool = False) -> tuple[torch.Tensor, torch.Tensor]:

@@ -174,7 +174,8 @@ def checkpointed(fn, mode: str):
     says, for the three model classes: ``fn`` itself for "none" and while
     grad is disabled; non-reentrant ``torch.utils.checkpoint`` recomputing
     the whole block for "full" and "offload" (as the JAX xLSTM and
-    encoder-decoder treat it; the decoder refuses "offload" before this);
+    encoder-decoder treat it; the decoder offloads the saved input around
+    this, ``models.lm._offloaded``);
     "dots" saves the block's ``aten.mm`` outputs (the products with no batch
     dims, as JAX's ``dots_with_no_batch_dims_saveable``)."""
     if mode not in REMAT_MODES:

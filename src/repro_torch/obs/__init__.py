@@ -9,6 +9,9 @@ package); the tracer's profiler bridge is ``torch.profiler.record_function``.
               near-zero-cost when disabled; duplicate-registration guard.
   trace.py    ring-buffered span tracer with a Chrome/Perfetto exporter.
   export.py   JSON snapshot + Prometheus text exposition, stdlib-only.
+  perf.py     bench trajectory store (``results/history/torch_<bench>.jsonl``),
+              its environment header and the noise-aware perf-regression
+              detector; stdlib-only at import.
   flight.py   SLO flight recorder for the serve engine — bounded ring of
               recent waves, breach counters, debug bundles (metrics
               snapshot + Perfetto trace) on breach/exception/demand.
@@ -16,6 +19,9 @@ package); the tracer's profiler bridge is ``torch.profiler.record_function``.
               workload measuring §3.6's d_µ / speculation waste / lane
               occupancy / leaf-hit drift, feeding the tuner measured values
               instead of priors.
+  smoke.py    ``python -m repro_torch.obs.smoke``: serve a workload with
+              tracing on, export both formats, check they parse and carry
+              the core metrics, a flight bundle and the profiler's tracks.
 
 Every evaluator owns a private :class:`Registry` by default and accepts
 ``registry=`` / ``tracer=`` to share one.
@@ -33,6 +39,13 @@ from repro_torch.obs.metrics import (
     Registry,
     default_registry,
     set_default_registry,
+)
+from repro_torch.obs.perf import (
+    Regression,
+    append_history,
+    detect_regressions,
+    extract_series,
+    load_history,
 )
 from repro_torch.obs.prof import (
     BucketProfile,
@@ -55,12 +68,17 @@ __all__ = [
     "Histogram",
     "NULL_TRACER",
     "ProfilePolicy",
+    "Regression",
     "Registry",
     "SpanEvent",
     "Tracer",
     "TraversalProfiler",
+    "append_history",
     "default_registry",
+    "detect_regressions",
+    "extract_series",
     "leaf_drift_distance",
+    "load_history",
     "prometheus_text",
     "set_default_registry",
     "snapshot",

@@ -11,6 +11,7 @@ without one; each holds a CUDA kernel against its plain version with
 
 from __future__ import annotations
 
+import importlib.util
 import re
 from pathlib import Path
 
@@ -84,14 +85,18 @@ def cuda_device():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "examples").glob("*_torch.py"))
+             + [REPO / "tests" / f"test_torch_{n}.py" for n in ("device", "obs_perf", "obs_smoke", "examples")])
     assert len(files) > 10
     # the training path's modules (the data pipeline is a copy of a jax-free module) and the LM families'
     for name in ("utils/losses.py", "optim/adamw.py", "train/step.py", "train/loop.py", "ckpt/checkpoint.py",
                  "data/pipeline.py", "configs/shapes.py", "launch/train.py", "models/lm.py", "models/convert.py",
                  "models/layers/ssm.py", "models/layers/xlstm.py", "models/xlstm_lm.py", "models/encdec.py",
-                 "models/layers/tree_head.py"):
+                 "models/layers/tree_head.py", "obs/perf.py", "obs/smoke.py", "configs/paper_segmentation.py"):
         assert REPO / "src" / "repro_torch" / name in files, name
+    for name in ("quickstart", "segmentation_service", "serve_lm", "train_lm", "tree_router_moe"):
+        assert REPO / "examples" / f"{name}_torch.py" in files, name
     offenders = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
                  for f in files for m in FORBIDDEN_IMPORT.finditer(f.read_text())]
     assert offenders == []
@@ -980,15 +985,15 @@ def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((got - want).abs() / (want.abs() + want.abs().max() + 1e-30)).max())
 
 
-def _smoke_train(device, start=None, steps: int = 1):
-    from repro_torch.configs import ShapeConfig, TrainConfig, get_smoke_config
+def _smoke_train(device, start=None, steps: int = 1, arch: str = "granite-moe", remat: str = "full"):
+    from repro_torch.configs import ParallelConfig, ShapeConfig, TrainConfig, get_smoke_config
     from repro_torch.data.pipeline import pipeline_for
     from repro_torch.models import build_model
     from repro_torch.optim.adamw import adamw_init
     from repro_torch.train import device_batch, make_train_step
 
-    cfg = get_smoke_config("granite-moe")
-    model = build_model(cfg, device=device)
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg, device=device, parallel=ParallelConfig(remat=remat))
     if start is None:
         model.init(torch.Generator(device=device).manual_seed(0))
     else:
@@ -1019,6 +1024,45 @@ def test_smoke_train_step_on_card_equals_cpu(cuda_device):
         assert _rel(p, named[n]) <= 1e-5, n
         assert _rel(go.m[n], co.m[n]) <= 1e-5 and _rel(go.v[n], co.v[n]) <= 1e-5, n
     assert go.count.device.type == "cuda" and int(go.count) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["hymba", "xlstm", "whisper"])
+def test_family_smoke_train_step_on_card_equals_cpu(arch, cuda_device):
+    """The hybrid, xLSTM and encoder-decoder smoke models: one f32 step of
+    ``make_train_step`` on the card against the CPU from the same weights and
+    batch, compared by ``chip_smoke.py``'s ``train_step_card_vs_cpu`` (phase
+    2g runs the same comparison): the step's metrics and the gradients it
+    hands AdamW, then AdamW applied on both sides to the card's gradients
+    (parameters and moments), each within 1e-5 relative to each tensor's
+    scale.  The whole step's parameters are not held to 1e-5: AdamW's first
+    update, g / (|g| + eps), magnifies the last bits in which the two sides'
+    gradients differ wherever |g| is near eps (ROADMAP §3)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    errs, _ = smoke.train_step_card_vs_cpu(cuda_device, arch)
+    assert {"loss", "nll", "aux", "grad_norm", "lr", "grads", "params", "m", "v"} <= set(errs)
+    for part, (err, where) in errs.items():
+        assert err <= 1e-5, f"{part}{where}: {err}"
+
+
+@pytest.mark.gpu
+def test_offload_smoke_train_step_on_card_equals_full(cuda_device):
+    """remat "offload" on the card (each block's saved input through pinned
+    host memory) against "full" from the same weights and batch: metrics,
+    parameters and moments after one step within 1e-6 by :func:`_rel`,
+    since the card's scatter-adds may sum in another order from run to run
+    (on the CPU the two are bit-equal, ``tests/test_torch_train.py``)."""
+    fm, fo, fmet, start = _smoke_train(cuda_device)
+    om, oo, omet, _ = _smoke_train(cuda_device, start, remat="offload")
+    assert om.parallel.remat == "offload"
+    for k in fmet:
+        assert _rel(omet[k], fmet[k]) <= 1e-6, k
+    named = dict(fm.named_parameters())
+    for n, p in om.named_parameters():
+        assert p.device.type == "cuda" and _rel(p, named[n]) <= 1e-6, n
+        assert _rel(oo.m[n], fo.m[n]) <= 1e-6 and _rel(oo.v[n], fo.v[n]) <= 1e-6, n
 
 
 @pytest.mark.gpu

@@ -230,3 +230,11 @@ def test_init_draws_every_leaf_and_packs_the_routers():
     assert all(torch.equal(a, b) for a, b in zip(model.state_dict().values(), again.state_dict().values()))
     shapes = model.cache_shapes(3, 10)
     assert shapes.kv.k.device.type == "meta" and shapes.kv.k.shape == (2, 3, 10, 2, 12)
+
+
+def test_paper_experiment_config_equals_jax():
+    from repro.configs.paper_segmentation import CONFIG as JCONFIG
+    from repro_torch.configs.paper_segmentation import CONFIG, PaperExperimentConfig
+
+    assert dataclasses.asdict(CONFIG) == dataclasses.asdict(JCONFIG)
+    assert CONFIG == PaperExperimentConfig()

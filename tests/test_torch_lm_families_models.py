@@ -155,22 +155,19 @@ def test_loss_and_gradients_equal_jax(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_remat_modes_give_equal_gradients(arch):
-    """none / full / dots: the same loss and gradients bit for bit.  The
-    xLSTM and encoder-decoder checkpoint ``"offload"`` as a whole layer, as
-    their JAX models do; the hybrid decoder refuses it, as every decoder
-    family does (not ported)."""
+    """none / full / dots / offload: the same loss and gradients bit for bit.
+    The xLSTM and encoder-decoder checkpoint ``"offload"`` as a whole layer,
+    as their JAX models do; the hybrid decoder also moves each block's saved
+    input to host memory, as every decoder family does."""
     batch = device_batch(jpipeline.pipeline_for(jreg.get_smoke_config(arch), JShape("s", 16, 2, "train"),
                                                 seed=0)(0), "cpu")
-    modes = ("none", "full", "dots") + (() if arch == "hymba" else ("offload",))
+    modes = ("none", "full", "dots", "offload")
     outs = {}
     for mode in modes:
         model = _port(arch, remat=mode)
         loss, _ = model.loss(batch)
         outs[mode] = (loss, torch.autograd.grad(loss, list(model.parameters()), allow_unused=True,
                                                 materialize_grads=True))
-    if arch == "hymba":
-        with pytest.raises(NotImplementedError, match="offload"):
-            _port(arch, remat="offload").loss(batch)
     for mode in modes[1:]:
         assert torch.equal(outs[mode][0], outs["none"][0])
         assert all(torch.equal(a, b) for a, b in zip(outs[mode][1], outs["none"][1]))

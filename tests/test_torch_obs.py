@@ -3,11 +3,14 @@
 The same calls go to both packages' registries and tracers; the snapshot
 JSON, the Prometheus text and the Chrome-trace events (timestamps, durations
 and thread ids aside) must be equal.  Mirrors the registry, exporter and
-tracer parts of ``tests/test_obs.py``.
+tracer parts of ``tests/test_obs.py``.  The trajectory store and regression
+detector (``obs/perf.py``) get the same payloads and histories in both
+packages and must give equal series, records, pools and regressions.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 import threading
@@ -17,8 +20,10 @@ import pytest
 import torch
 
 from repro import obs as jax_obs
+from repro.obs import perf as jax_perf
 from repro_torch import obs
 from repro_torch.obs import metrics as metrics_mod
+from repro_torch.obs import perf as torch_perf
 
 HOSTILE = 'cpu:cpu:x1|M64 "quoted" back\\slash\nnewline'
 
@@ -308,3 +313,98 @@ def test_torch_annotations_reach_the_profiler():
     assert "cascade.stage" in {e.key for e in prof.key_averages()}
     assert [e.name for e in tr.events()] == ["cascade.stage"]
     assert obs.Tracer()._annotation_cls is None
+
+
+# ---------------------------------------------------------------------------
+# the trajectory store and regression detector (obs/perf.py)
+# ---------------------------------------------------------------------------
+
+# environments carrying both packages' key sets, so that both modules'
+# ``env_key`` group the same runs: the key is the one deliberate difference
+_CARD_ENV = {"backend": "cuda", "device_kind": "NVIDIA H100 80GB HBM3", "device_count": 1,
+             "torch": "2.11.0+cu128", "cuda": "12.8", "pallas_interpret": False, "jax": "0.9.0"}
+_HOST_ENV = dict(_CARD_ENV, backend="cpu", device_kind="cpu", cuda=None, pallas_interpret=True)
+_ENTRY_SHAPES = (
+    {"name": "w"},
+    {"workload": "x", "variant": "fused"},
+    {"mix": "skew", "mode": "anytime", "mesh": [2, 4]},
+    {"name": "shard", "decomposition": "replica"},
+    {"name": "f", "stages": 2, "bound": 0.25},
+)
+
+
+def _payload(rng: np.random.Generator, env: dict) -> dict:
+    """One bench payload: entries of every naming shape, each under one of
+    the median keys (or none: an accuracy-only row), with a dispersion or
+    without, a duplicate name now and then, some rows in ``forest_entries``."""
+    entries, forest = [], []
+    for shape in _ENTRY_SHAPES:
+        if rng.random() < 0.2:
+            continue                                   # a series absent from this run
+        row = dict(shape)
+        key = rng.choice(["median_ms", "tuned_ms", "forest_tuned_ms", "measured_ms", "accuracy"])
+        row[str(key)] = float(rng.choice([1.0, 2.0, 8.0]) * rng.uniform(0.7, 2.6))
+        if rng.random() < 0.5:
+            row[str(rng.choice(["mad_ms", "tuned_mad_ms", "forest_tuned_mad_ms"]))] = float(rng.uniform(0.0, 0.5))
+        (forest if "stages" in shape else entries).append(row)
+    if rng.random() < 0.5:
+        entries.append({"name": "w", "median_ms": float(rng.uniform(1.0, 3.0))})
+    entries.append({"name": "acc_only", "accuracy": 0.9})
+    return {"env": dict(env), "entries": entries, "forest_entries": forest}
+
+
+def _regressions(found) -> list:
+    return [(dataclasses.asdict(r), r.ratio, r.describe()) for r in found]
+
+
+def test_perf_env_key_is_the_one_difference():
+    assert jax_perf.ENV_KEYS == ("backend", "device_kind", "device_count", "pallas_interpret", "jax")
+    assert torch_perf.ENV_KEYS == ("backend", "device_kind", "device_count", "torch", "cuda")
+    for env in (_CARD_ENV, _HOST_ENV):
+        assert (jax_perf.env_key(env) == jax_perf.env_key(_CARD_ENV)) \
+            == (torch_perf.env_key(env) == torch_perf.env_key(_CARD_ENV))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_perf_history_and_detector_equal_jax(seed, tmp_path):
+    """The same payloads appended through both modules into two directories,
+    read back, then every detector call on each growing prefix of the
+    history, at the default gates and at tighter ones."""
+    rng = np.random.default_rng(seed)
+    payloads = [_payload(rng, _HOST_ENV if rng.random() < 0.25 else _CARD_ENV) for _ in range(9)]
+    for payload in payloads:
+        assert torch_perf.extract_series(payload) == jax_perf.extract_series(payload)
+    for pkg, sub in ((jax_perf, "jax"), (torch_perf, "torch")):
+        for i, payload in enumerate(payloads):
+            pkg.append_history(tmp_path / sub, f"bench{seed}", payload, ts=f"2026-01-01T00:00:{i:02d}+00:00",
+                               source="test")
+        pkg.append_history(tmp_path / sub, "other", payloads[0], ts="2026-01-02T00:00:00+00:00")
+    want = jax_perf.load_history(tmp_path / "jax" / f"bench{seed}.jsonl")
+    got = torch_perf.load_history(tmp_path / "torch" / f"bench{seed}.jsonl")
+    assert got == want and len(got) == len(payloads)
+    assert (tmp_path / "torch" / f"bench{seed}.jsonl").read_text() == \
+        (tmp_path / "jax" / f"bench{seed}.jsonl").read_text()
+    for n in range(len(want) + 1):
+        hist = want[:n]
+        for window in (2, 5):
+            assert torch_perf.baseline_pool(hist, window=window) == jax_perf.baseline_pool(hist, window=window)
+            for min_runs in (1, 2, 3):
+                assert torch_perf.skipped_series(hist, window=window, min_runs=min_runs) \
+                    == jax_perf.skipped_series(hist, window=window, min_runs=min_runs)
+        for gates in ({}, {"rel_threshold": 0.1, "k_mad": 1.0}, {"window": 3, "rel_threshold": 0.2}):
+            assert _regressions(torch_perf.detect_regressions(hist, bench="b", **gates)) \
+                == _regressions(jax_perf.detect_regressions(hist, bench="b", **gates))
+    for benches in (None, [f"bench{seed}"], ["missing"]):
+        got = torch_perf.check_history_dir(tmp_path / "torch", benches=benches, rel_threshold=0.1, k_mad=1.0)
+        want = jax_perf.check_history_dir(tmp_path / "jax", benches=benches, rel_threshold=0.1, k_mad=1.0)
+        assert {b: _regressions(r) for b, r in got.items()} == {b: _regressions(r) for b, r in want.items()}
+
+
+def test_perf_corrupt_history_raises_the_same(tmp_path):
+    path = tmp_path / "bad.jsonl"
+    path.write_text('{"ok": 1}\n\nnot json at all\n')
+    with pytest.raises(ValueError) as jax_err:
+        jax_perf.load_history(path)
+    with pytest.raises(ValueError) as torch_err:
+        torch_perf.load_history(path)
+    assert str(torch_err.value) == str(jax_err.value) and "bad.jsonl:3" in str(torch_err.value)

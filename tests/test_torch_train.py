@@ -297,11 +297,11 @@ def test_model_loss_and_gradients_equal_jax(arch):
 
 @pytest.mark.parametrize("arch", ["yi", "granite-moe"])
 def test_remat_modes_give_equal_gradients(arch):
-    """none / full / dots: the same loss and gradients bit for bit, and the
-    same no-grad forward (the serving path never checkpoints)."""
+    """none / full / dots / offload: the same loss and gradients bit for bit,
+    and the same no-grad forward (the serving path never checkpoints)."""
     batch = device_batch(_batch(arch), "cpu")
     outs = {}
-    for mode in ("none", "full", "dots"):
+    for mode in ("none", "full", "dots", "offload"):
         model = _port(arch, remat=mode)
         named = dict(model.named_parameters())
         loss, _ = model.loss(batch)
@@ -309,7 +309,7 @@ def test_remat_modes_give_equal_gradients(arch):
         with torch.no_grad():
             logits, _ = model(batch)
         outs[mode] = (loss, grads, logits)
-    for mode in ("full", "dots"):
+    for mode in ("full", "dots", "offload"):
         assert torch.equal(outs[mode][0], outs["none"][0])
         assert torch.equal(outs[mode][2], outs["none"][2])
         for a, b in zip(outs[mode][1], outs["none"][1]):
@@ -333,8 +333,26 @@ def test_remat_checkpoints_blocks_only_while_grad_is_enabled(monkeypatch):
     calls.clear()
     unscanned.loss(batch)
     assert calls == []                  # as in JAX: only the scanned stack is rematerialized
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port("yi", remat="offload").loss(batch)
+    # "offload": the same checkpoint per block, and its saved input, the one
+    # tensor packed a block, goes to host memory and comes back for the
+    # recompute; loss and gradients equal "full" bit for bit
+    import repro_torch.models.lm as lm_model
+
+    packed = []
+    real_pack = lm_model._to_host
+    monkeypatch.setattr(lm_model, "_to_host", lambda t: packed.append(t) or real_pack(t))
+    calls.clear()
+    offload = _port("yi", remat="offload")
+    with torch.no_grad():
+        offload.loss(batch)
+    assert calls == [] and packed == []
+    loss, _ = offload.loss(batch)
+    assert len(calls) == len(packed) == model.cfg.n_layers and all(not kw["use_reentrant"] for kw in calls)
+    assert all(t.shape == (*batch["tokens"].shape, model.cfg.d_model) for t in packed)
+    got = torch.autograd.grad(loss, list(offload.parameters()))
+    want_loss, _ = model.loss(batch)
+    assert torch.equal(loss, want_loss)
+    assert all(torch.equal(a, b) for a, b in zip(got, torch.autograd.grad(want_loss, list(model.parameters()))))
     with pytest.raises(ValueError):
         _port("yi", remat="everything").loss(batch)
 
