@@ -87,7 +87,8 @@ Phases, each printing its own lines:
    ``pipeline_for(cfg, ShapeConfig("train", 128, 4, "train"), seed=0)``
    (``TrainConfig(lr=3e-4, warmup_steps=1, total_steps=steps,
    ckpt_every=0)``), 4 steps for hymba and xlstm-125m, 2 for
-   whisper-medium (its encoder's attention runs 375 blocks a layer): loss,
+   whisper-medium at full width and 8 of its 24 + 24 layers (its encoder's
+   attention runs 375 blocks a layer; the cut keeps the smoke's time): loss,
    grad norm, lr, step ms and tokens/s a step, peak memory; every number
    finite, step 0's loss equal to ``model.loss`` on batch 0 within 1e-5,
    the loss on batch 0 lower after the steps; for hymba and xLSTM one more
@@ -98,6 +99,34 @@ Phases, each printing its own lines:
    (f32), one train step on the card against the CPU port, the model's
    part (loss, gradients) and AdamW's (on the card's gradients) each
    within 1e-5; no kernel of ours launches in the phase;
+2d. lm-dist — the LM trained across the cards, in a child process of its
+   own after 2g (``chip_smoke.py --lm-dist``) that spawns one process a card
+   (NCCL through a ``FileStore``): a (data, model) mesh of 1×1 on one card,
+   2×1 on two or three, 2×2 on four or more.  granite-moe-3b-a800m at full
+   width in f32 (bf16 gradients would round once a shard, not once a
+   batch), seed 0, built with the mesh's axes: rank 0 first takes the
+   single-device step (``loss_and_grads``) on B 8 × S 128 and frees it;
+   then every rank builds the model on ``meta``, places it by its JAX specs
+   (``distribute``), draws the same weights and takes one sharded step
+   (blocks gathering their weights just in time, gradients reduce-scattered,
+   ZeRO-1 AdamW): loss within 1e-4 relative of the reference's, every
+   gradient within 1e-4 of its leaf's max-abs, AdamW on equal gradients
+   within 1e-5 (ROADMAP §3 item 17; the whole step's difference is printed);
+   each rank's parameter, gradient and moment bytes, its peak and the
+   step's time, then a second (warm) step's; the stale routers raise, are packed from the gathered
+   thresholds and route each rank's batch shard on K1 onehot (a launch a
+   layer a rank), every route ``torch.equal`` to its plain version.  On
+   two cards or more, the bf16 witness: yi-6b at full width and 4 of its
+   32 layers in its own bf16 activations, B 4 × S 128, the sharded step's
+   loss and gradients within 1e-5 of the single-device step microbatched
+   by the number of batch shards (each part's bf16 gradients summed in
+   f32, as the shards' are), the whole-batch step's difference printed
+   beside it, and 3 steps' losses of all three.  On four cards yi-6b at
+   full width then trains 3 steps of B 4 × S 128 on a 2×2 mesh (losses
+   finite, each card holding at most a quarter of the sharded leaves plus
+   the replicated norms, peak under the card's memory; the gradients'
+   bytes read inside each step); on fewer cards one line says what did not
+   run;
 3. kernels against plain versions — K1 (gather, onehot), K2, K3 (gather,
    onehot) and K4 on adversarial records (ties, ±inf, NaN) and trees of depth
    0–9 (one with N > 128), M ∈ {1, 7, 65,536}; K5 (gather, onehot) and K6 on
@@ -229,8 +258,10 @@ from __future__ import annotations
 
 import argparse
 import ast
+import dataclasses
 import importlib.util
 import json
+import math
 import multiprocessing
 import os
 import shutil
@@ -3085,6 +3116,7 @@ def phase_lm_families(dev, card, cfgs=None) -> dict:
 
 
 FAM_TRAIN_STEPS = {"hybrid": 4, "ssm": 4, "audio": 2}   # whisper's encoder runs 375 attention blocks a layer
+FAM_TRAIN_WHISPER_LAYERS = 8   # of 24 encoder and 24 decoder layers, at full width: the smoke's time
 FAM_TRAIN_SEQ, FAM_TRAIN_BATCH = 128, 4
 FAM_TRAIN_TAG = "[lm-families-train]"
 LM_FAMILIES_TRAIN_RESULT = FAM_TRAIN_TAG + " result "
@@ -3186,13 +3218,458 @@ def phase_lm_families_train(dev, card, cfgs=None) -> dict:
 
     t_phase = time.perf_counter()
     K.reset_launches()
-    for cfg in cfgs or [get_config(a) for a in FAM_ARCHS]:
+    if cfgs is None:
+        cfgs = [get_config(a) for a in FAM_ARCHS]
+        n = FAM_TRAIN_WHISPER_LAYERS
+        cfgs = [dataclasses.replace(c, name=f"{c.name}-{n}+{n}L", n_layers=n,
+                                    encoder=dataclasses.replace(c.encoder, n_layers=n))
+                if c.family == "audio" else c for c in cfgs]
+    for cfg in cfgs:
         fam_train(cfg, dev, card)
     for arch in ("hymba", "xlstm", "whisper"):
         fam_train_card_vs_cpu(dev, card, arch)
     check(sum(K.LAUNCHES.values()) == 0, f"training the families launched kernels of ours: {K.LAUNCHES}")
     print(f"{FAM_TRAIN_TAG} phase took {time.perf_counter() - t_phase:.1f} s on the host of {card}")
     return {"k1_onehot_launches": 0, "max_abs_err": 0}
+
+
+# ---------------------------------------------------------------------------
+# phase 2d: the LM training path across the cards (one process a card)
+# ---------------------------------------------------------------------------
+
+
+DIST_ARCH_BIG = "yi-6b"
+DIST_BATCH, DIST_SEQ = 8, 128          # granite: each data shard holds whole 512-token MoE groups
+DIST_BIG_BATCH, DIST_BIG_SEQ, DIST_BIG_STEPS = 4, 128, 3
+DIST_LOSS_TOL = 1e-4                   # tests/test_distributed.py::test_sharded_train_step_matches_single_device
+DIST_GRAD_TOL = 1e-4                   # of each gradient leaf's max-abs
+DIST_ADAMW_TOL = 1e-5                  # ROADMAP §3 item 17: AdamW from equal gradients, of each leaf's max-abs
+# the bf16 witness: the sharded bf16 step against one device's microbatched
+# by the batch shards rounds the same bf16 gradients and differs only in the
+# order of f32 sums (0 at smoke width on the host, tests/test_torch_distributed.py)
+DIST_WITNESS_LAYERS = 4
+DIST_BF16_TOL = 1e-5                   # loss relative; each gradient leaf, of its max-abs
+DIST_TAG = "[lm-dist]"
+LM_DIST_RESULT = DIST_TAG + " result "
+LM_DIST_TIMEOUT_S = 900
+DIST_RANK_TIMEOUT_S = 300
+
+
+def dist_mesh_shape(cards: int) -> tuple[int, int]:
+    """(data, model) of the ``[lm-dist]`` mesh: 1×1 on one card, 2×1 on two or
+    three, 2×2 on four or more."""
+    return (1, 1) if cards < 2 else (2, 1) if cards < 4 else (2, 2)
+
+
+def dist_bytes(tensors) -> int:
+    """The bytes of the blocks this rank holds."""
+    from torch.distributed.tensor import DTensor
+
+    return sum((t.to_local() if isinstance(t, DTensor) else t).nbytes for t in tensors)
+
+
+def dist_gather(obj) -> list:
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def dist_print(rank: int, msg: str) -> None:
+    if rank == 0:
+        print(msg, flush=True)
+
+
+def dist_cards_line(rank: int, card: str, what: str, per_rank: list) -> None:
+    gib = 2.0**30
+    dist_print(rank, f"{DIST_TAG} {card}: {what}: " + "; ".join(
+        f"rank {r}: params {p['params'] / gib:.3f} GiB, grads {p['grads'] / gib:.3f} GiB, m+v "
+        f"{p['mv'] / gib:.3f} GiB, peak {p['peak'] / gib:.3f} GiB" for r, p in enumerate(per_rank)))
+
+
+def dist_granite(rank: int, world: int, mesh, card: str) -> dict:
+    """granite-moe-3b-a800m at full width in f32 (as the JAX test's config:
+    bf16 gradients round once a shard, not once a batch): the single-device
+    step (rank 0), freed, then one sharded step on the same weights and
+    batch; gradients and AdamW held against it; a second, warm step timed;
+    K1 routing from the gathered thresholds."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import moe as lm_moe
+    from repro_torch.optim import adamw as lm_adamw
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import device_batch, loss_and_grads
+
+    dev = shd.mesh_device(mesh)
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    axes = shd.from_mesh(mesh)
+    tcfg = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=10)
+    batch = device_batch(pipeline_for(cfg, ShapeConfig("train", DIST_SEQ, DIST_BATCH, "train"), seed=0)(0), dev)
+    gib = 2.0**30
+
+    ref = None
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, device=dev, axes=axes)
+        model.init(torch.Generator(device=dev).manual_seed(0))
+        t0 = time.perf_counter()
+        loss, aux, grads = loss_and_grads(model, batch)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        ref = {"loss": float(loss), "nll": float(aux["nll"]), "aux": float(aux["aux"]),
+               "grad_norm": float(lm_adamw.global_norm(grads)),
+               "grads": {n: g.to("cpu") for n, g in grads.items()}}
+        print(f"{DIST_TAG} {card}: the single-device reference on rank 0's card ({cfg.name} in f32, vocab "
+              f"padded to {model.v_pad} and {model.layers[0].moe.wi.shape[0]} experts for model={axes.model_size}): "
+              f"loss {ref['loss']:.6f} (nll {ref['nll']:.6f}, aux {ref['aux']:.6f}), grad norm "
+              f"{ref['grad_norm']:.6f}, forward + backward {ref_s * 1e3:.1f} ms, peak "
+              f"{torch.cuda.max_memory_allocated() / gib:.3f} GiB; freed before the sharded model is built", flush=True)
+        del model, loss, aux, grads
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="meta", axes=axes).distribute(mesh)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    before = {}
+    for n, p in model.named_parameters():      # rank 0 keeps the weights on the host, for AdamW's check
+        full = p.detach().full_tensor()
+        if rank == 0:
+            before[n] = full.to("cpu")
+        del full
+    opt = lm_adamw.adamw_init(model)
+    decay = lm_adamw.default_decay_mask(model)
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, aux, grads = loss_and_grads(model, batch)
+    _, opt, stats = lm_adamw.adamw_apply(model, grads, opt, tcfg, decay_mask=decay)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    mine = {"params": dist_bytes(model.parameters()), "grads": dist_bytes(grads.values()),
+            "mv": dist_bytes(list(opt.m.values()) + list(opt.v.values())),
+            "peak": torch.cuda.max_memory_allocated(), "step_s": step_s}
+    per_rank = dist_gather(mine)
+    got = {"loss": float(loss), "nll": float(aux["nll"]), "aux": float(aux["aux"]),
+           "grad_norm": float(stats["grad_norm"])}
+    dist_print(rank, f"{DIST_TAG} {card}: {cfg.name} at full width on a {shd.mesh_sizes(mesh)} mesh ({world} "
+               f"card{'s' * (world > 1)}, {dist.get_backend()}), B {DIST_BATCH} x S {DIST_SEQ}, one sharded step (forward + block "
+               f"re-gather and recompute + backward + reduce-scatter + ZeRO-1 AdamW): loss {got['loss']:.6f} "
+               f"(nll {got['nll']:.6f}, aux {got['aux']:.6f}), grad norm {got['grad_norm']:.6f}; step "
+               + ", ".join(f"{p['step_s'] * 1e3:.1f}" for p in per_rank) + " ms by rank (host clock, after synchronize)")
+    dist_cards_line(rank, card, "bytes of this rank's blocks and its peak during the step", per_rank)
+
+    # gradients and AdamW, leaf by leaf, against the reference (rank 0 checks)
+    worst = {"grad": (0.0, ""), "adamw": (0.0, ""), "step": (0.0, "")}
+    scale = lm_adamw._clip_scale(stats["grad_norm"], tcfg.grad_clip)
+    if rank == 0:
+        ref_scale = lm_adamw._clip_scale(torch.tensor(ref["grad_norm"], device=dev), tcfg.grad_clip)
+        loss_err = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+        check(loss_err <= DIST_LOSS_TOL, f"the sharded loss {got['loss']} is not the reference's {ref['loss']}")
+    noclip = dataclasses.replace(tcfg, grad_clip=float("inf"))
+    for n, p in model.named_parameters():
+        g = grads[n].full_tensor()
+        after = p.detach().full_tensor()
+        if rank == 0:
+            rg = ref["grads"].pop(n).to(dev)
+            m = float(rg.abs().max())
+            err = float((g - rg).abs().max()) / max(m, 1e-30)
+            worst["grad"] = max(worst["grad"], (err, n))
+            check(err <= DIST_GRAD_TOL, f"gradient {n}: {err:.3g} of its max-abs {m:.3g}")
+            # one device's AdamW on the sharded step's own gradients (clip
+            # applied here with the sharded norm), then on the reference's
+            for key, gg, sc in (("adamw", g, scale), ("step", rg, ref_scale)):
+                p1 = {n: before[n].to(dev)}
+                one = lm_adamw.adamw_init(p1)
+                lm_adamw.adamw_apply(p1, {n: gg * sc}, one, noclip, decay_mask={n: decay[n]})
+                pm = float(p1[n].abs().max())
+                e = float((after - p1[n]).abs().max()) / max(pm, 1.0)
+                worst[key] = max(worst[key], (e, n))
+            del rg, p1, one
+        del g, after
+    if rank == 0:
+        check(worst["adamw"][0] <= DIST_ADAMW_TOL, f"sharded AdamW differs from one device's on equal gradients: "
+              f"{worst['adamw']}")
+        print(f"{DIST_TAG} {card}: against the single-device step on the same weights and batch: loss relative "
+              f"difference {loss_err:.3g} (tolerance {DIST_LOSS_TOL}), grad norm {got['grad_norm']:.6f} vs "
+              f"{ref['grad_norm']:.6f}; largest gradient difference {worst['grad'][0]:.3g} of its leaf's max-abs "
+              f"({worst['grad'][1]}; tolerance {DIST_GRAD_TOL}); AdamW (ZeRO-1, sharded) against one device's "
+              f"AdamW on the same gradients: {worst['adamw'][0]:.3g} of max(1, max-abs) ({worst['adamw'][1]}; "
+              f"tolerance {DIST_ADAMW_TOL}); whole step against the reference's gradients through one device's "
+              f"AdamW: {worst['step'][0]:.3g} ({worst['step'][1]}; printed, not gated: ROADMAP §3 item 17)",
+              flush=True)
+    before.clear()
+    del grads
+
+    dist.barrier()
+    t0 = time.perf_counter()
+    loss, aux, grads = loss_and_grads(model, batch)
+    lm_adamw.adamw_apply(model, grads, opt, tcfg, decay_mask=decay)
+    torch.cuda.synchronize()
+    warm = dist_gather(time.perf_counter() - t0)
+    dist_print(rank, f"{DIST_TAG} {card}: a second sharded step on the same batch (warm): loss {float(loss):.6f}, "
+               + ", ".join(f"{t * 1e3:.1f}" for t in warm) + " ms by rank (host clock, after synchronize)")
+    del loss, aux, grads
+
+    # the hard route on K1 from the gathered thresholds
+    stale = sum(r.stale for r in model.tree_routers())
+    check(stale == cfg.n_layers, f"{stale} of {cfg.n_layers} routers stale after the sharded step")
+    shards = shd.BatchShards(mesh, shd.batch_dims(mesh, axes, DIST_BATCH))
+    local = {"tokens": shd.local_batch(batch, shards)["tokens"]}
+    try:
+        with torch.no_grad(), model.gathered_top():
+            model.hidden(local, serve_hard_tree=True)
+        fail("a stale router routed after the sharded step")
+    except RuntimeError as e:
+        check("changed since" in str(e), f"the stale router raised {e}")
+    model.pack_routers()
+    captured = []
+    hooks = [r.register_forward_hook(lambda r, a, out: captured.append((r, a[0], a[1], out)))
+             for r in model.tree_routers()]
+    K.reset_launches()
+    try:
+        with torch.no_grad(), model.gathered_top():
+            x, _ = model.hidden(local, serve_hard_tree=True)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    launches = K.LAUNCHES["speculative/onehot"]
+    check(launches == cfg.n_layers and sum(K.LAUNCHES.values()) == launches and bool(torch.isfinite(x).all()),
+          f"rank {rank}: the hard route launched {dict(K.LAUNCHES)}")
+    n_int = 2**cfg.moe.tree_depth() - 1
+    err = 0
+    for i, (router, h2, proj, experts) in enumerate(captured):
+        z = lm_moe.router_features(h2, proj).reshape(-1, n_int)
+        pk = router.packed
+        plain = K.speculative_plain(sanitize_records(z), pk.attr_idx, pk.attr_select, pk.threshold, pk.child,
+                                    pk.class_val, total_jumps=ops._total_jumps(pk.max_depth), jump_mode="onehot")
+        check(torch.equal(experts.reshape(-1), plain), f"rank {rank} layer {i}: K1 routed otherwise than plain")
+        err = max(err, max_abs_err(experts.reshape(-1), plain))
+    total = sum(dist_gather(launches))
+    dist_print(rank, f"{DIST_TAG} after the sharded step all {stale} routers are stale on every rank and the hard "
+               f"route raises; pack_routers() packs them from the gathered router_thr; one hard-routed forward of "
+               f"each rank's batch shard ({local['tokens'].shape[0]} x {DIST_SEQ}) launched K1 onehot {launches} "
+               f"times a rank ({total} in all), every route torch.equal to K1's plain version on the same z")
+    del model, opt, x, captured
+    torch.cuda.empty_cache()
+    return {"launches": total, "max_abs_err": err}
+
+
+def dist_bf16(rank: int, world: int, mesh, card: str) -> None:
+    """The bf16 witness: yi-6b at full width, cut to DIST_WITNESS_LAYERS
+    layers, in its own bf16 activations (f32 parameters).  Rank 0 takes 3
+    steps on one card twice, on the whole batch and microbatched by the
+    number of batch shards; then every rank takes the same 3 steps sharded.
+    The first step's loss and gradients are held against the microbatched
+    step (the same bf16 roundings); the whole-batch step's difference and
+    every step's loss are printed."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw as lm_adamw
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import device_batch, loss_and_grads
+
+    dev = shd.mesh_device(mesh)
+    cfg = dataclasses.replace(get_config(DIST_ARCH_BIG), n_layers=DIST_WITNESS_LAYERS)
+    axes = shd.from_mesh(mesh)
+    shards = shd.BatchShards(mesh, shd.batch_dims(mesh, axes, DIST_BIG_BATCH)).count
+    tcfg = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=DIST_BIG_STEPS)      # dist_yi's
+    pipe = pipeline_for(cfg, ShapeConfig("train", DIST_BIG_SEQ, DIST_BIG_BATCH, "train"), seed=0)
+    batches = [device_batch(pipe(i), dev) for i in range(DIST_BIG_STEPS)]
+
+    def steps(model, microbatch: int):
+        """3 train steps: (losses, the first step's gradients as DTensors or tensors)."""
+        opt, decay = lm_adamw.adamw_init(model), lm_adamw.default_decay_mask(model)
+        losses, first = [], None
+        for b in batches:
+            loss, _, grads = loss_and_grads(model, b, microbatch=microbatch)
+            if first is None:
+                first = {n: g.clone() for n, g in grads.items()}
+            lm_adamw.adamw_apply(model, grads, opt, tcfg, decay_mask=decay)
+            losses.append(float(loss))
+        return losses, first
+
+    ref = {}
+    if rank == 0:
+        for k in (shards, 1):
+            model = build_model(cfg, device=dev, axes=axes)
+            model.init(torch.Generator(device=dev).manual_seed(0))
+            losses, grads = steps(model, k)
+            ref[k] = (losses, {n: g.to("cpu") for n, g in grads.items()})
+            del model, grads
+            torch.cuda.empty_cache()
+    dist.barrier()
+    model = build_model(cfg, device="meta", axes=axes).distribute(mesh)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    losses, grads = steps(model, 0)
+    worst = {k: (0.0, "") for k in (shards, 1)}
+    for n in list(grads):
+        g = grads.pop(n).full_tensor()
+        if rank == 0:
+            for k in worst:
+                rg = ref[k][1][n].to(dev)
+                err = float((g - rg).abs().max()) / max(float(rg.abs().max()), 1e-30)
+                worst[k] = max(worst[k], (err, n))
+            check(worst[shards][0] <= DIST_BF16_TOL, f"bf16 gradient {n}: {worst[shards][0]:.3g} of its max-abs "
+                  f"from the step microbatched by the {shards} batch shards")
+        del g
+    if rank == 0:
+        loss_err = abs(losses[0] - ref[shards][0][0]) / abs(ref[shards][0][0])
+        check(loss_err <= DIST_BF16_TOL, f"the sharded bf16 loss {losses[0]} is not the microbatched one's "
+              f"{ref[shards][0][0]}")
+        fmt = lambda xs: ", ".join(f"{x:.6f}" for x in xs)      # noqa: E731
+        print(f"{DIST_TAG} {card}: the bf16 witness: {cfg.name} at full width and {cfg.n_layers} of its "
+              f"{get_config(DIST_ARCH_BIG).n_layers} layers, {cfg.dtype} activations, B {DIST_BIG_BATCH} x S "
+              f"{DIST_BIG_SEQ} over {shards} batch shards of the {shd.mesh_sizes(mesh)} mesh, seed 0. First step: "
+              f"the sharded step against one card's microbatched by {shards}: loss {loss_err:.3g} relative, "
+              f"gradients {worst[shards][0]:.3g} of their leaf's max-abs at most ({worst[shards][1]}; tolerance "
+              f"{DIST_BF16_TOL}); against one card's whole batch: gradients {worst[1][0]:.3g} ({worst[1][1]}; "
+              f"printed: one device rounds the whole batch's bf16 gradient once). Losses of {DIST_BIG_STEPS} steps "
+              f"(lr {tcfg.lr:g}, warmup {tcfg.warmup_steps}): sharded {fmt(losses)}; one card microbatched "
+              f"{fmt(ref[shards][0])}; one card whole batch {fmt(ref[1][0])}; ln(vocab {cfg.vocab_size}) = "
+              f"{math.log(cfg.vocab_size):.6f}", flush=True)
+    ref.clear()
+    del model
+    torch.cuda.empty_cache()
+
+
+def dist_yi(rank: int, world: int, mesh, card: str) -> None:
+    """yi-6b at full width on a 2×2 mesh: 3 sharded train steps."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import adamw_apply, adamw_init, default_decay_mask
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import LoopState, device_batch, loss_and_grads, train_loop
+
+    dev = shd.mesh_device(mesh)
+    cfg = get_config(DIST_ARCH_BIG)
+    axes = shd.from_mesh(mesh)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="meta", axes=axes).distribute(mesh)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    opt = adamw_init(model)
+    tcfg = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=DIST_BIG_STEPS, ckpt_every=0)
+    pipe = pipeline_for(cfg, ShapeConfig("train", DIST_BIG_SEQ, DIST_BIG_BATCH, "train"), seed=0)
+    decay = default_decay_mask(model)
+    seen = []
+
+    def timed_step(m, o, b):      # make_train_step's step, the gradients' bytes read on the way
+        loss, _, grads = loss_and_grads(m, b)
+        grad_bytes = dist_bytes(grads.values())
+        m, o, stats = adamw_apply(m, grads, o, tcfg, decay_mask=decay)
+        del grads
+        torch.cuda.synchronize()
+        seen.append({"lr": float(stats["lr"]), "grad_norm": float(stats["grad_norm"]), "grad_bytes": grad_bytes})
+        return m, o, {"loss": loss, **stats}
+
+    torch.cuda.reset_peak_memory_stats()
+    state, report = train_loop(LoopState(model=model, opt_state=opt, step=0), timed_step,
+                               lambda i: device_batch(pipe(i), dev), tcfg)
+    params = list(model.parameters())
+    whole = {"2d": 0, "1d": 0, "replicated": 0}
+    for p in params:
+        n_sharded = sum(isinstance(pl, Shard) for pl in p.placements)
+        whole["2d" if n_sharded == 2 else "1d" if n_sharded == 1 else "replicated"] += p.numel() * p.element_size()
+    check(len({x["grad_bytes"] for x in seen}) == 1, f"rank {rank}: gradient bytes {seen}")
+    mine = {"params": dist_bytes(params), "grads": seen[0]["grad_bytes"],
+            "mv": dist_bytes(list(opt.m.values()) + list(opt.v.values())),
+            "peak": torch.cuda.max_memory_allocated(), "times": report.step_times, "losses": report.losses}
+    per_rank = dist_gather(mine)
+    cap = torch.cuda.get_device_properties(dev).total_memory
+    for r, p in enumerate(per_rank):
+        check(all(np.isfinite(x) for x in p["losses"]), f"rank {r}: losses {p['losses']}")
+        check(p["params"] <= whole["2d"] / 4 + whole["1d"] / 2 + whole["replicated"],
+              f"rank {r} holds {p['params']} parameter bytes, more than a quarter of the sharded leaves")
+        check(p["peak"] < cap, f"rank {r}: peak {p['peak']} of {cap}")
+    gib = 2.0**30
+    n_params = sum(p.numel() for p in params)
+    dist_print(rank, f"{DIST_TAG} {card}: {cfg.name} at full width ({n_params:,} f32 parameters, seed 0) on a "
+               f"{shd.mesh_sizes(mesh)} mesh, {DIST_BIG_STEPS} steps of B {DIST_BIG_BATCH} x S {DIST_BIG_SEQ}: "
+               f"losses " + ", ".join(f"{x:.6f}" for x in per_rank[0]["losses"]) + " (lr "
+               + ", ".join(f"{x['lr']:g}" for x in seen) + ", grad norm " + ", ".join(f"{x['grad_norm']:.4f}" for x in seen)
+               + f"; ln(vocab {cfg.vocab_size}) = {math.log(cfg.vocab_size):.6f}); step times "
+               + ", ".join(f"{t * 1e3:.1f}" for t in per_rank[0]["times"]) + " ms (rank 0, host clock, after "
+               f"synchronize); the whole state: parameters {4 * n_params / gib:.3f} GiB, their 2-D-sharded leaves "
+               f"{whole['2d'] / gib:.3f} GiB, 1-D {whole['1d'] / gib:.3f}, replicated {whole['replicated'] / gib:.4f}")
+    dist_cards_line(rank, card, "bytes of this rank's blocks (gradients as each step's loss_and_grads returned "
+                    "them, freed after its AdamW) and its peak during the steps", per_rank)
+    del state, model, opt
+    torch.cuda.empty_cache()
+
+
+def lm_dist_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of ``[lm-dist]``: a card of its own, NCCL through a FileStore
+    (the kernel library is already built by the process that spawned it)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=DIST_RANK_TIMEOUT_S),
+                            device_id=torch.device("cuda", rank))
+    try:
+        card = card_line()
+        mesh = make_test_mesh(*dist_mesh_shape(world))
+        result = dist_granite(rank, world, mesh, card)
+        if world >= 2:
+            dist_bf16(rank, world, mesh, card)
+        else:
+            dist_print(rank, f"{DIST_TAG} the bf16 witness needs 2 cards (a sharded step against one card's); "
+                       f"{world} here, so it did not run")
+        if world >= 4:
+            dist_yi(rank, world, make_test_mesh(2, 2), card)
+        else:
+            dist_print(rank, f"{DIST_TAG} {DIST_ARCH_BIG} at full width needs 4 cards (a 2x2 mesh: its f32 "
+                       f"parameters, gradients and AdamW moments come to about 97 GB); {world} here, so it did not run")
+        if rank == 0:
+            Path(out).write_text(json.dumps({"k1_onehot_launches": result["launches"],
+                                             "max_abs_err": result["max_abs_err"]}))
+        dist.barrier()
+    except BaseException:
+        # leave at once: the other ranks wait in a collective that will not
+        # come, and the spawning process ends them when this one exits
+        import traceback
+
+        traceback.print_exc()
+        sys.stdout.flush()
+        os._exit(1)
+    dist.destroy_process_group()
+
+
+def phase_lm_dist(card) -> dict:
+    """The multi-card LM training path, one process a card (module docstring, phase 2d)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    world = int(np.prod(dist_mesh_shape(cards)))
+    tmp = tempfile.mkdtemp(prefix="lm_dist_")
+    try:
+        out = os.path.join(tmp, "result.json")
+        print(f"{DIST_TAG} {cards} card{'s' * (cards > 1)} present: {world} rank{'s' * (world > 1)} on a "
+              f"{dist_mesh_shape(cards)} (data, model) mesh", flush=True)
+        torch.multiprocessing.spawn(lm_dist_rank, args=(world, os.path.join(tmp, "store"), out), nprocs=world,
+                                    join=True)
+        result = json.loads(Path(out).read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"{DIST_TAG} phase took {time.perf_counter() - t_phase:.1f} s on the host of {card}")
+    return result
 
 
 def run_lm_child(card, flag: str, result_prefix: str, timeout_s: int) -> dict:
@@ -3356,6 +3833,9 @@ def main() -> None:
     parser.add_argument("--lm-families-train", action="store_true",
                         help="run phase 2g (the hybrid, xLSTM and encoder-decoder families trained) alone; the "
                              "full run starts it so, in a child")
+    parser.add_argument("--lm-dist", action="store_true",
+                        help="run phase 2d (the LM trained across the cards, one process a card) alone; the full "
+                             "run starts it so, in a child")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -3379,6 +3859,10 @@ def main() -> None:
         _build.build(K.SOURCE)
         print(LM_FAMILIES_TRAIN_RESULT + json.dumps(phase_lm_families_train(dev, card)))
         return
+    if args.lm_dist:
+        _build.build(K.SOURCE)
+        print(LM_DIST_RESULT + json.dumps(phase_lm_dist(card)))
+        return
     print(f"[device] {kind}; nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
@@ -3391,6 +3875,7 @@ def main() -> None:
     lm_families = run_lm_child(card, "--lm-families", LM_FAMILIES_RESULT, LM_FAMILIES_TIMEOUT_S)
     lm_families_train = run_lm_child(card, "--lm-families-train", LM_FAMILIES_TRAIN_RESULT,
                                      LM_FAMILIES_TRAIN_TIMEOUT_S)
+    lm_dist = run_lm_child(card, "--lm-dist", LM_DIST_RESULT, LM_DIST_TIMEOUT_S)
 
     errs = phase_kernels(dev)
     errs |= phase_quant_kernels(dev)
@@ -3475,7 +3960,7 @@ def main() -> None:
         print(f"[parent] {root}")
         phase_parent(dev, images[0], enc, forest, plan, second, layouts, root, card)
     check(len(timings) == len(K.LAUNCHES), f"timed {len(timings)} kernels, not {len(K.LAUNCHES)}")
-    for child in (lm, lm_train, lm_families, lm_families_train):
+    for child in (lm, lm_train, lm_families, lm_families_train, lm_dist):
         launches["speculative/onehot"] += child["k1_onehot_launches"]
         errs["speculative/onehot"] = max(errs["speculative/onehot"], child["max_abs_err"])
     kernels = []

@@ -4,7 +4,8 @@ The port's counterpart of the JAX package's ``models/api.py``.  Every
 model class has the same protocol (:class:`repro_torch.models.schema.
 SchemaModel`):
 
-    schema() / init(generator) / cast_for_compute() / tree_routers()
+    schema() / param_specs() / param_shapes() / init(generator)
+    cast_for_compute() / tree_routers() / distribute(mesh)
     forward(batch) -> (logits, aux)
     loss(batch)    -> (loss, metrics)
     prefill(batch, max_len) -> (last_logits, cache)
@@ -27,13 +28,23 @@ from repro_torch.models.encdec import EncDecModel
 from repro_torch.models.lm import DecoderModel
 from repro_torch.models.schema import SchemaModel
 from repro_torch.models.xlstm_lm import XLSTMModel
+from repro_torch.parallel import sharding as shd
 
 
-def build_model(cfg: ModelConfig, device=None, parallel: ParallelConfig | None = None) -> SchemaModel:
+def build_model(cfg: ModelConfig, device=None, parallel: ParallelConfig | None = None, *,
+                axes: shd.MeshAxes | None = None) -> SchemaModel:
     """The model for ``cfg`` on ``device`` (default: the card, which raises
-    without one; ``"meta"`` allocates nothing)."""
+    without one; ``"meta"`` allocates nothing).
+
+    ``axes`` (default :func:`~repro_torch.parallel.sharding.single_device_axes`)
+    are the mesh's: their ``model`` size pads the vocabulary and the experts,
+    and they set the specs of ``param_specs()``.  To train across cards,
+    build on ``"meta"`` with ``from_mesh(mesh)`` and call
+    ``model.distribute(mesh)``, then ``model.init(generator)``.
+    """
+    axes = axes or shd.single_device_axes()
     if cfg.family == "audio":
-        return EncDecModel(cfg, device=device, parallel=parallel)
+        return EncDecModel(cfg, device=device, parallel=parallel, axes=axes)
     if cfg.family == "ssm":
-        return XLSTMModel(cfg, device=device, parallel=parallel)
-    return DecoderModel(cfg, device=device, parallel=parallel)
+        return XLSTMModel(cfg, device=device, parallel=parallel, axes=axes)
+    return DecoderModel(cfg, device=device, parallel=parallel, axes=axes)

@@ -1,4 +1,4 @@
-"""Encoder-decoder model (the whisper-medium backbone), on one device.
+"""Encoder-decoder model (the whisper-medium backbone).
 
 The port's counterpart of the JAX package's ``models/encdec.py``.  The conv
 audio frontend is a stub: a batch carries precomputed frame embeddings
@@ -35,7 +35,8 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.models import schema as sch
 from repro_torch.models.layers import attention as attn
 from repro_torch.models.layers.mlp import MLP, RMSNorm, mlp_schema, rmsnorm_schema
-from repro_torch.parallel.sharding import pad_vocab
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import P, pad_vocab
 from repro_torch.utils.losses import chunked_softmax_xent
 
 
@@ -106,16 +107,17 @@ class EncDecModel(sch.SchemaModel):
     """The encoder-decoder; ``device=None`` is the card (raises without one)."""
 
     def __init__(self, cfg: ModelConfig, device=None, parallel: ParallelConfig | None = None,
-                 max_positions: int = 32_768):
+                 max_positions: int = 32_768, *, axes: shd.MeshAxes | None = None):
         super().__init__()
         if cfg.encoder is None:
             raise ValueError(f"{cfg.name} has no encoder config")
         dev = _device.resolve(None, device)
         self.cfg = cfg
         self.parallel = parallel or ParallelConfig()
+        self.axes = axes or shd.single_device_axes()
         self.max_positions = max_positions
         self.stacks = {"enc_layers": cfg.encoder.n_layers, "dec_layers": cfg.n_layers}
-        self.v_pad = pad_vocab(cfg.vocab_size)
+        self.v_pad = pad_vocab(cfg.vocab_size, self.axes)
         self.embed = sch.SchemaModule({"table": sch.PSpec((self.v_pad, cfg.d_model), dtype=cfg.p_dtype)}, dev)
         self.pos_embed = nn.Parameter(torch.empty((max_positions, cfg.d_model), dtype=cfg.p_dtype, device=dev))
         self.enc_layers = nn.ModuleList(EncoderBlock(cfg, dev) for _ in range(cfg.encoder.n_layers))
@@ -124,20 +126,21 @@ class EncDecModel(sch.SchemaModel):
         self.final_norm = RMSNorm(cfg, dev)
 
     def _meta_copy(self, cfg) -> "EncDecModel":
-        return EncDecModel(cfg, device="meta", parallel=self.parallel, max_positions=self.max_positions)
+        return EncDecModel(cfg, device="meta", parallel=self.parallel, max_positions=self.max_positions,
+                           axes=self.axes)
 
     # ----------------------------- schema -----------------------------
 
     def schema(self) -> dict:
-        cfg = self.cfg
-        enc_layer = {"ln1": rmsnorm_schema(cfg), "attn": attn.attn_schema(cfg), "ln2": rmsnorm_schema(cfg),
-                     "mlp": mlp_schema(cfg)}
-        dec_layer = {"ln1": rmsnorm_schema(cfg), "attn": attn.attn_schema(cfg), "ln_x": rmsnorm_schema(cfg),
-                     "cross": attn.attn_schema(cfg), "ln2": rmsnorm_schema(cfg),
-                     "mlp": mlp_schema(cfg)}
+        cfg, axes = self.cfg, self.axes
+        enc_layer = {"ln1": rmsnorm_schema(cfg), "attn": attn.attn_schema(cfg, axes), "ln2": rmsnorm_schema(cfg),
+                     "mlp": mlp_schema(cfg, axes)}
+        dec_layer = {"ln1": rmsnorm_schema(cfg), "attn": attn.attn_schema(cfg, axes), "ln_x": rmsnorm_schema(cfg),
+                     "cross": attn.attn_schema(cfg, axes), "ln2": rmsnorm_schema(cfg),
+                     "mlp": mlp_schema(cfg, axes)}
         return {
-            "embed": {"table": sch.PSpec((self.v_pad, cfg.d_model), dtype=cfg.p_dtype)},
-            "pos_embed": sch.PSpec((self.max_positions, cfg.d_model), dtype=cfg.p_dtype),
+            "embed": {"table": sch.PSpec((self.v_pad, cfg.d_model), P(axes.tp_axis, None), dtype=cfg.p_dtype)},
+            "pos_embed": sch.PSpec((self.max_positions, cfg.d_model), P(None, None), dtype=cfg.p_dtype),
             "enc_layers": sch.stacked(enc_layer, cfg.encoder.n_layers),
             "enc_norm": rmsnorm_schema(cfg),
             "dec_layers": sch.stacked(dec_layer, cfg.n_layers),

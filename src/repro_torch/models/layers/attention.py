@@ -29,20 +29,22 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers.rope import apply_mrope, apply_rope
 from repro_torch.models.schema import PSpec, SchemaModule
+from repro_torch.parallel import sharding as shd
 
 NEG_INF = -1e30
 DEFAULT_KV_BLOCK = 1024
 
 
-def attn_schema(cfg: ModelConfig) -> dict:
+def attn_schema(cfg: ModelConfig, axes: shd.MeshAxes | None = None) -> dict:
     """``wq``, ``wk``, ``wv``, ``wo``; a cross-attention block's are the same."""
     hd = cfg.head_dim_
     d = cfg.d_model
+    specs = shd.attn_specs(axes or shd.single_device_axes(), cfg.n_heads, cfg.n_kv_heads, d, hd)
     return {
-        "wq": PSpec((d, cfg.n_heads * hd), dtype=cfg.p_dtype),
-        "wk": PSpec((d, cfg.n_kv_heads * hd), dtype=cfg.p_dtype),
-        "wv": PSpec((d, cfg.n_kv_heads * hd), dtype=cfg.p_dtype),
-        "wo": PSpec((cfg.n_heads * hd, d), dtype=cfg.p_dtype),
+        "wq": PSpec((d, cfg.n_heads * hd), specs["wq"], dtype=cfg.p_dtype),
+        "wk": PSpec((d, cfg.n_kv_heads * hd), specs["wk"], dtype=cfg.p_dtype),
+        "wv": PSpec((d, cfg.n_kv_heads * hd), specs["wv"], dtype=cfg.p_dtype),
+        "wo": PSpec((cfg.n_heads * hd, d), specs["wo"], dtype=cfg.p_dtype),
     }
 
 

@@ -11,17 +11,19 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.schema import PSpec, SchemaModule
+from repro_torch.parallel import sharding as shd
 
 
-def mlp_schema(cfg: ModelConfig, d_ff: int | None = None) -> dict:
+def mlp_schema(cfg: ModelConfig, axes: shd.MeshAxes | None = None, d_ff: int | None = None) -> dict:
     d_ff = d_ff or cfg.d_ff
     d = cfg.d_model
+    specs = shd.mlp_specs(axes or shd.single_device_axes(), d_ff, d)
     out = {
-        "wi": PSpec((d, d_ff), dtype=cfg.p_dtype),
-        "wo": PSpec((d_ff, d), dtype=cfg.p_dtype),
+        "wi": PSpec((d, d_ff), specs["wi"], dtype=cfg.p_dtype),
+        "wo": PSpec((d_ff, d), specs["wo"], dtype=cfg.p_dtype),
     }
     if cfg.act == "silu":
-        out["wg"] = PSpec((d, d_ff), dtype=cfg.p_dtype)
+        out["wg"] = PSpec((d, d_ff), specs["wg"], dtype=cfg.p_dtype)
     return out
 
 

@@ -1,5 +1,5 @@
 """Mixture-of-Experts layer: GShard-style capacity dispatch and the paper's
-**tree router**, on one device.
+**tree router**.
 
 The port's counterpart of the JAX package's ``models/layers/moe.py``.
 
@@ -29,8 +29,16 @@ Dispatch
 Tokens are processed in fixed-size groups (``group_size``); each group
 builds a dense (g, E, C) dispatch/combine tensor (GShard/T5X style), so
 every expert runs over all of its capacity slots.  Tokens past an expert's
-capacity are dropped in the top-k priority order of the reference.  On one
-device no phantom experts are padded in (granite's 40 stay 40).
+capacity are dropped in the top-k priority order of the reference.  Experts
+are padded to a multiple of the mesh's ``model`` size
+(:func:`padded_experts`; on one device, and for granite's 40 on ``model``
+2 or 4, none is).
+
+Across cards each rank routes its own batch shard (``parallel.sharding``).
+Groups are cut from the local tokens, so a shard must hold whole groups
+(else the capacity, and with it the dropped tokens, would differ from one
+device's), and the load-balance loss takes ``me`` and ``ce`` as means over
+all the shards before their product.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.core import soft_tree as st
@@ -47,37 +56,43 @@ from repro_torch.core.eval_speculative import exact_f32_matmul
 from repro_torch.core.tree import EncodedTree
 from repro_torch.kernels.tree_eval import ops
 from repro_torch.models.schema import PSpec, SchemaModule
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import P
 
 
 def padded_experts(moe: MoEConfig, model_size: int = 1) -> int:
-    """Experts padded to a multiple of the expert-parallel axis (1 on one device)."""
+    """Experts padded to a multiple of the expert-parallel axis (the mesh's
+    ``model`` size; 1 on one device)."""
     m = model_size
     if moe.n_experts % m == 0 or moe.n_experts < m:
         return max(moe.n_experts, 1)
     return ((moe.n_experts + m - 1) // m) * m
 
 
-def moe_schema(cfg: ModelConfig) -> dict:
+def moe_schema(cfg: ModelConfig, axes: shd.MeshAxes | None = None) -> dict:
+    axes = axes or shd.single_device_axes()
     moe = cfg.moe
     if moe is None:
         raise ValueError(f"{cfg.name} has no MoE block")
-    e_pad = padded_experts(moe)
+    e_pad = padded_experts(moe, axes.model_size)
+    specs = shd.moe_specs(axes, e_pad, moe.d_ff, cfg.d_model)
     d, f = cfg.d_model, moe.d_ff
     out = {
-        "wi": PSpec((e_pad, d, f), dtype=cfg.p_dtype),
-        "wg": PSpec((e_pad, d, f), dtype=cfg.p_dtype),
-        "wo": PSpec((e_pad, f, d), dtype=cfg.p_dtype),
+        "wi": PSpec((e_pad, d, f), specs["wi"], dtype=cfg.p_dtype),
+        "wg": PSpec((e_pad, d, f), specs["wg"], dtype=cfg.p_dtype),
+        "wo": PSpec((e_pad, f, d), specs["wo"], dtype=cfg.p_dtype),
     }
     if moe.router == "tree":
         n_internal = (1 << moe.tree_depth()) - 1
-        out["router_proj"] = PSpec((d, n_internal), dtype=torch.float32)
-        out["router_thr"] = PSpec((n_internal,), init="zeros", dtype=torch.float32)
+        out["router_proj"] = PSpec((d, n_internal), P(None, None), dtype=torch.float32)
+        out["router_thr"] = PSpec((n_internal,), P(None), init="zeros", dtype=torch.float32)
     else:
-        out["router"] = PSpec((d, e_pad), dtype=torch.float32)
+        out["router"] = PSpec((d, e_pad), P(None, None), dtype=torch.float32)
     if moe.shared_d_ff:
-        out["shared_wi"] = PSpec((d, moe.shared_d_ff), dtype=cfg.p_dtype)
-        out["shared_wg"] = PSpec((d, moe.shared_d_ff), dtype=cfg.p_dtype)
-        out["shared_wo"] = PSpec((moe.shared_d_ff, d), dtype=cfg.p_dtype)
+        sspecs = shd.mlp_specs(axes, moe.shared_d_ff, cfg.d_model)
+        out["shared_wi"] = PSpec((d, moe.shared_d_ff), sspecs["wi"], dtype=cfg.p_dtype)
+        out["shared_wg"] = PSpec((d, moe.shared_d_ff), sspecs["wg"], dtype=cfg.p_dtype)
+        out["shared_wo"] = PSpec((moe.shared_d_ff, d), sspecs["wo"], dtype=cfg.p_dtype)
     return out
 
 
@@ -112,20 +127,20 @@ def router_probs(params: dict, x: torch.Tensor, *, cfg: ModelConfig, e_pad: int)
     return torch.softmax(logits, dim=-1)
 
 
-def router_tree(cfg: ModelConfig, router_thr: torch.Tensor) -> EncodedTree:
+def router_tree(cfg: ModelConfig, router_thr: torch.Tensor, e_pad: int | None = None) -> EncodedTree:
     """The hardened router: ``soft_tree.harden`` of the layer's perfect tree.
 
     Node n < I tests projected feature n against ``router_thr[n]``; leaf ℓ
     answers expert ``ℓ mod n_experts``.  Reads the thresholds to the host.
     """
     tp = st.SoftTreeParams(proj=None, threshold=router_thr, leaf_map=_leaf_map(cfg, "cpu"))
-    return st.harden(_tree_cfg(cfg, padded_experts(cfg.moe)), tp)
+    return st.harden(_tree_cfg(cfg, e_pad or padded_experts(cfg.moe)), tp)
 
 
-def pack_router(cfg: ModelConfig, router_thr: torch.Tensor) -> ops.PackedTree:
+def pack_router(cfg: ModelConfig, router_thr: torch.Tensor, e_pad: int | None = None) -> ops.PackedTree:
     """The hardened router's tables on ``router_thr``'s device, for K1."""
     depth = cfg.moe.tree_depth()
-    return ops.PackedTree(router_tree(cfg, router_thr), (1 << depth) - 1,
+    return ops.PackedTree(router_tree(cfg, router_thr, e_pad), (1 << depth) - 1,
                           max_depth=depth, device=router_thr.device)
 
 
@@ -164,19 +179,27 @@ class TreeRouter(nn.Module):
     router tables (:meth:`pack`), built once when weights are loaded and
     never rebuilt behind the caller's back: a missing pack raises, and so
     does a stale one (``router_thr`` written since the pack); the owner packs
-    again (``DecoderModel.pack_routers``).
+    again (``DecoderModel.pack_routers``).  A sharded model's thresholds
+    are a DTensor: the tables are packed from the gathered whole, and the
+    staleness is read on this rank's block, which the optimizer writes.
     """
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, e_pad: int | None = None):
         super().__init__()
         self.cfg = cfg
+        self.e_pad = e_pad or padded_experts(cfg.moe)
         self.packed: Optional[ops.PackedTree] = None
         # (the thresholds packed from, their version then): a tuple, so that
         # the parameter is not registered on this module too
         self._source: Optional[tuple[torch.Tensor, int]] = None
 
+    @torch.no_grad()
     def pack(self, router_thr: torch.Tensor) -> None:
-        self.packed = pack_router(self.cfg, router_thr)
+        if isinstance(router_thr, DTensor):
+            self.packed = pack_router(self.cfg, router_thr.full_tensor(), self.e_pad)
+            router_thr = router_thr.to_local()
+        else:
+            self.packed = pack_router(self.cfg, router_thr, self.e_pad)
         self._source = (router_thr, router_thr._version)
 
     def share_pack(self, other: "TreeRouter") -> None:
@@ -196,7 +219,7 @@ class TreeRouter(nn.Module):
             raise RuntimeError("router_thr changed since the router tree was packed (a training step?): "
                                "call DecoderModel.pack_routers() before routing hard")
         return hard_tree_route({"router_proj": router_proj}, x, cfg=self.cfg,
-                               e_pad=padded_experts(self.cfg.moe), packed=self.packed)
+                               e_pad=self.e_pad, packed=self.packed)
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +255,10 @@ def moe_apply(
     n_groups = t // g
     if n_groups * g != t:
         raise ValueError(f"tokens {t} not divisible by group {g}")
+    shards = shd.active_shards()
+    if shards is not None and shards.count > 1 and t % group_size:
+        raise ValueError(f"a batch shard of {t} tokens does not hold whole groups of {group_size}: "
+                         "its capacity, and so its dropped tokens, would differ from one device's")
     xg = x.reshape(n_groups, g, d)
     dev = x.device
 
@@ -251,10 +278,11 @@ def moe_apply(
         probs = router_probs(params, xg, cfg=cfg, e_pad=e_pad)              # (n, g, E)
         top_gates, top_idx = torch.topk(probs, moe.top_k, dim=-1)            # (n, g, k)
         top_gates = top_gates / torch.clamp(top_gates.sum(-1, keepdim=True), min=1e-9)
-        # Switch-style load-balance loss over real experts
-        me = probs.mean(dim=(0, 1))                                          # (E,)
+        # Switch-style load-balance loss over real experts, on the means
+        # over every batch shard
+        me = shd.batch_mean(probs.mean(dim=(0, 1)))                          # (E,)
         onehot_top1 = torch.nn.functional.one_hot(top_idx[..., 0], e_pad).to(torch.float32)
-        ce = onehot_top1.mean(dim=(0, 1))
+        ce = shd.batch_mean(onehot_top1.mean(dim=(0, 1)))
         aux = moe.aux_loss_weight * e_pad * torch.sum(me * ce)
 
     cap = _capacity(g, moe, e_pad)
@@ -301,10 +329,12 @@ def moe_apply(
 class MoE(SchemaModule):
     """One MoE block's weights, and its :class:`TreeRouter` for tree routers."""
 
-    def __init__(self, cfg: ModelConfig, device):
-        super().__init__(moe_schema(cfg), device)
+    def __init__(self, cfg: ModelConfig, device, axes: shd.MeshAxes | None = None):
+        schema = moe_schema(cfg, axes)
+        super().__init__(schema, device)
         self.cfg = cfg
-        self.tree_router = TreeRouter(cfg) if cfg.moe.router == "tree" else None
+        e_pad = schema["wi"].shape[0]
+        self.tree_router = TreeRouter(cfg, e_pad) if cfg.moe.router == "tree" else None
 
     def pack_router(self) -> None:
         if self.tree_router is not None:

@@ -23,6 +23,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.schema import PSpec, SchemaModule
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import P
 
 
 class SSMState(NamedTuple):
@@ -37,20 +39,22 @@ def _dims(cfg: ModelConfig):
     return d_in, dt_rank, s.state_dim, s.conv_width
 
 
-def ssm_schema(cfg: ModelConfig) -> dict:
+def ssm_schema(cfg: ModelConfig, axes: shd.MeshAxes | None = None) -> dict:
+    axes = axes or shd.single_device_axes()
     d = cfg.d_model
     d_in, dt_rank, ns, w = _dims(cfg)
     pd = cfg.p_dtype
+    di = axes.shard_if(d_in)
     return {
-        "in_proj": PSpec((d, 2 * d_in), dtype=pd),
-        "conv_w": PSpec((w, d_in), dtype=pd),
-        "conv_b": PSpec((d_in,), init="zeros", dtype=pd),
-        "x_dtbc": PSpec((d_in, dt_rank + 2 * ns), dtype=pd),
-        "dt_proj": PSpec((dt_rank, d_in), dtype=pd),
-        "dt_bias": PSpec((d_in,), init="zeros", dtype=pd),
-        "a_log": PSpec((d_in, ns), init="ssm_log_a", dtype=torch.float32),
-        "d_skip": PSpec((d_in,), init="ones", dtype=torch.float32),
-        "out_proj": PSpec((d_in, d), dtype=pd),
+        "in_proj": PSpec((d, 2 * d_in), P(axes.fsdp_if(d), di), dtype=pd),
+        "conv_w": PSpec((w, d_in), P(None, di), dtype=pd),
+        "conv_b": PSpec((d_in,), P(di), init="zeros", dtype=pd),
+        "x_dtbc": PSpec((d_in, dt_rank + 2 * ns), P(di, None), dtype=pd),
+        "dt_proj": PSpec((dt_rank, d_in), P(None, di), dtype=pd),
+        "dt_bias": PSpec((d_in,), P(di), init="zeros", dtype=pd),
+        "a_log": PSpec((d_in, ns), P(di, None), init="ssm_log_a", dtype=torch.float32),
+        "d_skip": PSpec((d_in,), P(di), init="ones", dtype=torch.float32),
+        "out_proj": PSpec((d_in, d), P(di, axes.fsdp_if(d)), dtype=pd),
     }
 
 

@@ -26,6 +26,7 @@ from repro_torch.core import soft_tree as st
 from repro_torch.kernels.tree_eval import ops
 from repro_torch.models.layers.moe import router_features
 from repro_torch.models.schema import PSpec
+from repro_torch.parallel.sharding import P
 
 
 def tree_head_depth(n_classes: int) -> int:
@@ -38,8 +39,8 @@ def tree_head_depth(n_classes: int) -> int:
 def tree_head_schema(cfg: ModelConfig) -> dict:
     n_internal = (1 << tree_head_depth(cfg.tree_head_classes)) - 1
     return {
-        "proj": PSpec((cfg.d_model, n_internal), dtype=torch.float32),
-        "thr": PSpec((n_internal,), init="zeros", dtype=torch.float32),
+        "proj": PSpec((cfg.d_model, n_internal), P(None, None), dtype=torch.float32),
+        "thr": PSpec((n_internal,), P(None), init="zeros", dtype=torch.float32),
     }
 
 

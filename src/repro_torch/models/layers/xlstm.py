@@ -26,6 +26,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers.ssm import causal_depthwise_conv
 from repro_torch.models.schema import PSpec, SchemaModule
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import P
 
 M_INIT = -1e30          # the stabilizer's start, "-inf-ish"
 
@@ -50,31 +52,34 @@ class SLSTMState(NamedTuple):
     m: torch.Tensor
 
 
-def mlstm_schema(cfg: ModelConfig) -> dict:
+def mlstm_schema(cfg: ModelConfig, axes: shd.MeshAxes | None = None) -> dict:
+    axes = axes or shd.single_device_axes()
     d = cfg.d_model
     d_in, h, _ = _mdims(cfg)
     w = cfg.xlstm.conv_width
     pd = cfg.p_dtype
+    di = axes.shard_if(d_in)
     return {
-        "up": PSpec((d, 2 * d_in), dtype=pd),
-        "conv_w": PSpec((w, d_in), dtype=pd),
-        "wq": PSpec((d_in, d_in), dtype=pd),
-        "wk": PSpec((d_in, d_in), dtype=pd),
-        "wv": PSpec((d_in, d_in), dtype=pd),
-        "w_if": PSpec((d_in, 2 * h), dtype=torch.float32),
-        "b_if": PSpec((2 * h,), init="zeros", dtype=torch.float32),
-        "down": PSpec((d_in, d), dtype=pd),
+        "up": PSpec((d, 2 * d_in), P(axes.fsdp_if(d), di), dtype=pd),
+        "conv_w": PSpec((w, d_in), P(None, di), dtype=pd),
+        "wq": PSpec((d_in, d_in), P(axes.fsdp_if(d_in), di), dtype=pd),
+        "wk": PSpec((d_in, d_in), P(axes.fsdp_if(d_in), di), dtype=pd),
+        "wv": PSpec((d_in, d_in), P(axes.fsdp_if(d_in), di), dtype=pd),
+        "w_if": PSpec((d_in, 2 * h), P(di, None), dtype=torch.float32),
+        "b_if": PSpec((2 * h,), P(None), init="zeros", dtype=torch.float32),
+        "down": PSpec((d_in, d), P(di, axes.fsdp_if(d)), dtype=pd),
     }
 
 
-def slstm_schema(cfg: ModelConfig) -> dict:
+def slstm_schema(cfg: ModelConfig, axes: shd.MeshAxes | None = None) -> dict:
+    axes = axes or shd.single_device_axes()
     d = cfg.d_model
     pd = cfg.p_dtype
     return {
-        "w_gates": PSpec((d, 4 * d), dtype=pd),    # i, f, z, o
-        "r_gates": PSpec((d, 4 * d), dtype=pd),    # recurrent
-        "b_gates": PSpec((4 * d,), init="zeros", dtype=torch.float32),
-        "out": PSpec((d, d), dtype=pd),
+        "w_gates": PSpec((d, 4 * d), P(axes.fsdp_if(d), axes.shard_if(4 * d)), dtype=pd),    # i, f, z, o
+        "r_gates": PSpec((d, 4 * d), P(axes.fsdp_if(d), axes.shard_if(4 * d)), dtype=pd),    # recurrent
+        "b_gates": PSpec((4 * d,), P(None), init="zeros", dtype=torch.float32),
+        "out": PSpec((d, d), P(None, axes.shard_if(d)), dtype=pd),
     }
 
 

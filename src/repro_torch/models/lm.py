@@ -1,4 +1,4 @@
-"""Decoder-only LM for the dense / moe / hybrid / vlm families, on one device.
+"""Decoder-only LM for the dense / moe / hybrid / vlm families.
 
 The port's counterpart of the JAX package's ``models/lm.py``:
 
@@ -25,6 +25,10 @@ the prompt's scan (ROADMAP.md §3 item 13).
 Modes: ``forward`` (teacher-forced logits), ``loss`` (the chunked
 cross-entropy plus the MoE aux loss, for training), ``prefill`` (forward +
 cache), ``decode_step`` (one token against the cache).
+
+Across cards (:meth:`~repro_torch.models.schema.SchemaModel.distribute`)
+each block gathers its weights inside its rematerialized body, so a
+"full" or "offload" block gathers them again in the backward pass.
 
 Rematerialization follows ``ParallelConfig.remat`` block by block, as the
 JAX package's ``_remat`` wraps its scanned layer body, and only while grad
@@ -55,7 +59,8 @@ from repro_torch.models.layers.mlp import MLP, RMSNorm, rmsnorm_schema, mlp_sche
 from repro_torch.models.layers.moe import MoE, TreeRouter, moe_schema
 from repro_torch.models.layers.rope import positions_for
 from repro_torch.models.layers.ssm import SSM, SSMState, ssm_schema, ssm_state_shape
-from repro_torch.parallel.sharding import pad_vocab
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import P, pad_vocab
 from repro_torch.utils.losses import chunked_softmax_xent
 
 DECODER_FAMILIES = ("dense", "moe", "hybrid", "vlm")
@@ -99,14 +104,14 @@ class Block(nn.Module):
     """One transformer block: attention (beside an SSM head in the hybrid
     family), then the MoE or dense MLP."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, axes: shd.MeshAxes | None = None):
         super().__init__()
         self.cfg = cfg
         self.ln1 = RMSNorm(cfg, device)
         self.attn = attn.Attention(cfg, device)
         self.ln2 = RMSNorm(cfg, device)
         if cfg.moe is not None:
-            self.moe = MoE(cfg, device)
+            self.moe = MoE(cfg, device, axes)
         else:
             self.mlp = MLP(cfg, device)
         if cfg.family == "hybrid":
@@ -151,9 +156,12 @@ class Block(nn.Module):
 
 
 class DecoderModel(sch.SchemaModel):
-    """The decoder LM; ``device=None`` is the card (raises without one)."""
+    """The decoder LM; ``device=None`` is the card (raises without one).
+    ``axes`` (default: one device) are the mesh's, whose ``model`` size pads
+    the vocabulary and the experts."""
 
-    def __init__(self, cfg: ModelConfig, device=None, parallel: ParallelConfig | None = None):
+    def __init__(self, cfg: ModelConfig, device=None, parallel: ParallelConfig | None = None, *,
+                 axes: shd.MeshAxes | None = None):
         super().__init__()
         if cfg.family not in DECODER_FAMILIES:
             raise ValueError(f"family {cfg.family!r} ({cfg.name}) is not a decoder-only family: "
@@ -161,13 +169,14 @@ class DecoderModel(sch.SchemaModel):
         dev = _device.resolve(None, device)
         self.cfg = cfg
         self.parallel = parallel or ParallelConfig()
+        self.axes = axes or shd.single_device_axes()
         self.stacks = {"layers": cfg.n_layers}
-        self.v_pad = pad_vocab(cfg.vocab_size)
+        self.v_pad = pad_vocab(cfg.vocab_size, self.axes)
         # The table's module is named "embed" for the state_dict key
         # "embed.table"; the method embed() shadows the attribute, so the
         # module is reached as self._modules["embed"] (embed_table).
         self.embed = sch.SchemaModule({"table": sch.PSpec((self.v_pad, cfg.d_model), dtype=cfg.p_dtype)}, dev)
-        self.layers = nn.ModuleList(Block(cfg, dev) for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Block(cfg, dev, self.axes) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg, dev)
         if not cfg.tie_embeddings:
             self.lm_head = sch.SchemaModule({"w": sch.PSpec((cfg.d_model, self.v_pad), dtype=cfg.p_dtype)}, dev)
@@ -175,27 +184,33 @@ class DecoderModel(sch.SchemaModel):
     # ----------------------------- schema -----------------------------
 
     def layer_schema(self) -> dict:
-        cfg = self.cfg
-        out = {"ln1": rmsnorm_schema(cfg), "attn": attn.attn_schema(cfg), "ln2": rmsnorm_schema(cfg)}
+        cfg, axes = self.cfg, self.axes
+        out = {"ln1": rmsnorm_schema(cfg), "attn": attn.attn_schema(cfg, axes), "ln2": rmsnorm_schema(cfg)}
         if cfg.moe is not None:
-            out["moe"] = moe_schema(cfg)
+            out["moe"] = moe_schema(cfg, axes)
         else:
-            out["mlp"] = mlp_schema(cfg)
+            out["mlp"] = mlp_schema(cfg, axes)
         if cfg.family == "hybrid":
-            out["ssm"] = ssm_schema(cfg)
+            out["ssm"] = ssm_schema(cfg, axes)
         return out
 
     def schema(self) -> dict:
-        """The JAX model's schema: layers stacked (L, …), as its scanned stack."""
-        cfg = self.cfg
+        """The JAX model's schema with the layers stacked (L, …), as its
+        scanned stack (:meth:`jax_leaves` unstacks them without ``scan_layers``)."""
+        cfg, axes = self.cfg, self.axes
+        d_fsdp = axes.fsdp_if(cfg.d_model)
         out = {
-            "embed": {"table": sch.PSpec((self.v_pad, cfg.d_model), dtype=cfg.p_dtype)},
+            "embed": {"table": sch.PSpec((self.v_pad, cfg.d_model), P(axes.tp_axis, d_fsdp), dtype=cfg.p_dtype)},
             "layers": sch.stacked(self.layer_schema(), cfg.n_layers),
             "final_norm": rmsnorm_schema(cfg),
         }
         if not cfg.tie_embeddings:
-            out["lm_head"] = {"w": sch.PSpec((cfg.d_model, self.v_pad), dtype=cfg.p_dtype)}
+            out["lm_head"] = {"w": sch.PSpec((cfg.d_model, self.v_pad), P(d_fsdp, axes.tp_axis), dtype=cfg.p_dtype)}
         return out
+
+    @property
+    def scanned(self) -> bool:
+        return self.parallel.scan_layers
 
     def jax_leaf_dims(self) -> dict[str, int]:
         if not self.parallel.scan_layers:      # JAX's tree is then per layer

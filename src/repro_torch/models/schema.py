@@ -1,18 +1,23 @@
-"""Parameter schema: one declaration → shapes, counts and initializers.
+"""Parameter schema: one declaration → shapes, shardings, counts and initializers.
 
 The port's counterpart of the JAX package's ``models/schema.py``.  A model
 declares its parameters as a nested dict of :class:`PSpec`; the modules
 allocate their ``nn.Parameter``s from it, :func:`param_count` counts it
 with no allocation, and :func:`init_params` / :func:`init_leaf_` fill it.
-``PSpec`` carries no ``PartitionSpec``: the port's LM runs on one device.
+Each ``PSpec`` carries the JAX leaf's ``PartitionSpec``
+(:class:`repro_torch.parallel.sharding.PartitionSpec`), from the model's
+mesh axes: ``param_specs()`` is the JAX model's tree, and
+:meth:`SchemaModel.distribute` places the parameters by it across cards.
 :class:`SchemaModel` is the model protocol the three model classes share
 (the JAX package's models share it by convention): how the schema's leaves
-map onto the module's parameters, ``init``, the working copy, and
-:func:`checkpointed`, their block-by-block rematerialization.
+map onto the module's parameters, ``init``, the working copy, the
+placement across a mesh, and :func:`checkpointed`, their block-by-block
+rematerialization.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Iterator
@@ -20,12 +25,16 @@ from typing import Iterator
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
+
+from repro_torch.parallel import sharding as shd
 
 
 @dataclasses.dataclass(frozen=True)
 class PSpec:
     shape: tuple
+    spec: shd.PartitionSpec = shd.P()
     init: str = "normal"    # normal | zeros | ones | ssm_log_a | uniform
     dtype: torch.dtype = torch.float32
     scale: float = 0.0      # 0 → fan-in default for "normal"
@@ -46,11 +55,29 @@ def leaves(schema, prefix: str = "") -> Iterator[tuple[str, PSpec]]:
 
 
 def stacked(schema, n: int):
-    """``schema`` with a leading axis of ``n`` on every leaf (a scanned layer stack)."""
+    """``schema`` with a leading axis of ``n`` on every leaf (a scanned layer
+    stack), unsharded in every spec."""
     return {
-        k: dataclasses.replace(s, shape=(n, *s.shape)) if is_pspec(s) else stacked(s, n)
+        k: dataclasses.replace(s, shape=(n, *s.shape), spec=shd.P(None, *s.spec)) if is_pspec(s) else stacked(s, n)
         for k, s in schema.items()
     }
+
+
+def unstacked(s: PSpec) -> PSpec:
+    """One layer's leaf of a stacked leaf."""
+    return dataclasses.replace(s, shape=s.shape[1:], spec=shd.P(*s.spec[1:]))
+
+
+def nest(flat: dict) -> dict:
+    """A nested dict from dotted paths."""
+    out: dict = {}
+    for path, v in flat.items():
+        *parents, name = path.split(".")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = v
+    return out
 
 
 def param_count(schema) -> int:
@@ -77,6 +104,10 @@ def init_leaf_(t: torch.Tensor, s: PSpec, generator: torch.Generator) -> torch.T
     ``generator``, which must live on ``t``'s device: the bits differ from
     ``jax.random``'s, so parity tests carry weights across instead.
     """
+    if isinstance(t, DTensor):     # draw the whole leaf, keep this rank's block
+        full = init_leaf_(torch.empty(t.shape, dtype=t.dtype, device=t.device), s, generator)
+        t.to_local().copy_(shd.local_shard(full, t.device_mesh, t.placements))
+        return t
     if s.init == "zeros":
         return t.zero_()
     if s.init == "ones":
@@ -198,12 +229,111 @@ class SchemaModel(nn.Module):
     ``layers.1.attn.wq``, ….  Every other leaf is the parameter of its own
     path (an unstacked JAX layer ``layers.layer_003.block.up`` too).
 
-    Subclasses set ``cfg``, ``parallel`` and ``stacks`` and define
-    ``schema()``; the methods here are the model protocol that the loader,
-    the optimizer, the checkpoints and the serving engine read.
+    Subclasses set ``cfg``, ``parallel``, ``axes`` (the mesh axes its
+    shapes and specs are for) and ``stacks`` and define ``schema()``; the
+    methods here are the model protocol that the loader, the optimizer, the
+    checkpoints and the serving engine read.
+
+    **Across cards.**  :meth:`distribute` places every parameter on a
+    ``DeviceMesh`` as a DTensor by its JAX spec.  Compute then runs the
+    plain module code on each rank's batch shard: each block
+    (:meth:`blocks`) gathers its weights when it is called and releases them
+    when it returns (a rematerialized block gathers again in the backward
+    pass), and the other weights (embedding, final norm, head) are gathered
+    around a step by :meth:`gathered_top`.
     """
 
     stacks: dict
+    axes: shd.MeshAxes
+    mesh = None          # the DeviceMesh the parameters are placed on, else None
+
+    @property
+    def scanned(self) -> bool:
+        """Whether JAX's tree stacks the layers of ``stacks`` (L, …)."""
+        return True
+
+    def jax_leaves(self) -> list[tuple[str, PSpec, list[str], bool]]:
+        """(JAX leaf path, its PSpec, the parameter names that hold it, stacked)
+        of every leaf of the JAX model's tree, in declaration order.  A stacked
+        leaf is held by one parameter a layer; where JAX does not scan, its
+        tree holds the layers one by one as ``<stack>.layer_000.…``."""
+        out = []
+        for path, s in leaves(self.schema()):
+            names = self.stacked_names(path)
+            if names is None:
+                out.append((path, s, [path], False))
+            elif self.scanned:
+                out.append((path, s, names, True))
+            else:
+                head, _, rest = path.partition(".")
+                out += [(f"{head}.layer_{i:03d}.{rest}", unstacked(s), [n], False) for i, n in enumerate(names)]
+        return out
+
+    def param_specs(self) -> dict:
+        """The JAX model's ``param_specs()``: a nested dict of specs."""
+        return nest({path: s.spec for path, s, _, _ in self.jax_leaves()})
+
+    def param_shapes(self) -> dict:
+        """The JAX model's leaf shapes, nested as :meth:`param_specs`."""
+        return nest({path: tuple(s.shape) for path, s, _, _ in self.jax_leaves()})
+
+    def parameter_specs(self) -> dict[str, shd.PartitionSpec]:
+        """Parameter name → its spec (a stacked leaf's without the stack dim)."""
+        out = {}
+        for _, s, names, stacked in self.jax_leaves():
+            for n in names:
+                out[n] = shd.P(*s.spec[1:]) if stacked else s.spec
+        return out
+
+    def blocks(self) -> list[nn.Module]:
+        """The modules that gather their own weights when sharded: every layer
+        of the stacks."""
+        return [m for head in self.stacks for m in self._modules[head]]
+
+    def _block_heads(self) -> set:
+        return set(self.stacks)
+
+    def distribute(self, mesh) -> "SchemaModel":
+        """Place every parameter on ``mesh`` as a DTensor by its spec, in place,
+        and make the blocks gather their weights when called.
+
+        The mesh's sizes must be the model's ``axes`` (they set the padded
+        vocabulary and experts).  A parameter on ``meta`` gets an empty block
+        on the mesh's device (fill it with :meth:`init`); any other is
+        taken as the whole tensor, the same on every rank, and each rank
+        keeps its block.
+        """
+        if self.mesh is not None:
+            raise RuntimeError("the model is already distributed")
+        if shd.mesh_sizes(mesh) != dict(self.axes.sizes):
+            raise ValueError(f"mesh {shd.mesh_sizes(mesh)} is not the model's axes {self.axes.sizes}")
+        specs = self.parameter_specs()
+        meta = False
+        for name, p in list(self.named_parameters()):
+            plc = shd.placements(specs[name], mesh)
+            if p.is_meta:
+                meta = True
+                local = torch.empty(shd.local_shape(p.shape, mesh, plc), dtype=p.dtype, device=shd.mesh_device(mesh))
+                dt = DTensor.from_local(local, mesh, plc, run_check=False, shape=p.shape,
+                                        stride=torch.empty(p.shape, device="meta").stride())
+            else:
+                dt = shd.place(p.detach(), mesh, specs[name])
+            owner, leaf = shd.owner_of(self, name)
+            owner._parameters[leaf] = nn.Parameter(dt, requires_grad=p.requires_grad)
+        self.mesh = mesh
+        shd.gather_in_blocks(self.blocks())
+        if not meta:
+            self.pack_routers()
+        return self
+
+    def gathered_top(self):
+        """A context in which the weights outside the blocks (embedding, norms,
+        head) are gathered; nothing to do on one device."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        heads = self._block_heads()
+        return shd.gathered(self, [n for n, p in self.named_parameters()
+                                   if n.split(".")[0] not in heads and isinstance(p, DTensor)])
 
     def stacked_names(self, path: str) -> list[str] | None:
         """The per-layer parameter names behind a stacked schema path, or None."""
@@ -247,7 +377,7 @@ class SchemaModel(nn.Module):
         """Harden and pack every router tree after a change of weights."""
 
     def _meta_copy(self, cfg) -> "SchemaModel":
-        return type(self)(cfg, device="meta", parallel=self.parallel)
+        return type(self)(cfg, device="meta", parallel=self.parallel, axes=self.axes)
 
     def cast_for_compute(self, dtype: str | None = None):
         """The working copy: a model whose weights are in the activation dtype.
@@ -258,6 +388,8 @@ class SchemaModel(nn.Module):
         routers are shared too.  With ``dtype="float32"`` every weight is
         shared and nothing is copied.
         """
+        if self.mesh is not None:
+            raise NotImplementedError("a sharded model has no working copy: sharded serving is not ported")
         cfg = self.cfg if dtype is None else dataclasses.replace(self.cfg, dtype=dtype)
         work = self._meta_copy(cfg)
         work.load_state_dict(cast_for_compute(self.state_dict(), cfg.act_dtype), assign=True)

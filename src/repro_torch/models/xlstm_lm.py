@@ -1,4 +1,4 @@
-"""xLSTM language model (sLSTM + mLSTM block stack, xlstm-125m), on one device.
+"""xLSTM language model (sLSTM + mLSTM block stack, xlstm-125m).
 
 The port's counterpart of the JAX package's ``models/xlstm_lm.py``.  Layer
 ``i`` is an sLSTM block iff ``i % slstm_every == slstm_every - 1`` (every
@@ -27,7 +27,8 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.models import schema as sch
 from repro_torch.models.layers import xlstm as xl
 from repro_torch.models.layers.mlp import RMSNorm, rmsnorm_schema
-from repro_torch.parallel.sharding import pad_vocab
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import P, pad_vocab
 from repro_torch.utils.losses import chunked_softmax_xent
 
 
@@ -59,15 +60,17 @@ class XLSTMBlock(nn.Module):
 class XLSTMModel(sch.SchemaModel):
     """The xLSTM LM; ``device=None`` is the card (raises without one)."""
 
-    def __init__(self, cfg: ModelConfig, device=None, parallel: ParallelConfig | None = None):
+    def __init__(self, cfg: ModelConfig, device=None, parallel: ParallelConfig | None = None, *,
+                 axes: shd.MeshAxes | None = None):
         super().__init__()
         if cfg.xlstm is None:
             raise ValueError(f"{cfg.name} has no xLSTM config")
         dev = _device.resolve(None, device)
         self.cfg = cfg
         self.parallel = parallel or ParallelConfig()
+        self.axes = axes or shd.single_device_axes()
         self.stacks = {}
-        self.v_pad = pad_vocab(cfg.vocab_size)
+        self.v_pad = pad_vocab(cfg.vocab_size, self.axes)
         self.embed = sch.SchemaModule({"table": sch.PSpec((self.v_pad, cfg.d_model), dtype=cfg.p_dtype)}, dev)
         self.layers = nn.ModuleDict({f"layer_{i:03d}": XLSTMBlock(cfg, self.is_slstm(i), dev)
                                      for i in range(cfg.n_layers)})
@@ -82,19 +85,26 @@ class XLSTMModel(sch.SchemaModel):
     # ----------------------------- schema -----------------------------
 
     def schema(self) -> dict:
-        cfg = self.cfg
+        cfg, axes = self.cfg, self.axes
         layers = {}
         for i in range(cfg.n_layers):
-            body = xl.slstm_schema(cfg) if self.is_slstm(i) else xl.mlstm_schema(cfg)
+            body = xl.slstm_schema(cfg, axes) if self.is_slstm(i) else xl.mlstm_schema(cfg, axes)
             layers[f"layer_{i:03d}"] = {"ln": rmsnorm_schema(cfg), "block": body}
         out = {
-            "embed": {"table": sch.PSpec((self.v_pad, cfg.d_model), dtype=cfg.p_dtype)},
+            "embed": {"table": sch.PSpec((self.v_pad, cfg.d_model), P(axes.tp_axis, None), dtype=cfg.p_dtype)},
             "layers": layers,
             "final_norm": rmsnorm_schema(cfg),
         }
         if not cfg.tie_embeddings:
-            out["lm_head"] = {"w": sch.PSpec((cfg.d_model, self.v_pad), dtype=cfg.p_dtype)}
+            out["lm_head"] = {"w": sch.PSpec((cfg.d_model, self.v_pad), P(axes.fsdp_if(cfg.d_model), axes.tp_axis),
+                                             dtype=cfg.p_dtype)}
         return out
+
+    def blocks(self) -> list:
+        return list(self.layers.values())
+
+    def _block_heads(self) -> set:
+        return {"layers"}
 
     # ------------------------------ forward ------------------------------
 

@@ -1,1 +1,3 @@
-"""Device grids for the forest's sharded evaluation."""
+"""Device grids of the forest's sharded evaluation; the LM's mesh axes, specs and their
+DTensor placements (``sharding``), and the int8 cross-pod gradient compression
+(``compression``)."""

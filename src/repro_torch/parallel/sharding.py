@@ -1,27 +1,54 @@
-"""Device grids and the divisibility policy of the sharded forest path.
+"""Device grids of the sharded forest, and the divisibility-aware sharding
+policy of the LM across cards.
 
-The port's counterpart of the forest part of the JAX package's
-``parallel/sharding.py``, and of its ``pad_vocab`` for the LM on one
-device (mesh axes and the LM's EP/TP sharding are not ported).  There a
-plan lowers onto a ``jax.sharding.Mesh`` and ``shard_map``; here one
-process drives the node's cards directly, so a mesh is a (records × trees)
-grid of ``torch.device`` objects that the executor walks shard by shard
-(:class:`repro_torch.dist.ShardedForestEvaluator`).
+The port's counterpart of the JAX package's ``parallel/sharding.py``, in
+two halves.
 
+**The forest.**  There a plan lowers onto a ``jax.sharding.Mesh`` and
+``shard_map``; here one process drives the node's cards directly, so a
+mesh is a (records × trees) grid of ``torch.device`` objects that the
+executor walks shard by shard (:class:`repro_torch.dist.ShardedForestEvaluator`).
 A grid may name one device several times: ``("cpu",) * 8`` on the host, or
 ``("cuda:0",) * 4`` on one card, lays out four logical shards that run one
 after another on the same device.  That is the port's counterpart of
 ``--xla_force_host_platform_device_count``: it exercises the sharding,
 padding and gathering, and measures nothing about several cards.
+
+**The LM.**  One process per card under ``torch.distributed``; a mesh is a
+``torch.distributed.device_mesh.DeviceMesh`` with the JAX axis names
+(``("data", "model")`` or ``("pod", "data", "model")``, see
+:mod:`repro_torch.launch.mesh`).  :class:`MeshAxes` and the ``*_specs``
+helpers are the JAX policy, line for line: every tensor dim asks *shard
+over this axis iff divisible*, and the vocabulary and the experts are
+padded so that they shard densely.  A spec is the port's
+:class:`PartitionSpec`, equal as a tuple to JAX's ``P``;
+:func:`placements` turns it into DTensor placements and
+:func:`distribute` places a tree of tensors by a tree of specs.
+
+Storage is decoupled from compute, as the JAX docstring of
+:func:`attn_specs` says.  Parameters live as DTensors placed by their
+specs (FSDP over ``data``, TP or EP over ``model``); compute runs the plain
+module code on each rank's batch shard (:func:`local_batch`), on weights
+gathered just in time (:func:`gather`) whose gradients come back
+reduce-scattered into the storage placement.  The loss's token sums and the
+MoE load-balance statistics are summed over the batch shards inside the
+step (:func:`batch_shards`, :func:`batch_sum`, :func:`batch_mean`).
+Compute-side tensor and expert parallelism (sharded matmuls, an
+all-to-all dispatch) are not ported: with ``tp`` on, the ranks of one
+``model`` row compute the same batch shard.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Sequence
+import math
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 AXES = ("records", "trees")
 
@@ -53,15 +80,6 @@ def pad_to_multiple(dim: int, size: int) -> int:
     if size <= 1:
         return dim
     return ((dim + size - 1) // size) * size
-
-
-VOCAB_LANE = 128
-
-
-def pad_vocab(vocab: int) -> int:
-    """The vocabulary padded to a multiple of 128 (granite's 49,155 → 49,280),
-    as the JAX package pads it on one device (no tensor-parallel axis)."""
-    return pad_to_multiple(vocab, VOCAB_LANE)
 
 
 def normal_device(device) -> torch.device:
@@ -124,3 +142,487 @@ def map_record_shards(records, devices: Sequence, fn) -> torch.Tensor:
     step = m_pad // len(devs)
     outs = [fn(rec[i * step:(i + 1) * step].to(d, non_blocking=True), d) for i, d in enumerate(devs)]
     return torch.cat([o.to(devs[0], non_blocking=True) for o in outs])[:m]
+
+
+# ---------------------------------------------------------------------------
+# The LM's mesh axes and specs (JAX ``parallel/sharding.py``)
+# ---------------------------------------------------------------------------
+
+
+class PartitionSpec(tuple):
+    """A tensor's sharding: one entry a dim, each ``None``, a mesh axis name,
+    or a tuple of axis names (the dim split over them, the first the major).
+
+    A tuple, equal as a tuple to JAX's ``PartitionSpec`` of the same
+    entries; dims past its end are replicated.
+    """
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return "P" + tuple.__repr__(self)
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+
+P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshAxes:
+    """Logical→physical axis mapping for one mesh."""
+
+    batch: tuple                    # e.g. ("data",) or ("pod", "data")
+    model: str                      # "model"
+    sizes: dict                     # axis name → size
+    fsdp: Optional[str] = "data"    # axis of 2-D (FSDP) parameter sharding; None = off
+    tp: bool = True                 # tensor-parallel storage over 'model'; False → the
+                                    # model axis joins the batch axes (DP-only)
+
+    @property
+    def batch_size(self) -> int:
+        out = 1
+        for a in self.batch:
+            out *= self.sizes[a]
+        return out
+
+    @property
+    def model_size(self) -> int:
+        return self.sizes[self.model]
+
+    @property
+    def tp_axis(self) -> Optional[str]:
+        return self.model if self.tp else None
+
+    def shard_if(self, dim: int, axis: Optional[str] = None):
+        """The model axis name iff ``dim`` divides evenly, else None."""
+        if not self.tp and (axis is None or axis == self.model):
+            return None
+        axis = axis or self.model
+        size = self.sizes[axis] if isinstance(axis, str) else 1
+        return axis if dim % size == 0 and dim >= size else None
+
+    def fsdp_if(self, dim: int):
+        """The FSDP axis iff enabled and ``dim`` divides: parameters gain a
+        second shard dim, gathered just in time (the ZeRO-3 pattern)."""
+        if self.fsdp is None:
+            return None
+        size = self.sizes.get(self.fsdp, 1)
+        return self.fsdp if dim % size == 0 and dim >= size else None
+
+    def batch_if(self, dim: int):
+        """The batch axes iff ``dim`` divides by their whole extent, else None."""
+        return self.batch if dim % self.batch_size == 0 and dim >= self.batch_size else None
+
+    def batch_axes_for(self, dim: int):
+        """The largest-product subset of the batch axes dividing ``dim``
+        (not a greedy prefix: a batch of 256 on the 2×16×16 DP-only mesh takes
+        (data, model) and leaves 'pod' idle); None when none divides."""
+        best, best_prod = None, 0
+        n = len(self.batch)
+        for mask in range(1, 1 << n):
+            axes = tuple(self.batch[i] for i in range(n) if mask >> i & 1)
+            prod = 1
+            for a in axes:
+                prod *= self.sizes[a]
+            if dim % prod == 0 and prod > best_prod:
+                best, best_prod = axes, prod
+        return best
+
+
+def mesh_sizes(mesh) -> dict[str, int]:
+    """Axis name → size of a ``DeviceMesh``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def from_mesh(mesh, *, fsdp: bool = True, tp: bool = True) -> MeshAxes:
+    """The axes of a ``DeviceMesh`` named as :mod:`repro_torch.launch.mesh` names them."""
+    names = tuple(mesh.mesh_dim_names)
+    batch = tuple(n for n in names if n in ("pod", "data"))
+    if not tp:
+        batch = batch + ("model",)   # DP-only: the model axis carries batch
+    return MeshAxes(batch=batch, model="model", sizes=mesh_sizes(mesh),
+                    fsdp="data" if fsdp else None, tp=tp)
+
+
+def single_device_axes() -> MeshAxes:
+    """Degenerate axes for one device (everything replicated)."""
+    return MeshAxes(batch=("data",), model="model", sizes={"data": 1, "model": 1})
+
+
+def free_model_seq(axes: MeshAxes, batch_dim: int, seq_dim: int):
+    """The sequence-parallel axis when 'model' does not already carry batch."""
+    ba = axes.batch_axes_for(batch_dim) or ()
+    if axes.model in ba:
+        return None
+    m = axes.model_size
+    return axes.model if (seq_dim % m == 0 and seq_dim >= m) else None
+
+
+VOCAB_LANE = 128
+
+
+def pad_vocab(vocab: int, axes: MeshAxes | None = None, lane: int = VOCAB_LANE) -> int:
+    """The vocabulary padded to shard densely: a multiple of lane·|model|
+    (granite's 49,155 → 49,280 on one device, 49,408 on ``model=2``)."""
+    axes = axes or single_device_axes()
+    return pad_to_multiple(vocab, lane * (axes.model_size if axes.tp else 1))
+
+
+def attn_specs(axes: MeshAxes, n_heads: int, n_kv_heads: int, d_model: int = 0, head_dim: int = 0) -> dict:
+    """QKV/O projection storage specs: (data × model) over the flattened
+    weight dims, so that the model axis shards H·hd even where the head
+    count does not divide it."""
+    d = axes.fsdp_if(d_model) if d_model else None
+    hd = head_dim or (d_model // max(n_heads, 1) if d_model else 0)
+    q_out = axes.shard_if(n_heads * hd) if hd else axes.shard_if(n_heads)
+    kv_out = axes.shard_if(n_kv_heads * hd) if hd else axes.shard_if(n_kv_heads)
+    return {"wq": P(d, q_out), "wk": P(d, kv_out), "wv": P(d, kv_out), "wo": P(q_out, d)}
+
+
+def mlp_specs(axes: MeshAxes, d_ff: int, d_model: int = 0) -> dict:
+    f = axes.shard_if(d_ff)
+    d = axes.fsdp_if(d_model) if d_model else None
+    return {"wi": P(d, f), "wg": P(d, f), "wo": P(f, d)}
+
+
+def moe_specs(axes: MeshAxes, n_experts: int, d_ff: int, d_model: int = 0) -> dict:
+    e = axes.shard_if(n_experts)
+    f = axes.shard_if(d_ff) if e is None else None  # EP first; else TP inside experts
+    d = axes.fsdp_if(d_model) if d_model else None
+    return {"wi": P(e, d, f), "wg": P(e, d, f), "wo": P(e, f, d)}
+
+
+def embed_specs(axes: MeshAxes, d_model: int = 0) -> dict:
+    d = axes.fsdp_if(d_model) if d_model else None
+    return {"table": P(axes.model, d)}   # (V_padded, D): vocab-sharded
+
+
+def norm_specs() -> dict:
+    return {"scale": P(None)}
+
+
+def _map_specs(fn, tree):
+    if isinstance(tree, PartitionSpec):
+        return fn(tree)
+    return {k: _map_specs(fn, v) for k, v in tree.items()}
+
+
+def prepend(spec_tree, extra=None):
+    """Add a leading (layer-stack) dim to every spec in a tree."""
+    return _map_specs(lambda s: P(extra, *s), spec_tree)
+
+
+def batch_spec(axes: MeshAxes, *rest) -> PartitionSpec:
+    return P(axes.batch, *rest)
+
+
+def zero1_spec(spec: PartitionSpec, shape: Sequence[int], axes: MeshAxes) -> PartitionSpec:
+    """ZeRO-1: additionally shard the largest unsharded dim over 'data'.
+
+    Optimizer-state tensors follow their parameter spec; any dim not already
+    sharded is a candidate for slicing over the data axis.  Falls back to the
+    parameter spec when nothing divides.
+    """
+    data = "data"
+    used = set()
+    for entry in spec:
+        if entry is None:
+            continue
+        if isinstance(entry, (tuple, list)):
+            used.update(entry)
+        else:
+            used.add(entry)
+    if data in used:
+        return spec
+    n = axes.sizes.get(data, 1)
+    best_dim, best_size = -1, 0
+    for i, d in enumerate(shape):
+        taken = spec[i] if i < len(spec) else None
+        if taken is None and d % n == 0 and d > best_size and d >= n:
+            best_dim, best_size = i, d
+    if best_dim < 0:
+        return spec
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    parts[best_dim] = data
+    return P(*parts)
+
+
+# ---------------------------------------------------------------------------
+# Specs as DTensor placements
+# ---------------------------------------------------------------------------
+
+
+def placements(spec: PartitionSpec, mesh) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``: mesh dim k gets ``Shard(i)``
+    if tensor dim i names that axis, else ``Replicate()``.
+
+    A dim naming several axes is sharded on each of them; DTensor splits it
+    in mesh-dim order, the first the major, which is JAX's order when the
+    spec lists the axes in mesh order (anything else raises).
+    """
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, (tuple, list)) else (entry,)
+        idx = []
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"spec {spec} names axis {a!r}, not one of the mesh's {names}")
+            k = names.index(a)
+            if not isinstance(out[k], Replicate):
+                raise ValueError(f"spec {spec} names axis {a!r} twice")
+            out[k] = Shard(i)
+            idx.append(k)
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: dim {i} lists {axes} out of the mesh's order {names}")
+    return tuple(out)
+
+
+def local_shard(full: torch.Tensor, mesh, plc: Sequence) -> torch.Tensor:
+    """This rank's block of ``full`` under ``plc`` (a view; no communication).
+    Every sharded dim divides by its mesh dims (the policy pads or replicates
+    where it would not)."""
+    coord = mesh.get_coordinate()
+    t = full
+    for k, p in enumerate(plc):
+        if isinstance(p, Shard):
+            n = mesh.size(k)
+            if t.shape[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(full.shape)} does not split into {n}")
+            t = t.chunk(n, dim=p.dim)[coord[k]]
+    return t
+
+
+def local_shape(shape: Sequence[int], mesh, plc: Sequence) -> tuple[int, ...]:
+    """The shape of one rank's block of a tensor of ``shape`` under ``plc``."""
+    out = list(shape)
+    for k, p in enumerate(plc):
+        if isinstance(p, Shard):
+            out[p.dim] //= mesh.size(k)
+    return tuple(out)
+
+
+def mesh_device(mesh) -> torch.device:
+    """This rank's device of ``mesh``: its current card, or the host."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def place(full: torch.Tensor, mesh, spec: PartitionSpec) -> DTensor:
+    """``full`` (the same on every rank) as a DTensor placed by ``spec``: each
+    rank keeps its own block, on the mesh's device."""
+    plc = placements(spec, mesh)
+    # a copy: a view would keep the whole of ``full`` alive
+    local = local_shard(full, mesh, plc).to(mesh_device(mesh)).clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, mesh, plc, run_check=False, shape=full.shape, stride=full.stride())
+
+
+def distribute(tree, mesh, spec_tree):
+    """A nested dict of tensors placed by a matching tree of specs (JAX's
+    ``device_put(tree, tree_named(mesh, specs))``)."""
+    if isinstance(tree, dict):
+        return {k: distribute(v, mesh, spec_tree[k]) for k, v in tree.items()}
+    return place(tree, mesh, spec_tree)
+
+
+def constrain(x, spec: PartitionSpec):
+    """JAX's ``with_sharding_constraint``: the port's compute runs on local
+    batch shards, so a plain tensor is returned as it is."""
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Compute on batch shards
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchShards:
+    """The mesh dims that carry the batch in one step, and this rank's shard."""
+
+    mesh: object
+    dims: tuple[int, ...]
+
+    @property
+    def count(self) -> int:
+        return math.prod(self.mesh.size(d) for d in self.dims)
+
+    @property
+    def index(self) -> int:
+        """This rank's shard, the first batch dim the major."""
+        coord = self.mesh.get_coordinate()
+        i = 0
+        for d in self.dims:
+            i = i * self.mesh.size(d) + coord[d]
+        return i
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed in place over the batch shards."""
+        for d in self.dims:
+            if self.mesh.size(d) > 1:
+                dist.all_reduce(t, group=self.mesh.get_group(d))
+        return t
+
+
+# The active step's batch shards: a process-wide value, not a context
+# variable, because the backward pass (and the block recomputation in it)
+# runs on autograd's device threads.
+_BATCH: Optional[BatchShards] = None
+
+
+def batch_dims(mesh, axes: MeshAxes, batch: int) -> tuple[int, ...]:
+    """The mesh dims over which a global batch of ``batch`` rows is split."""
+    ba = axes.batch_axes_for(batch) or ()
+    names = list(mesh.mesh_dim_names)
+    return tuple(sorted(names.index(a) for a in ba))
+
+
+@contextlib.contextmanager
+def batch_shards(mesh, axes: MeshAxes, batch: int) -> Iterator[BatchShards]:
+    """Run a step's forward and backward on the shards of a global batch of
+    ``batch`` rows (:func:`batch_dims`): :func:`batch_sum` and
+    :func:`batch_mean` reduce over them, and :func:`gather` hands gradients
+    back as partial sums over them."""
+    global _BATCH
+    prev, _BATCH = _BATCH, BatchShards(mesh, batch_dims(mesh, axes, batch))
+    try:
+        yield _BATCH
+    finally:
+        _BATCH = prev
+
+
+def active_shards() -> Optional[BatchShards]:
+    return _BATCH
+
+
+def local_batch(batch: dict, shards: BatchShards) -> dict:
+    """This rank's rows of a global batch (every rank holds the same one)."""
+    out = {}
+    for k, x in batch.items():
+        b = x.shape[0]
+        if b % shards.count:
+            raise ValueError(f"batch {k!r} of {b} rows does not split into {shards.count} shards")
+        step = b // shards.count
+        out[k] = x[shards.index * step:(shards.index + 1) * step]
+    return out
+
+
+def batch_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over the batch shards, whose gradient reaches this
+    rank's own term only: summed over the ranks (the ``Partial`` gradients
+    of :func:`gather`), the gradients are those of the global sum.  ``t``
+    itself outside :func:`batch_shards`."""
+    shards = _BATCH
+    if shards is None or shards.count == 1:
+        return t
+    total = shards.all_reduce(t.detach().clone())
+    return total + (t - t.detach())      # exactly the total, the same on every rank
+
+
+def batch_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean of ``t`` over the batch shards (each holds as many rows), its
+    gradient reaching this rank's term as ``1/shards``; ``t`` outside
+    :func:`batch_shards`."""
+    shards = _BATCH
+    if shards is None or shards.count == 1:
+        return t
+    return batch_sum(t) / torch.full((), float(shards.count), dtype=t.dtype, device=t.device)
+
+
+def gather(p) -> torch.Tensor:
+    """The whole of parameter ``p`` as a plain tensor on this rank, for the
+    plain module code (``p`` itself if it is not a DTensor).
+
+    Under :func:`batch_shards` the gradient that comes back is this rank's
+    partial sum over its batch shard (``Partial`` on the batch dims,
+    ``Replicate`` on the others, whose ranks share a batch shard), and the
+    backward pass reduce-scatters it into ``p``'s placement.
+    """
+    if not isinstance(p, DTensor):
+        return p
+    mesh = p.device_mesh
+    full = p.redistribute(mesh, [Replicate()] * mesh.ndim)
+    shards = _BATCH
+    if shards is None or not torch.is_grad_enabled():
+        return full.to_local()
+    grad_plc = [Partial() if d in shards.dims else Replicate() for d in range(mesh.ndim)]
+    return full.to_local(grad_placements=grad_plc)
+
+
+def owner_of(module: torch.nn.Module, name: str) -> tuple[torch.nn.Module, str]:
+    """(the module that holds parameter ``name``, the parameter's own name),
+    walking ``_modules`` (a model's method may shadow a child's name)."""
+    *path, leaf = name.split(".")
+    for part in path:
+        module = module._modules[part]
+    return module, leaf
+
+
+@contextlib.contextmanager
+def gathered(module: torch.nn.Module, names: Sequence[str]) -> Iterator[None]:
+    """Within the block, ``module``'s parameters ``names`` (dotted) are their
+    gathered plain tensors (:func:`gather`); they are put back after it."""
+    saved = []
+    try:
+        for name in names:
+            owner, leaf = owner_of(module, name)
+            p = owner._parameters[leaf]
+            saved.append((owner, leaf, p))
+            owner._parameters[leaf] = gather(p)
+        yield
+    finally:
+        for owner, leaf, p in reversed(saved):
+            owner._parameters[leaf] = p
+
+
+def _gather_hook(block, args):
+    ctx = gathered(block, [n for n, p in block.named_parameters() if isinstance(p, DTensor)])
+    ctx.__enter__()
+    block._gather_ctx = ctx
+
+
+def _release_hook(block, args, out):
+    ctx = block.__dict__.pop("_gather_ctx", None)
+    if ctx is not None:
+        ctx.__exit__(None, None, None)
+
+
+def gather_in_blocks(blocks: Sequence[torch.nn.Module]) -> list:
+    """Make each block gather its weights when it is called and release them
+    when it returns: one block's gathered weights are live at a time, and a
+    rematerialized block gathers again in the backward pass.  Returns the
+    hook handles."""
+    handles = []
+    for b in blocks:
+        handles.append(b.register_forward_pre_hook(_gather_hook))
+        handles.append(b.register_forward_hook(_release_hook, always_call=True))
+    return handles
+
+
+def sharded_sumsq(tensors) -> torch.Tensor:
+    """The sum of squares, in f32, over the whole of every tensor: a DTensor
+    over its global extent, each block counted once."""
+    groups: dict = {}
+    for t in tensors:
+        if isinstance(t, DTensor):
+            local = t.to_local()
+            key = (t.device_mesh, tuple(isinstance(p, Shard) for p in t.placements))
+        else:
+            local, key = t, None
+        s = torch.sum(local.to(torch.float32) ** 2)
+        groups[key] = s if key not in groups else groups[key] + s
+    total = None
+    for key, s in groups.items():
+        if key is not None:
+            mesh, sharded = key
+            for d, is_sharded in enumerate(sharded):
+                if is_sharded and mesh.size(d) > 1:
+                    dist.all_reduce(s, group=mesh.get_group(d))
+        total = s if total is None else total + s
+    return total

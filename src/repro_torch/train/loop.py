@@ -1,7 +1,7 @@
-"""Fault-tolerant training loop: checkpoint/restart and a straggler watchdog.
+"""Fault-tolerant training loop: checkpoint/restart, a straggler watchdog
+and the elastic re-mesh.
 
-The port's counterpart of the JAX package's ``train/loop.py``, on one
-device:
+The port's counterpart of the JAX package's ``train/loop.py``:
 
   * **checkpoint/restart** — async atomic checkpoints every ``ckpt_every``
     steps; on a restartable step failure the loop restores the latest
@@ -10,12 +10,17 @@ device:
   * **straggler mitigation** — a step-time watchdog flags steps slower
     than ``factor`` × the running median and calls a hook;
   * **simulated failures** — ``failure_injector`` lets tests kill
-    arbitrary steps to exercise the restart path.
+    arbitrary steps to exercise the restart path;
+  * **elastic re-mesh** — :func:`resize_mesh` re-places a state tree on
+    another mesh over the same ranks (4×1 → 2×2).
 
 Only :class:`SimulatedFailure` is restartable, as in JAX: a CUDA error or an
 out-of-memory error ends the run.  The loop reads one number a step back
-to the host, ``float(metrics["loss"])``.  Elastic re-meshing
-(``resize_mesh``) waits for the multi-card LM work.
+to the host, ``float(metrics["loss"])``.  A sharded model trains through
+the same loop: every rank runs it, and its checkpoints are written by
+rank 0 (``ckpt.checkpoint``).  A restartable failure must reach every rank
+at the same step: the ranks then agree on the step to restore (rank 0's,
+after its last save has been written) before any of them reads it.
 """
 
 from __future__ import annotations
@@ -26,8 +31,11 @@ import statistics
 import time
 from typing import Any, Callable, Optional
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.configs.base import TrainConfig
+from repro_torch.parallel import sharding as shd
 
 log = logging.getLogger("repro_torch.train")
 
@@ -109,8 +117,8 @@ def train_loop(
             if restarts > max_restarts:
                 raise RuntimeError(f"exceeded {max_restarts} restarts") from e
             log.warning("step %d failed (%s); restoring latest checkpoint", step, e)
-            saver.wait()
-            last = ckpt.latest_step(tcfg.ckpt_dir)
+            saver.wait()            # rank 0's last checkpoint is written before its step is shared
+            last = ckpt.agreed_latest_step(tcfg.ckpt_dir)
             if last is None or restore_fn is None:
                 log.warning("no checkpoint found; replaying step %d in place", step)
                 continue
@@ -142,3 +150,19 @@ class SimulatedFailure(RuntimeError):
 
 def ckpt_restartable_errors():
     return (SimulatedFailure,)
+
+
+def resize_mesh(state_tree, target_shardings):
+    """Elastic re-mesh: every leaf re-placed by ``target_shardings``.
+
+    ``state_tree`` is a nested dict of DTensors (or plain tensors, the same on
+    every rank); ``target_shardings`` a tree beside it of ``(mesh, spec)``.
+    DTensor's ``redistribute`` stays within one mesh, so each leaf goes
+    through its whole value, gathered on every rank, and each rank keeps its
+    block on the target mesh.  Both meshes span the same ranks.
+    """
+    if isinstance(state_tree, dict):
+        return {k: resize_mesh(v, target_shardings[k]) for k, v in state_tree.items()}
+    mesh, spec = target_shardings
+    full = state_tree.full_tensor() if isinstance(state_tree, DTensor) else state_tree
+    return shd.place(full.detach(), mesh, spec)

@@ -1,8 +1,8 @@
 """Train-step construction: loss and gradients → AdamW, with optional
 microbatch gradient accumulation.
 
-The port's counterpart of the JAX package's ``train/step.py``, on one
-device.  The parameters live in the model and are updated in place:
+The port's counterpart of the JAX package's ``train/step.py``.  The
+parameters live in the model and are updated in place:
 
     train_step(model, opt_state, batch) -> (model, opt_state, metrics)
 
@@ -11,10 +11,22 @@ device.  The parameters live in the model and are updated in place:
 JAX), so nothing inside the step waits for the host.  Microbatching splits
 the batch (B, S) into k parts of B/k, accumulates f32 gradients and divides
 gradients and loss by k; one microbatch's activations are live at a time.
+
+**Across cards.**  The signature is the same; the step reads the mesh
+from the model (``model.distribute(mesh)``).  Every rank passes the same
+global batch and computes on its own rows: the batch is split over the
+mesh axes that ``axes.batch_axes_for(B)`` picks (with ``tp`` off, the
+model axis among them), and ranks that share a batch shard compute the
+same thing.  The loss is the global token mean (the sums and counts of
+``softmax_xent_sums`` summed over the shards), the MoE load-balance loss
+takes its statistics over all shards, and the gradients come back in the
+parameters' placement, reduce-scattered.  Microbatching splits each rank's
+rows.  ``metrics`` are the same on every rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import numpy as np
@@ -22,6 +34,7 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.optim.adamw import AdamWState, adamw_apply, default_decay_mask
+from repro_torch.parallel import sharding as shd
 
 
 def device_batch(batch: dict, device) -> dict:
@@ -42,13 +55,60 @@ def make_loss_fn(model) -> Callable:
     return loss_fn
 
 
-def _grads(loss_fn, model, batch: dict):
+def _grads(loss_fn, model, batch: dict, named: dict | None = None):
     """(loss, aux, {name: f32 gradient}) of ``loss_fn`` on ``batch``; a
-    parameter the loss does not reach gets zeros, as under ``jax.grad``."""
-    named = dict(model.named_parameters())
+    parameter the loss does not reach gets zeros, as under ``jax.grad``.
+    ``named`` (default: the model's) are the parameters to differentiate."""
+    named = dict(model.named_parameters()) if named is None else named
     loss, aux = loss_fn(model, batch)
     grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True, materialize_grads=True)
     return loss.detach(), {k: v.detach() for k, v in aux.items()}, dict(zip(named, grads))
+
+
+def loss_and_grads(model, batch: dict, *, microbatch: int = 0, loss_fn: Callable | None = None):
+    """(loss, aux, {name: f32 gradient}) of ``model`` on ``batch``: the
+    gradients the train step hands AdamW.
+
+    ``microbatch`` k > 1 accumulates k parts of each rank's rows and divides
+    gradients and loss by k (``aux`` is then empty).  For a model placed on a
+    mesh the batch is the global one and the gradients are DTensors in the
+    parameters' placement (module docstring).
+    """
+    loss_fn = loss_fn or make_loss_fn(model)
+
+    def compute_grads(batch, named=None):
+        k = microbatch
+        if k and k > 1:
+            b = next(iter(batch.values())).shape[0]
+            if b % k:
+                raise ValueError(f"batch {b} does not split into {k} microbatches")
+            g_acc, l_acc = None, torch.zeros((), dtype=torch.float32, device=model.device)
+            for i in range(k):
+                mb = {name: x[i * (b // k):(i + 1) * (b // k)] for name, x in batch.items()}
+                loss, _, g = _grads(loss_fn, model, mb, named)
+                if g_acc is None:
+                    g_acc = {n: torch.zeros_like(t, dtype=torch.float32) for n, t in g.items()}
+                for n, t in g.items():
+                    g_acc[n].add_(t.to(torch.float32))
+                del g              # freed before the next microbatch's backward
+                l_acc = l_acc + loss
+            return l_acc / k, {}, {n: t / k for n, t in g_acc.items()}
+        return _grads(loss_fn, model, batch, named)
+
+    if getattr(model, "mesh", None) is None:
+        return compute_grads(batch)
+    named = dict(model.named_parameters())     # the DTensors, before the gather swaps them
+    with _on_shards(model, batch) as local:
+        return compute_grads(local, named)
+
+
+@contextlib.contextmanager
+def _on_shards(model, batch: dict):
+    """This rank's rows of ``batch``, with the model's batch shards active and
+    its weights outside the blocks gathered."""
+    b = next(iter(batch.values())).shape[0]
+    with shd.batch_shards(model.mesh, model.axes, b) as shards, model.gathered_top():
+        yield shd.local_batch(batch, shards)
 
 
 def make_train_step(model, tcfg: TrainConfig) -> Callable:
@@ -62,27 +122,8 @@ def make_train_step(model, tcfg: TrainConfig) -> Callable:
     loss_fn = make_loss_fn(model)
     decay_mask = default_decay_mask(model)
 
-    def compute_grads(model, batch):
-        k = tcfg.microbatch
-        if k and k > 1:
-            b = next(iter(batch.values())).shape[0]
-            if b % k:
-                raise ValueError(f"batch {b} does not split into {k} microbatches")
-            g_acc, l_acc = None, torch.zeros((), dtype=torch.float32, device=model.device)
-            for i in range(k):
-                mb = {name: x[i * (b // k):(i + 1) * (b // k)] for name, x in batch.items()}
-                loss, _, g = _grads(loss_fn, model, mb)
-                if g_acc is None:
-                    g_acc = {n: torch.zeros(t.shape, dtype=torch.float32, device=t.device) for n, t in g.items()}
-                for n, t in g.items():
-                    g_acc[n].add_(t.to(torch.float32))
-                del g              # freed before the next microbatch's backward
-                l_acc = l_acc + loss
-            return l_acc / k, {}, {n: t / k for n, t in g_acc.items()}
-        return _grads(loss_fn, model, batch)
-
     def train_step(model, opt_state: AdamWState, batch: dict):
-        loss, aux, grads = compute_grads(model, batch)
+        loss, aux, grads = loss_and_grads(model, batch, microbatch=tcfg.microbatch, loss_fn=loss_fn)
         model, opt_state, stats = adamw_apply(model, grads, opt_state, tcfg, decay_mask=decay_mask)
         return model, opt_state, {"loss": loss, **stats, **aux}
 
@@ -95,7 +136,11 @@ def make_eval_step(model) -> Callable:
 
     @torch.no_grad()
     def eval_step(model, batch):
-        loss, aux = loss_fn(model, batch)
+        if getattr(model, "mesh", None) is not None:
+            with _on_shards(model, batch) as local:
+                loss, aux = loss_fn(model, local)
+        else:
+            loss, aux = loss_fn(model, batch)
         return {"loss": loss, **aux}
 
     return eval_step

@@ -2,9 +2,12 @@
 
 The port's counterpart of the JAX package's ``utils/losses.py``.  The JAX
 version picks the gold logit with an iota-compare-select reduction so that
-a vocabulary sharded over the mesh needs no all-gather; the port's LM runs
-on one device, so it gathers the gold logit (the same value: every other
-term of that sum is zero).
+a vocabulary sharded over the mesh needs no all-gather; the port computes
+on whole (gathered) weights, so it gathers the gold logit (the same value:
+every other term of that sum is zero).  Across cards the sums and counts
+of :func:`softmax_xent_sums` are summed over the batch shards before the
+mean (``parallel.sharding.batch_sum``): the mean of the shards' means is
+another number when their valid counts differ.
 
 ``chunked_softmax_xent`` never holds the whole (B, S, V_pad) logits: each
 sequence chunk's logits are built inside a non-reentrant
@@ -17,6 +20,8 @@ from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.parallel.sharding import batch_sum
 
 MASKED = -1e30   # the padded vocabulary tail's logit, in f32
 
@@ -86,5 +91,6 @@ def chunked_softmax_xent(
             nll, valid = _chunk_sums(xc, w, lc, vocab_size)
         nll_sum = nll_sum + nll
         n_valid = n_valid + valid
+    nll_sum, n_valid = batch_sum(nll_sum), batch_sum(n_valid)
     n_valid = torch.clamp(n_valid, min=1.0)
     return nll_sum / n_valid, n_valid
