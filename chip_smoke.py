@@ -127,6 +127,31 @@ Phases, each printing its own lines:
    the replicated norms, peak under the card's memory; the gradients'
    bytes read inside each step); on fewer cards one line says what did not
    run;
+2r. dryrun — the dry-run (``repro_torch.launch.dryrun``: a fake process
+   group, fake tensors, the step's ops counted by ``utils.op_cost``) held
+   against the real steps.  Inside 2l, on the serving model (bf16 weights,
+   ``launch.specs.serving_config``, seed 0): prefill B 4 x S 128 and one
+   decode step of B 4 against a 160-deep cache; inside 2t, once the
+   trained weights have been served, the train step of B 4 x S 128 on its
+   model and AdamW state: each planned on a fake 1x1 mesh and run on the
+   card under the counter, then once more uncounted (K1's launches read
+   after both runs).
+   Gates: the real step's FLOPs equal the plan's exactly, its K1 launches
+   equal the plan's K1 ops, the plan's peak within 10% of
+   ``max_memory_allocated`` (less what the process holds besides the step's
+   arguments); printed: the roofline terms at the H100's peaks and the
+   measured roofline fraction (model FLOPs at 989 TFLOP/s over the
+   measured step), and where the bytes differ, by op.  Then its own child
+   (``chip_smoke.py --dryrun``): ``python -m repro_torch.launch.dryrun
+   --arch granite-moe-3b-a800m --shape decode_32k --mesh single`` in a
+   process with its own time limit (its row and wall time); on four cards phi3.5-moe-42b-a6.6b
+   at full width in bf16 on a 2x2 NCCL mesh, B 8 x S 128 (whole 512-token
+   MoE groups a batch shard) and 8 greedy decode steps: a card's parameter
+   bytes equal to the fake 2x2 plan's, the prefill's and a decode step's
+   collectives by kind equal to the plan's, their peaks within 10% of it;
+   then phi at 4 of its 32 layers sharded on 2x2, its prefill logits and
+   greedy tokens bit-equal to one card's run microbatched by the batch
+   shards; on fewer cards one line says it did not run;
 3. kernels against plain versions — K1 (gather, onehot), K2, K3 (gather,
    onehot) and K4 on adversarial records (ties, ±inf, NaN) and trees of depth
    0–9 (one with N > 128), M ∈ {1, 7, 65,536}; K5 (gather, onehot) and K6 on
@@ -246,7 +271,8 @@ over phase 6f, where K3 gather, K4, K5 in both forms, K6, and K7/K8 must
 launch (the phase prints them by part: served waves, re-tune candidates,
 anytime stages, shard bodies, the chunker), and in phase 2l's own window
 over its served run, where K1 onehot must launch 2,048 times and no other
-kernel, in phase 2t's over the serve from the trained weights (160 K1
+kernel (then the dry-run's serving cells, whose K1 launches must equal the
+plan's K1 ops), in phase 2t's over the serve from the trained weights (160 K1
 onehot launches), and in phase 2f's from its start to the tree head (2 K1
 onehot launches, no other kernel), in phase 2g's (no launch), over
 [obs-smoke] and in the children of [examples] (each child prints its own
@@ -2355,8 +2381,10 @@ def phase_lm_serve(dev, card, cfg=None) -> dict:
               f"(block_m {bm}; {shape}): {ms:.4f} ms "
               f"(profiler, {n} launches), plain {plain_ms:.4f} ms (CUDA events), bound {bnd:.3g} ms ({by}, "
               f"launch/roofline.py), {bnd / ms:.2%} of the bound; library: none")
+    planned = dryrun_serve_check(dev, cfg, card)
     print(f"[lm-serve] phase took {time.perf_counter() - t_phase:.1f} s on the host of {card}")
-    return {"k1_onehot_launches": launches["speculative/onehot"], "max_abs_err": err}
+    return {"k1_onehot_launches": launches["speculative/onehot"] + planned["k1_onehot_launches"],
+            "max_abs_err": err}
 
 
 # ---------------------------------------------------------------------------
@@ -2697,7 +2725,7 @@ def phase_lm_train(dev, card, cfg=None) -> dict:
           f"recompute + backward + AdamW) under the profiler: {kinds_line(wall, device, kinds)}")
 
     # serve from the trained weights: the routers' thresholds moved
-    del opt, state
+    del state
     stale = sum(r.stale for r in model.tree_routers())
     check(stale == cfg.n_layers, f"{stale} of {cfg.n_layers} routers stale after training")
     print(f"[lm-train] after training {stale} of {cfg.n_layers} routers are stale (router_thr moved); "
@@ -2743,13 +2771,16 @@ def phase_lm_train(dev, card, cfg=None) -> dict:
           f"times ({cfg.n_layers} layers x {1 + LM_TRAIN_DECODE}), no other kernel; all {len(captured)} routes "
           f"torch.equal to K1's plain version on the same z and to hard_tree_route with routers packed fresh from "
           f"the trained router_thr ({fresh_equal})")
-    del work, cache, logits, model
+    del work, cache, logits
+    # the dry-run's two real steps, after everything that reads the trained weights
+    planned = dryrun_train_check(model, opt, train_step, batches(LM_TRAIN_STEPS + 1), cfg, card)
+    del opt, model
     torch.cuda.empty_cache()
 
     lm_train_card_vs_cpu(dev, card)
     lm_train_restart(dev, card)
     print(f"[lm-train] phase took {time.perf_counter() - t_phase:.1f} s on the host of {card}")
-    return {"k1_onehot_launches": launches["speculative/onehot"], "max_abs_err": err}
+    return {"k1_onehot_launches": launches["speculative/onehot"] + planned, "max_abs_err": err}
 
 
 # ---------------------------------------------------------------------------
@@ -3672,9 +3703,390 @@ def phase_lm_dist(card) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# [dryrun]: the dry-run's plan (fake process group, fake tensors, counted ops)
+# held against the real steps on the card
+# ---------------------------------------------------------------------------
+
+
+DRYRUN_TAG = "[dryrun]"
+DRYRUN_PEAK_RTOL = 0.10          # the plan's peak against max_memory_allocated
+DRYRUN_CACHE = LM_PROMPT + LM_NEW   # decode: one token against a 160-deep cache, as the served run's last step
+DRYRUN_CLI = ("--arch", LM_ARCH, "--shape", "decode_32k", "--mesh", "single")   # one production cell
+DRYRUN_CLI_TIMEOUT_S = 300
+DRYRUN_RESULT = DRYRUN_TAG + " result "
+DRYRUN_TIMEOUT_S = 900
+PHI_ARCH = "phi3.5-moe-42b-a6.6b"
+PHI_BATCH, PHI_PROMPT, PHI_NEW = 8, 128, 8   # 4 rows x 128 a batch shard: whole 512-token MoE groups
+PHI_WITNESS_LAYERS = 4
+PHI_CARDS = 4
+
+
+def dryrun_plan(cfg, shape, mesh: str = "1x1") -> dict:
+    """The row of ``cfg``'s cell planned on a fake ``mesh`` (``launch.dryrun``),
+    its collectives as counts by kind."""
+    from repro_torch.launch import dryrun
+
+    row = dryrun.run_cell(cfg.name, shape, mesh=mesh, cfg=cfg, verbose=False)
+    row["collectives"] = {k: v["count"] for k, v in row["collectives"].items()}
+    return row
+
+
+def dryrun_real(fn, held) -> dict:
+    """``fn`` (one step) on the card: once under the counter, then once more
+    for its time and its peak.  ``held`` are the step's arguments (weights,
+    optimizer state, cache, batch); the peak is ``max_memory_allocated``
+    less what the process holds besides them.  ``k1`` is K1's launches in
+    the counted run, ``k1_total`` those of both runs, read after the
+    second."""
+    from repro_torch.utils.op_cost import OpCost
+
+    K.reset_launches()
+    with OpCost() as cost:
+        cost.track(*held)
+        out = fn()
+        del out
+        torch.cuda.synchronize()
+    k1 = K.LAUNCHES["speculative/onehot"]
+    args = OpCost()
+    args.track(*held)
+    torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated() - args.live_bytes
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    del out
+    raw = torch.cuda.max_memory_allocated()
+    return {"cost": cost, "k1": k1, "k1_total": K.LAUNCHES["speculative/onehot"], "s": dt, "raw_peak": raw,
+            "peak": raw - other}
+
+
+def dryrun_hold(cfg, shape, row, real: dict, card, chips: int = 1) -> None:
+    """Print the plan beside the real step and gate: FLOPs equal, K1 ops equal
+    to the launches, the plan's peak within 10% of the real one."""
+    gib = 2.0**30
+    cost = real["cost"]
+    what = f"{cfg.name} {row['step']} B {shape.global_batch} x S {shape.seq_len}"
+    print(f"{DRYRUN_TAG} {card}: {what}: plan on a fake {row['mesh']} mesh in {row['plan_s']:.1f} s on the host: "
+          f"{row['flops_per_card']:.6e} FLOPs, {row['bytes_per_card']:.6e} bytes, peak {row['fit_bytes'] / gib:.3f} "
+          f"GiB, {row['k1_ops']} K1 ops, collectives {row['coll_summary']}; the real step on the card, counted: "
+          f"{cost.flops:.6e} FLOPs, {cost.bytes:.6e} bytes, {real['k1']} K1 launches, collectives "
+          f"{cost.coll_summary()}; max_memory_allocated {real['raw_peak'] / gib:.3f} GiB, {real['peak'] / gib:.3f} "
+          f"GiB of it the step's (its arguments and what it allocates), plan/real {row['fit_bytes'] / real['peak']:.4f}")
+    print(f"{DRYRUN_TAG} {card}: {what}: roofline at the H100's peaks (launch/roofline.py): compute "
+          f"{row['compute_s'] * 1e3:.4f} ms, memory {row['memory_s'] * 1e3:.4f} ms, collective "
+          f"{row['collective_s'] * 1e3:.4f} ms, dominant {row['dominant']}, useful ratio {row['useful_ratio']:.4f}, "
+          f"planned roofline fraction {row['roofline_fraction']:.6f}; measured step {real['s'] * 1e3:.1f} ms (host "
+          f"clock after synchronize, uncounted), measured roofline fraction "
+          f"{roofline.measured_fraction(row['model_flops'], chips, real['s']):.6f} (model FLOPs "
+          f"{row['model_flops']:.6e} / {chips} card{'s' * (chips > 1)} at {roofline.PEAK_BF16 / 1e12:.0f} TFLOP/s "
+          f"bf16 over the measured step)")
+    if cost.bytes != row["bytes_per_card"]:
+        planned = row["bytes_by_op"]
+        diff = sorted(((name, cost.bytes_by_op.get(name, 0.0) - planned.get(name, 0.0))
+                       for name in set(cost.bytes_by_op) | set(planned)), key=lambda kv: -abs(kv[1]))
+        print(f"{DRYRUN_TAG} {what}: bytes real - plan by op: "
+              f"{', '.join(f'{n} {d:+.0f}' for n, d in diff[:6] if d)}")
+    check(cost.flops == row["flops_per_card"],
+          f"{what}: the real step's FLOPs {cost.flops:.6e} are not the plan's {row['flops_per_card']:.6e}")
+    check(cost.k1 == row["k1_ops"] == real["k1"],
+          f"{what}: K1 {cost.k1} counted, {row['k1_ops']} planned, {real['k1']} launched")
+    check(abs(row["fit_bytes"] - real["peak"]) <= DRYRUN_PEAK_RTOL * real["peak"],
+          f"{what}: the plan's peak {row['fit_bytes'] / gib:.3f} GiB is not within {DRYRUN_PEAK_RTOL:.0%} of the "
+          f"card's {real['peak'] / gib:.3f} GiB")
+
+
+def dryrun_train_check(model, opt, train_step, batch, cfg, card) -> int:
+    """The ``[lm-train]`` cell (B 4 x S 128) planned on a fake 1x1 mesh and
+    held against the real step on the card (module docstring, ``[dryrun]``).
+    The two real steps train ``model`` on: call it when nothing else reads
+    the trained weights.  Returns K1's launches in both steps."""
+    from repro_torch.configs import ShapeConfig
+
+    shape = ShapeConfig("lm_train", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train")
+    row = dryrun_plan(cfg, shape)
+    real = dryrun_real(lambda: train_step(model, opt, batch), (model, opt, batch))
+    dryrun_hold(cfg, shape, row, real, card)
+    return real["k1_total"]
+
+
+def dryrun_serve_check(dev, cfg, card) -> dict:
+    """The ``[lm-serve]`` cells, prefill B 4 x S 128 and one decode step of B
+    4 against a 160-deep cache, on the serving model (bf16 weights,
+    ``launch.specs.serving_config``), each planned on a fake 1x1 mesh and
+    held against the real step on the card.  Returns K1's launches, those
+    of the counted and the timed runs of both cells."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.specs import serving_config
+    from repro_torch.models import build_model
+
+    scfg = serving_config(cfg)
+    model = build_model(scfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(7)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)).to(dev)
+    step = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_BATCH, 1), dtype=np.int32)).to(dev)
+    launches = 0
+    shape = ShapeConfig("lm_prefill", LM_PROMPT, LM_BATCH, "prefill")
+    row = dryrun_plan(cfg, shape)
+    real = dryrun_real(lambda: model.prefill({"tokens": prompt}), (model, {"tokens": prompt}))
+    dryrun_hold(scfg, shape, row, real, card)
+    launches += real["k1_total"]
+    shape = ShapeConfig("lm_decode", DRYRUN_CACHE, LM_BATCH, "decode")
+    row = dryrun_plan(cfg, shape)
+    cache = model.init_cache(LM_BATCH, DRYRUN_CACHE)._replace(pos=DRYRUN_CACHE - 1)
+    real = dryrun_real(lambda: model.decode_step(cache, {"tokens": step}), (model, cache, {"tokens": step}))
+    dryrun_hold(scfg, shape, row, real, card)
+    launches += real["k1_total"]
+    del model, cache
+    torch.cuda.empty_cache()
+    return {"k1_onehot_launches": launches}
+
+
+def dryrun_cli(card) -> None:
+    """One full-size production cell through the CLI (granite's decode_32k on
+    the 16x16 mesh), in a child process with its own time limit: its rows
+    and its wall time."""
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(root / "src"), os.environ.get("PYTHONPATH", "")]))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rows.json")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_CLI, "--out", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+                              timeout=DRYRUN_CLI_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            if not line.startswith("[rank0]:W"):
+                print(f"{DRYRUN_TAG} cli: {line}")
+        check(proc.returncode == 0, f"python -m repro_torch.launch.dryrun exited with {proc.returncode}")
+        rows = json.loads(Path(out).read_text())
+    planned = [r for r in rows if "dominant" in r]
+    print(f"{DRYRUN_TAG} {card}: python -m repro_torch.launch.dryrun {' '.join(DRYRUN_CLI)}: "
+          f"{len(planned)} cell planned in {wall:.1f} s wall on the host "
+          f"(plan seconds {', '.join(f'{r['shape']} {r['plan_s']:.1f}' for r in planned)})")
+    check(len(planned) == 1 and planned[0]["flops_per_card"] > 0 and planned[0]["k1_ops"] > 0,
+          f"the CLI planned {len(planned)} cells")
+
+
+def dist_next_tokens(logits: torch.Tensor, mesh) -> torch.Tensor:
+    """The global batch's greedy next ids from each rank's rows of the
+    logits: this rank's argmax, all-gathered over the batch shards ('data')."""
+    import torch.distributed as dist
+
+    local = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32).contiguous()
+    group = mesh.get_group(0)
+    out = torch.empty((local.shape[0] * dist.get_world_size(group), 1), dtype=torch.int32, device=local.device)
+    dist.all_gather_into_tensor(out, local, group=group)
+    return out
+
+
+def phi_full(rank: int, mesh, plans: dict, card: str) -> dict:
+    """phi3.5-moe-42b-a6.6b at full width in bf16 on the 2x2 mesh: a card's
+    parameter bytes, the prefill's and a decode step's collectives and peak
+    against the dry-run's plan of the same cells; then the served flow
+    (prefill, ``PHI_NEW`` greedy decode steps).  Returns K1's launches read
+    on this rank: the counted and timed runs of both cells and the served
+    flow."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.specs import plan_cell
+    from repro_torch.parallel import sharding as shd
+
+    gib = 2.0**30
+    dev = shd.mesh_device(mesh)
+    cfg = get_config(PHI_ARCH)
+    t0 = time.perf_counter()
+    model = plan_cell(cfg, ShapeConfig("phi_prefill", PHI_PROMPT, PHI_BATCH, "prefill"),
+                      shd.from_mesh(mesh)).model.distribute(mesh)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    param_bytes = sum(p.to_local().numel() * p.element_size() for p in model.parameters())
+    dist_print(rank, f"{DRYRUN_TAG} {card}: {PHI_ARCH} at full width in bf16 on a 2x2 NCCL mesh, built on meta, "
+               f"placed and drawn in {built:.1f} s: {param_bytes:,} parameter bytes on rank {rank} "
+               f"({param_bytes / gib:.3f} GiB), the plan's {plans['prefill']['param_bytes_per_card']:,}")
+    check(param_bytes == plans["prefill"]["param_bytes_per_card"] == plans["decode"]["param_bytes_per_card"],
+          f"rank {rank} holds {param_bytes} parameter bytes, the plan {plans['prefill']['param_bytes_per_card']}")
+    rng = np.random.default_rng(11)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (PHI_BATCH, PHI_PROMPT), dtype=np.int32)).to(dev)
+    out = {}
+    for kind in ("prefill", "decode"):
+        row = plans[kind]
+        if kind == "prefill":
+            real = dryrun_real(lambda: model.prefill({"tokens": ids}), (model, {"tokens": ids}))
+        else:
+            logits, cache = model.prefill({"tokens": ids}, max_len=PHI_PROMPT + PHI_NEW)
+            tok = dist_next_tokens(logits, mesh)
+            real = dryrun_real(lambda: model.decode_step(cache, {"tokens": tok}), (model, cache, {"tokens": tok}))
+        counts = {k: v for k, v in sorted(real["cost"].coll_count.items())}
+        dist_print(rank, f"{DRYRUN_TAG} {card}: {PHI_ARCH} {kind} (B {PHI_BATCH}, prompt {PHI_PROMPT}) on rank "
+                   f"{rank}: collectives counted {counts}, planned {row['collectives']}; peak "
+                   f"{real['peak'] / gib:.3f} GiB (max_memory_allocated {real['raw_peak'] / gib:.3f}), planned "
+                   f"{row['fit_bytes'] / gib:.3f} GiB (plan/real {row['fit_bytes'] / real['peak']:.4f}); FLOPs "
+                   f"counted {real['cost'].flops:.6e}, planned {row['flops_per_card']:.6e}; "
+                   f"{real['s'] * 1e3:.1f} ms (uncounted); K1 launches {real['k1']}, planned {row['k1_ops']}")
+        check(counts == row["collectives"], f"rank {rank} {kind}: collectives {counts}, planned {row['collectives']}")
+        check(abs(row["fit_bytes"] - real["peak"]) <= DRYRUN_PEAK_RTOL * real["peak"],
+              f"rank {rank} {kind}: peak {real['peak']} against the plan's {row['fit_bytes']}")
+        check(real["k1"] == row["k1_ops"], f"rank {rank} {kind}: {real['k1']} K1 launches, {row['k1_ops']} planned")
+        out[kind] = real["k1_total"]
+    # the served flow: prefill, then greedy decode steps
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill({"tokens": ids}, max_len=PHI_PROMPT + PHI_NEW)
+    torch.cuda.synchronize()
+    pre = time.perf_counter() - t0
+    steps = []
+    for _ in range(PHI_NEW):
+        tok = dist_next_tokens(logits, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(cache, {"tokens": tok})
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    check(bool(torch.isfinite(logits).all()), "phi's decode logits are not finite")
+    dist_print(rank, f"{DRYRUN_TAG} {card}: {PHI_ARCH} served on the 2x2 mesh, rank {rank}: prefill "
+               f"{pre * 1e3:.1f} ms, {PHI_NEW} greedy decode steps "
+               f"{', '.join(f'{s * 1e3:.1f}' for s in steps)} ms (host clock after synchronize); peak "
+               f"{torch.cuda.max_memory_allocated() / gib:.3f} GiB")
+    out["served"] = K.LAUNCHES["speculative/onehot"]
+    del model, cache, logits
+    torch.cuda.empty_cache()
+    return {"k1": sum(out.values())}
+
+
+def phi_witness(rank: int, mesh, tmp: str, card: str) -> None:
+    """phi3.5-moe at 4 of its 32 layers, sharded on 2x2, against one card's
+    prefill and greedy decode microbatched by the batch shards: logits and
+    tokens bit-equal.  Rank 0 takes the single-card run first."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import serving_axes, serving_config
+    from repro_torch.models import build_model
+    from repro_torch.parallel import sharding as shd
+
+    dev = shd.mesh_device(mesh)
+    full = get_config(PHI_ARCH)
+    cfg = dataclasses.replace(serving_config(full), n_layers=PHI_WITNESS_LAYERS)
+    axes = serving_axes(full, shd.from_mesh(mesh))      # the full model's placement, not the cut one's
+    rng = np.random.default_rng(13)
+    ids = torch.from_numpy(rng.integers(0, full.vocab_size, (PHI_BATCH, PHI_PROMPT), dtype=np.int32)).to(dev)
+    shards = mesh.size(0)
+    rows = PHI_BATCH // shards
+    ref_path = os.path.join(tmp, "phi_witness.pt")
+    if rank == 0:
+        ref = build_model(cfg, device=dev, axes=axes).init(torch.Generator(device=dev).manual_seed(0))
+        want = []
+        for s in range(shards):
+            logits, cache = ref.prefill({"tokens": ids[s * rows:(s + 1) * rows]}, max_len=PHI_PROMPT + PHI_NEW)
+            got = {"prefill": logits.cpu(), "decode": [], "tokens": []}
+            for _ in range(PHI_NEW):
+                tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+                got["tokens"].append(tok.cpu())
+                logits, cache = ref.decode_step(cache, {"tokens": tok})
+                got["decode"].append(logits.cpu())
+            want.append(got)
+        torch.save(want, ref_path)
+        del ref, cache, logits
+        torch.cuda.empty_cache()
+    dist.barrier()
+    want = torch.load(ref_path, weights_only=False)[mesh.get_coordinate()[0]]
+    model = build_model(cfg, device="meta", axes=axes).distribute(mesh)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    logits, cache = model.prefill({"tokens": ids}, max_len=PHI_PROMPT + PHI_NEW)
+    same = torch.equal(logits.cpu(), want["prefill"])
+    for t in range(PHI_NEW):
+        tok = dist_next_tokens(logits, mesh)
+        mine = tok[mesh.get_coordinate()[0] * rows:(mesh.get_coordinate()[0] + 1) * rows]
+        same = same and torch.equal(mine.cpu(), want["tokens"][t])
+        logits, cache = model.decode_step(cache, {"tokens": tok})
+        same = same and torch.equal(logits.cpu(), want["decode"][t])
+    dist_print(rank, f"{DRYRUN_TAG} {card}: the witness, {PHI_ARCH} at full width and {PHI_WITNESS_LAYERS} of its "
+               f"32 layers in bf16, sharded on 2x2: rank {rank}'s prefill logits, {PHI_NEW} greedy tokens and "
+               f"their logits {'bit-equal' if same else 'NOT equal'} to one card's prefill and decode of its "
+               f"batch shard ({rows} of {PHI_BATCH} rows)")
+    check(same, f"rank {rank}: the sharded witness differs from one card's microbatched run")
+    del model, cache, logits
+    torch.cuda.empty_cache()
+
+
+def phi_rank(rank: int, world: int, store: str, plan_path: str, out: str) -> None:
+    """One rank of the four-card part of ``[dryrun]`` (NCCL through a FileStore)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=DIST_RANK_TIMEOUT_S),
+                            device_id=torch.device("cuda", rank))
+    try:
+        card = card_line()
+        mesh = make_test_mesh(2, 2)
+        result = phi_full(rank, mesh, json.loads(Path(plan_path).read_text()), card)
+        phi_witness(rank, mesh, os.path.dirname(out), card)
+        if rank == 0:
+            Path(out).write_text(json.dumps(result))
+        dist.barrier()
+    except BaseException:
+        import traceback
+
+        traceback.print_exc()
+        sys.stdout.flush()
+        os._exit(1)
+    dist.destroy_process_group()
+
+
+def phase_dryrun(card) -> dict:
+    """``[dryrun]``'s own part (module docstring): the CLI on one full-size
+    production cell, then on four cards phi3.5-moe served on 2x2 against
+    its plan.  Returns K1's launches (the four-card part's, rank 0)."""
+    import tempfile
+
+    from repro_torch.configs import ShapeConfig, get_config
+
+    t_phase = time.perf_counter()
+    dryrun_cli(card)
+    cards = torch.cuda.device_count()
+    launches = 0
+    if cards < PHI_CARDS:
+        print(f"{DRYRUN_TAG} {PHI_ARCH} served at full width on a 2x2 NCCL mesh needs {PHI_CARDS} cards (its bf16 "
+              f"weights come to about 84 GB, 21 GB a card); {cards} here, so it did not run")
+    else:
+        cfg = get_config(PHI_ARCH)
+        plans = {}
+        for kind, seq in (("prefill", PHI_PROMPT), ("decode", PHI_PROMPT + PHI_NEW)):
+            row = dryrun_plan(cfg, ShapeConfig(f"phi_{kind}", seq, PHI_BATCH, kind), mesh="2x2")
+            plans[kind] = row
+            print(f"{DRYRUN_TAG} {PHI_ARCH} {kind} planned on a fake 2x2 mesh in {row['plan_s']:.1f} s: "
+                  f"{row['param_bytes_per_card']:,} parameter bytes a card, peak {row['fit_bytes'] / 2**30:.3f} GiB, "
+                  f"collectives {row['collectives']}, {row['flops_per_card']:.6e} FLOPs a card, dominant "
+                  f"{row['dominant']}")
+        tmp = tempfile.mkdtemp(prefix="dryrun_phi_")
+        try:
+            plan_path, out = os.path.join(tmp, "plan.json"), os.path.join(tmp, "result.json")
+            Path(plan_path).write_text(json.dumps(plans))
+            torch.multiprocessing.spawn(phi_rank, args=(PHI_CARDS, os.path.join(tmp, "store"), plan_path, out),
+                                        nprocs=PHI_CARDS, join=True)
+            launches = json.loads(Path(out).read_text())["k1"]
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    print(f"{DRYRUN_TAG} phase took {time.perf_counter() - t_phase:.1f} s on the host of {card}")
+    return {"k1_onehot_launches": launches, "max_abs_err": 0}
+
+
 def run_lm_child(card, flag: str, result_prefix: str, timeout_s: int) -> dict:
     """One LM phase in a process of its own (``chip_smoke.py --lm-serve``,
-    ``--lm-train``, ``--lm-families`` or ``--lm-families-train``): its weights are freed when it ends, and its profiler
+    ``--lm-train``, ``--lm-families``, ``--lm-families-train``, ``--lm-dist``
+    or ``--dryrun``): its weights are freed when it ends, and its profiler
     sessions do not count against the later phases' (a process's late
     sessions lose kernels).  Its lines are printed here; its result line is
     parsed."""
@@ -3836,6 +4248,10 @@ def main() -> None:
     parser.add_argument("--lm-dist", action="store_true",
                         help="run phase 2d (the LM trained across the cards, one process a card) alone; the full "
                              "run starts it so, in a child")
+    parser.add_argument("--dryrun", action="store_true",
+                        help="run [dryrun]'s own part (the dry-run CLI on one production cell; on four cards "
+                             "phi3.5-moe served on 2x2 against its plan) alone; the full run starts it so, in a "
+                             "child.  Its single-card checks run inside [lm-serve] and [lm-train]")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -3863,6 +4279,10 @@ def main() -> None:
         _build.build(K.SOURCE)
         print(LM_DIST_RESULT + json.dumps(phase_lm_dist(card)))
         return
+    if args.dryrun:
+        _build.build(K.SOURCE)
+        print(DRYRUN_RESULT + json.dumps(phase_dryrun(card)))
+        return
     print(f"[device] {kind}; nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
@@ -3876,6 +4296,7 @@ def main() -> None:
     lm_families_train = run_lm_child(card, "--lm-families-train", LM_FAMILIES_TRAIN_RESULT,
                                      LM_FAMILIES_TRAIN_TIMEOUT_S)
     lm_dist = run_lm_child(card, "--lm-dist", LM_DIST_RESULT, LM_DIST_TIMEOUT_S)
+    lm_dryrun = run_lm_child(card, "--dryrun", DRYRUN_RESULT, DRYRUN_TIMEOUT_S)
 
     errs = phase_kernels(dev)
     errs |= phase_quant_kernels(dev)
@@ -3960,7 +4381,7 @@ def main() -> None:
         print(f"[parent] {root}")
         phase_parent(dev, images[0], enc, forest, plan, second, layouts, root, card)
     check(len(timings) == len(K.LAUNCHES), f"timed {len(timings)} kernels, not {len(K.LAUNCHES)}")
-    for child in (lm, lm_train, lm_families, lm_families_train, lm_dist):
+    for child in (lm, lm_train, lm_families, lm_families_train, lm_dist, lm_dryrun):
         launches["speculative/onehot"] += child["k1_onehot_launches"]
         errs["speculative/onehot"] = max(errs["speculative/onehot"], child["max_abs_err"])
     kernels = []

@@ -28,7 +28,9 @@ given CUDA tensors it checks them, allocates the output, launches the kernel
 on the current stream and adds one to its entry of ``LAUNCHES`` (and of the
 calling thread's count, inside ``thread_launches``).  There is no fallback:
 a failed build or launch raises ``RuntimeError``; a tile that does not fit
-raises ``TileError``.
+raises ``TileError``.  K1 is a torch operator (``repro_torch::speculative``)
+with a shape rule, so fake and meta tensors go through it without a launch
+(``launch.dryrun`` plans the tree-routed MoE through it).
 
 The speculative kernels K1/K3/K5/K7 give each record to one warp, with node
 ``n`` in slot ``n // 32`` of lane ``n % 32``: ``jump_slots`` says whether a
@@ -497,11 +499,11 @@ def fused_data_parallel_q_plain(
 # ---------------------------------------------------------------------------
 
 
-def speculative(
-    records, attr_idx, attr_select, threshold, child, class_val,
-    *, total_jumps: int, jump_mode: str, block_m: int,
+@torch.library.custom_op("repro_torch::speculative", mutates_args=())
+def _speculative_op(
+    records: torch.Tensor, attr_idx: torch.Tensor, attr_select: torch.Tensor, threshold: torch.Tensor,
+    child: torch.Tensor, class_val: torch.Tensor, total_jumps: int, jump_mode: str, block_m: int,
 ) -> torch.Tensor:
-    """K1: Procedure 4/5 for one tree, ``total_jumps`` pointer jumps. (M,) int32."""
     if records.device.type == "cpu":
         return speculative_plain(
             records, attr_idx, attr_select, threshold, child, class_val,
@@ -518,6 +520,36 @@ def speculative(
             (m, a, n, block_m, total_jumps, int(jump_mode == "onehot"), warps, slots, smem),
         )
     return out
+
+
+@_speculative_op.register_fake
+def _speculative_shape(records, attr_idx, attr_select, threshold, child, class_val, total_jumps, jump_mode, block_m):
+    """K1's shape rule: (M,) int32 on the records' device, nothing read.  A
+    fake CUDA call is checked as the card would check it; tables on another
+    device than the records are refused, as a launch refuses them."""
+    if jump_mode not in JUMP_MODES:
+        raise ValueError(f"unknown jump_mode {jump_mode!r}")
+    if records.device.type == "cuda":
+        tables = _tables(attr_idx, threshold, child, class_val, (), attr_select, records.shape[-1])
+        _check(records, tables, "speculative", block_m, jump_mode)
+    elif any(t.device != records.device for t in (attr_idx, attr_select, threshold, child, class_val)):
+        raise ValueError(f"kernels take CPU or CUDA tensors on one device, got {records.device} records "
+                         f"and tables on {attr_idx.device}")
+    return records.new_empty((records.shape[0],), dtype=torch.int32)
+
+
+def speculative(
+    records, attr_idx, attr_select, threshold, child, class_val,
+    *, total_jumps: int, jump_mode: str, block_m: int,
+) -> torch.Tensor:
+    """K1: Procedure 4/5 for one tree, ``total_jumps`` pointer jumps. (M,) int32.
+
+    The operator ``torch.ops.repro_torch.speculative``: the kernel on CUDA
+    tensors, the plain version on CPU tensors, and on fake or meta tensors
+    its shape rule alone (a dry-run plans through it without a card).
+    """
+    return _speculative_op(records, attr_idx, attr_select, threshold, child, class_val,
+                           total_jumps, jump_mode, block_m)
 
 
 def data_parallel(

@@ -126,6 +126,19 @@ class PackedTree:
         self.class_val = _device.as_tensor(enc.class_val, torch.int32, dev)
         self.device = self.threshold.device
 
+    @classmethod
+    def shapes_only(cls, n_nodes: int, n_attrs: int, max_depth: int, device) -> "PackedTree":
+        """Tables of a tree's shapes and dtypes that hold no values: on a fake
+        or meta ``device`` (a dry-run), nothing is read, built or copied."""
+        self = cls.__new__(cls)
+        self.n_nodes, self.n_attrs, self.max_depth = n_nodes, n_attrs, max_depth
+        self.attr_select = torch.empty((n_attrs, n_nodes), dtype=torch.float32, device=device)
+        self.attr_idx, self.child, self.class_val = (
+            torch.empty((n_nodes,), dtype=torch.int32, device=device) for _ in range(3))
+        self.threshold = torch.empty((n_nodes,), dtype=torch.float32, device=device)
+        self.device = self.threshold.device
+        return self
+
 
 def tree_eval(
     records,

@@ -212,11 +212,24 @@ class EncDecModel(sch.SchemaModel):
         return EncDecCache(self_kv=self._kv_zeros(batch, max_len, dev),
                            cross_kv=self._kv_zeros(batch, self.cfg.encoder.n_frames, dev), pos=0)
 
+    def cache_specs(self, global_batch: int = 0) -> EncDecCache:
+        """The JAX model's cache specs (``src/repro/models/encdec.py:220``)."""
+        ba, seq, kv, _ = attn.cache_spec(self.cfg, self.axes, global_batch).k
+        spec, cross_spec = P(None, ba, seq, kv, None), P(None, ba, None, kv, None)
+        return EncDecCache(self_kv=attn.KVCache(k=spec, v=spec), cross_kv=attn.KVCache(k=cross_spec, v=cross_spec),
+                           pos=P())
+
     @torch.no_grad()
     def prefill(self, batch: dict, max_len: int | None = None) -> tuple[torch.Tensor, EncDecCache]:
         """Encode ``batch["embeds"]`` and run the prompt ``batch["tokens"]``
         teacher-forced, building both caches.  Returns the last position's
-        logits (B,1,V_pad) and the cache with ``pos`` = prompt length."""
+        logits (B,1,V_pad) and the cache with ``pos`` = prompt length.
+        Across cards ``batch`` is the global one and the logits and caches
+        this rank's rows."""
+        with self.on_batch_shards(batch) as local:
+            return self._prefill(local, max_len)
+
+    def _prefill(self, batch: dict, max_len: int | None) -> tuple[torch.Tensor, EncDecCache]:
         enc_out = self.encode(batch["embeds"])
         tokens = batch["tokens"]
         b, s = tokens.shape
@@ -224,7 +237,8 @@ class EncDecModel(sch.SchemaModel):
         crosses = []
         x = self._embed_tokens(tokens, 0)
         for i, layer in enumerate(self.dec_layers):
-            x, k, v, cross = layer.prefill(x, enc_out)
+            with self.block_weights(layer):
+                x, k, v, cross = layer.prefill(x, enc_out)
             self_kv.k[i, :, :s] = k
             self_kv.v[i, :, :s] = v
             crosses.append(cross)
@@ -235,11 +249,18 @@ class EncDecModel(sch.SchemaModel):
     @torch.no_grad()
     def decode_step(self, cache: EncDecCache, batch: dict) -> tuple[torch.Tensor, EncDecCache]:
         """One token per sequence: ``{"tokens": (B, 1)}``.  Writes the
-        self-attention cache in place and returns it with ``pos + 1``."""
+        self-attention cache in place and returns it with ``pos + 1``.
+        Across cards ``batch`` is the global one and the cache and logits
+        this rank's rows."""
+        with self.on_batch_shards(batch) as local:
+            return self._decode_step(cache, local)
+
+    def _decode_step(self, cache: EncDecCache, batch: dict) -> tuple[torch.Tensor, EncDecCache]:
         pos = cache.pos
         x = self._embed_tokens(batch["tokens"], pos)
         for i, layer in enumerate(self.dec_layers):
             kv = attn.KVCache(k=cache.self_kv.k[i], v=cache.self_kv.v[i])
             cross = attn.KVCache(k=cache.cross_kv.k[i], v=cache.cross_kv.v[i])
-            x = layer.decode(x, kv, cross, pos)
+            with self.block_weights(layer):
+                x = layer.decode(x, kv, cross, pos)
         return self.logits(self.final_norm(x)), cache._replace(pos=pos + 1)

@@ -30,6 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers.rope import apply_mrope, apply_rope
 from repro_torch.models.schema import PSpec, SchemaModule
 from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import P
 
 NEG_INF = -1e30
 DEFAULT_KV_BLOCK = 1024
@@ -56,6 +57,20 @@ class KVCache(NamedTuple):
 def cache_shape(cfg: ModelConfig, batch: int, max_len: int) -> tuple[tuple, torch.dtype]:
     """(shape, dtype) of one layer's K (and V) cache."""
     return (batch, max_len, cfg.n_kv_heads, cfg.head_dim_), cfg.act_dtype
+
+
+def cache_spec(cfg: ModelConfig, axes: shd.MeshAxes, global_batch: int = 0) -> KVCache:
+    """One layer's cache specs, as JAX's ``cache_spec``: batch over the batch
+    axes that divide it, then KV heads over a free 'model' axis where they
+    divide it, else the sequence."""
+    ba = axes.batch_axes_for(global_batch) if global_batch else axes.batch
+    used = set(ba if isinstance(ba, tuple) else ((ba,) if ba else ()))
+    model_free = axes.model not in used
+    msize = axes.model_size
+    kv = axes.model if (model_free and cfg.n_kv_heads % msize == 0 and cfg.n_kv_heads >= msize) else None
+    seq = axes.model if (model_free and kv is None) else None
+    s = P(ba, seq, kv, None)
+    return KVCache(k=s, v=s)
 
 
 def _project_qkv(params, x, kv_x, cfg: ModelConfig, positions):

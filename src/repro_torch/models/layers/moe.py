@@ -137,10 +137,24 @@ def router_tree(cfg: ModelConfig, router_thr: torch.Tensor, e_pad: int | None = 
     return st.harden(_tree_cfg(cfg, e_pad or padded_experts(cfg.moe)), tp)
 
 
+def holds_values(t: torch.Tensor) -> bool:
+    """False for a meta or fake tensor (a dry-run's), whose values cannot be read."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    return not (t.is_meta or is_fake(t))
+
+
 def pack_router(cfg: ModelConfig, router_thr: torch.Tensor, e_pad: int | None = None) -> ops.PackedTree:
-    """The hardened router's tables on ``router_thr``'s device, for K1."""
+    """The hardened router's tables on ``router_thr``'s device, for K1.
+
+    Thresholds that hold no values (meta or fake) give tables of the same
+    shapes and dtypes with none either: K1's shape rule plans through them.
+    """
     depth = cfg.moe.tree_depth()
-    return ops.PackedTree(router_tree(cfg, router_thr, e_pad), (1 << depth) - 1,
+    n_internal = (1 << depth) - 1
+    if not holds_values(router_thr):
+        return ops.PackedTree.shapes_only(2 * n_internal + 1, n_internal, depth, router_thr.device)
+    return ops.PackedTree(router_tree(cfg, router_thr, e_pad), n_internal,
                           max_depth=depth, device=router_thr.device)
 
 
@@ -195,9 +209,14 @@ class TreeRouter(nn.Module):
 
     @torch.no_grad()
     def pack(self, router_thr: torch.Tensor) -> None:
+        """Pack the tables from ``router_thr``; thresholds with no values
+        (meta or fake, a dry-run's) give tables of their shapes alone, with
+        no gather and no host read."""
         if isinstance(router_thr, DTensor):
-            self.packed = pack_router(self.cfg, router_thr.full_tensor(), self.e_pad)
-            router_thr = router_thr.to_local()
+            local = router_thr.to_local()
+            whole = router_thr.full_tensor() if holds_values(local) else local.new_empty(router_thr.shape)
+            self.packed = pack_router(self.cfg, whole, self.e_pad)
+            router_thr = local
         else:
             self.packed = pack_router(self.cfg, router_thr, self.e_pad)
         self._source = (router_thr, router_thr._version)

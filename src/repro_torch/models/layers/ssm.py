@@ -64,6 +64,14 @@ def ssm_state_shape(cfg: ModelConfig, batch: int) -> tuple[tuple, torch.dtype, t
     return (batch, w - 1, d_in), cfg.act_dtype, (batch, d_in, ns), torch.float32
 
 
+def ssm_state_spec(cfg: ModelConfig, axes: shd.MeshAxes, global_batch: int = 0) -> SSMState:
+    """One layer's state specs, as JAX's ``ssm_state_spec``."""
+    d_in, _, _, _ = _dims(cfg)
+    di = axes.shard_if(d_in)
+    ba = axes.batch_axes_for(global_batch) if global_batch else axes.batch
+    return SSMState(conv=P(ba, None, di), h=P(ba, di, None))
+
+
 def causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (B,S,Di), w (W,Di) depthwise causal conv along S, plus the bias
     ``b`` (Di,) where there is one (the mLSTM's conv has none)."""

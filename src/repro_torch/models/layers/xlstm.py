@@ -83,6 +83,22 @@ def slstm_schema(cfg: ModelConfig, axes: shd.MeshAxes | None = None) -> dict:
     }
 
 
+def mlstm_state_spec(cfg: ModelConfig, axes: shd.MeshAxes, global_batch: int = 0) -> MLSTMState:
+    """One mLSTM layer's state specs, as JAX's ``mlstm_state_spec``."""
+    d_in, h, dh = _mdims(cfg)
+    hs = axes.shard_if(h)
+    ds = axes.shard_if(dh) if hs is None else None
+    ba = axes.batch_axes_for(global_batch) if global_batch else axes.batch
+    return MLSTMState(c=P(ba, hs, ds, None), n=P(ba, hs, ds), m=P(ba, hs), conv=P(ba, None, axes.shard_if(d_in)))
+
+
+def slstm_state_spec(cfg: ModelConfig, axes: shd.MeshAxes, global_batch: int = 0) -> SLSTMState:
+    """One sLSTM layer's state specs, as JAX's ``slstm_state_spec``."""
+    ba = axes.batch_axes_for(global_batch) if global_batch else axes.batch
+    s = P(ba, None)
+    return SLSTMState(c=s, n=s, h=s, m=s)
+
+
 def mlstm_init_state(cfg: ModelConfig, batch: int, device) -> MLSTMState:
     """The zero state with the stabilizer at ``M_INIT``."""
     d_in, h, dh = _mdims(cfg)

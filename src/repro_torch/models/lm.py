@@ -58,7 +58,7 @@ from repro_torch.models.layers import attention as attn
 from repro_torch.models.layers.mlp import MLP, RMSNorm, rmsnorm_schema, mlp_schema
 from repro_torch.models.layers.moe import MoE, TreeRouter, moe_schema
 from repro_torch.models.layers.rope import positions_for
-from repro_torch.models.layers.ssm import SSM, SSMState, ssm_schema, ssm_state_shape
+from repro_torch.models.layers.ssm import SSM, SSMState, ssm_schema, ssm_state_shape, ssm_state_spec
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import P, pad_vocab
 from repro_torch.utils.losses import chunked_softmax_xent
@@ -319,11 +319,31 @@ class DecoderModel(sch.SchemaModel):
                               h=torch.zeros((cfg.n_layers, *h_shape), dtype=h_dtype, device=dev))
         return DecodeCache(kv=attn.KVCache(k=k, v=torch.zeros_like(k)), ssm=sstate, pos=0)
 
+    def cache_specs(self, global_batch: int = 0) -> DecodeCache:
+        """The JAX model's cache specs (``src/repro/models/lm.py:265``): batch
+        over the batch axes that divide it, KV heads (else the sequence)
+        over a free ``model`` axis, the stack dim unsharded.  The port's
+        rank holds its batch rows with every head (:meth:`prefill`)."""
+        cfg, axes = self.cfg, self.axes
+        kv = attn.cache_spec(cfg, axes, global_batch)
+        kv = attn.KVCache(k=P(None, *kv.k), v=P(None, *kv.v))
+        sstate = None
+        if cfg.family == "hybrid":
+            ss = ssm_state_spec(cfg, axes, global_batch)
+            sstate = SSMState(conv=P(None, *ss.conv), h=P(None, *ss.h))
+        return DecodeCache(kv=kv, ssm=sstate, pos=P())
+
     @torch.no_grad()
     def decode_step(self, cache: DecodeCache, batch: dict) -> tuple[torch.Tensor, DecodeCache]:
         """One token for every sequence in the batch: ``{"tokens": (B,1)}`` (or
         ``{"embeds": (B,1,D)}``); positions are ``cache.pos``.  Writes the
-        cache (KV and SSM state) in place and returns it with ``pos + 1``."""
+        cache (KV and SSM state) in place and returns it with ``pos + 1``.
+        Across cards ``batch`` is the global one and the cache and logits
+        this rank's rows (:meth:`~repro_torch.models.schema.SchemaModel.on_batch_shards`)."""
+        with self.on_batch_shards(batch) as local:
+            return self._decode_step(cache, local)
+
+    def _decode_step(self, cache: DecodeCache, batch: dict) -> tuple[torch.Tensor, DecodeCache]:
         cfg = self.cfg
         x, _ = self.embed(batch)
         b = x.shape[0]
@@ -337,7 +357,8 @@ class DecoderModel(sch.SchemaModel):
         for i, (layer, is_g) in enumerate(zip(self.layers, self._is_global_flags())):
             kv = attn.KVCache(k=cache.kv.k[i], v=cache.kv.v[i])
             ss = None if cache.ssm is None else SSMState(conv=cache.ssm.conv[i], h=cache.ssm.h[i])
-            x, new_ss = layer.decode(x, kv, pos, positions, is_g, ss)
+            with self.block_weights(layer):
+                x, new_ss = layer.decode(x, kv, pos, positions, is_g, ss)
             if new_ss is not None:
                 cache.ssm.conv[i].copy_(new_ss.conv)
                 cache.ssm.h[i].copy_(new_ss.h)
@@ -352,8 +373,13 @@ class DecoderModel(sch.SchemaModel):
         passes prompt + generation budget.  Returns the last position's
         logits (B,1,V_pad) and the cache with ``pos`` = prompt length.  The
         hybrid family's SSM state gets the conv tail and a zero ``h`` (see
-        the module docstring).
+        the module docstring).  Across cards ``batch`` is the global one and
+        the logits and cache this rank's rows.
         """
+        with self.on_batch_shards(batch) as local:
+            return self._prefill(local, max_len)
+
+    def _prefill(self, batch: dict, max_len: int | None) -> tuple[torch.Tensor, DecodeCache]:
         cfg = self.cfg
         x, positions = self.embed(batch)
         b, s = x.shape[:2]

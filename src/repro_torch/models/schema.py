@@ -240,7 +240,11 @@ class SchemaModel(nn.Module):
     (:meth:`blocks`) gathers its weights when it is called and releases them
     when it returns (a rematerialized block gathers again in the backward
     pass), and the other weights (embedding, final norm, head) are gathered
-    around a step by :meth:`gathered_top`.
+    around a step by :meth:`gathered_top`.  The train step, ``prefill`` and
+    ``decode_step`` take the global batch and compute on this rank's rows
+    (:meth:`on_batch_shards`): ``prefill`` and ``decode_step`` return this
+    rank's rows of the logits and a cache of this rank's rows with every
+    head, since no compute is split over ``model``.
     """
 
     stacks: dict
@@ -334,6 +338,26 @@ class SchemaModel(nn.Module):
         heads = self._block_heads()
         return shd.gathered(self, [n for n, p in self.named_parameters()
                                    if n.split(".")[0] not in heads and isinstance(p, DTensor)])
+
+    @contextlib.contextmanager
+    def on_batch_shards(self, batch: dict):
+        """This rank's rows of the global ``batch``, with the batch shards
+        active (``shd.batch_shards``) and the weights outside the blocks
+        gathered; the batch itself on one device.  Every rank passes the same
+        global batch; the process-wide batch shards are restored on exit."""
+        if self.mesh is None:
+            yield batch
+            return
+        b = next(iter(batch.values())).shape[0]
+        with shd.batch_shards(self.mesh, self.axes, b) as shards, self.gathered_top():
+            yield shd.local_batch(batch, shards)
+
+    def block_weights(self, block: nn.Module):
+        """A context in which ``block``'s weights are gathered, for a block
+        method other than ``forward`` (decode): ``forward`` gathers them itself."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return shd.gathered(block, [n for n, p in block.named_parameters() if isinstance(p, DTensor)])
 
     def stacked_names(self, path: str) -> list[str] | None:
         """The per-layer parameter names behind a stacked schema path, or None."""

@@ -150,20 +150,38 @@ class XLSTMModel(sch.SchemaModel):
         return XLSTMCache(states=tuple(layer.block.init_state(batch, dev) for layer in self.layers.values()),
                           pos=0)
 
+    def cache_specs(self, global_batch: int = 0) -> XLSTMCache:
+        """The JAX model's cache specs (``src/repro/models/xlstm_lm.py:140``)."""
+        cfg, axes = self.cfg, self.axes
+        states = tuple(xl.slstm_state_spec(cfg, axes, global_batch) if self.is_slstm(i)
+                       else xl.mlstm_state_spec(cfg, axes, global_batch) for i in range(cfg.n_layers))
+        return XLSTMCache(states=states, pos=P())
+
     @torch.no_grad()
     def decode_step(self, cache: XLSTMCache, batch: dict) -> tuple[torch.Tensor, XLSTMCache]:
-        """One token for every sequence: ``{"tokens": (B,1)}``."""
+        """One token for every sequence: ``{"tokens": (B,1)}``.  Across cards
+        ``batch`` is the global one and the states and logits this rank's rows."""
+        with self.on_batch_shards(batch) as local:
+            return self._decode_step(cache, local)
+
+    def _decode_step(self, cache: XLSTMCache, batch: dict) -> tuple[torch.Tensor, XLSTMCache]:
         x = self._tokens(batch)
         states = []
         for layer, st in zip(self.layers.values(), cache.states):
-            x, st = layer.decode(x, st)
+            with self.block_weights(layer):
+                x, st = layer.decode(x, st)
             states.append(st)
         return self.logits(self.final_norm(x)), XLSTMCache(states=tuple(states), pos=cache.pos + 1)
 
     @torch.no_grad()
     def prefill(self, batch: dict, max_len: int | None = None) -> tuple[torch.Tensor, XLSTMCache]:
         """One parallel pass giving the last logits (B,1,V_pad) and every
-        block's terminal state; ``max_len`` is unused."""
+        block's terminal state; ``max_len`` is unused.  Across cards ``batch``
+        is the global one and the logits and states this rank's rows."""
+        with self.on_batch_shards(batch) as local:
+            return self._prefill(local)
+
+    def _prefill(self, batch: dict) -> tuple[torch.Tensor, XLSTMCache]:
         x = self._tokens(batch)
         states = []
         for layer in self.layers.values():

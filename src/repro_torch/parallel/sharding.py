@@ -154,11 +154,17 @@ class PartitionSpec(tuple):
     or a tuple of axis names (the dim split over them, the first the major).
 
     A tuple, equal as a tuple to JAX's ``PartitionSpec`` of the same
-    entries; dims past its end are replicated.
+    entries; dims past its end are replicated.  As JAX's, it stores a
+    one-axis tuple as the axis and an empty tuple as ``None``.
     """
 
     def __new__(cls, *entries):
-        return super().__new__(cls, entries)
+        def canonical(e):
+            if isinstance(e, (tuple, list)):
+                return None if not e else (e[0] if len(e) == 1 else tuple(e))
+            return e
+
+        return super().__new__(cls, tuple(canonical(e) for e in entries))
 
     def __repr__(self) -> str:
         return "P" + tuple.__repr__(self)
@@ -234,7 +240,7 @@ class MeshAxes:
 
 def mesh_sizes(mesh) -> dict[str, int]:
     """Axis name → size of a ``DeviceMesh``."""
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 def from_mesh(mesh, *, fsdp: bool = True, tp: bool = True) -> MeshAxes:

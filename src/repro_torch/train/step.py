@@ -26,7 +26,6 @@ rows.  ``metrics`` are the same on every rank.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable
 
 import numpy as np
@@ -34,7 +33,6 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.optim.adamw import AdamWState, adamw_apply, default_decay_mask
-from repro_torch.parallel import sharding as shd
 
 
 def device_batch(batch: dict, device) -> dict:
@@ -98,17 +96,8 @@ def loss_and_grads(model, batch: dict, *, microbatch: int = 0, loss_fn: Callable
     if getattr(model, "mesh", None) is None:
         return compute_grads(batch)
     named = dict(model.named_parameters())     # the DTensors, before the gather swaps them
-    with _on_shards(model, batch) as local:
+    with model.on_batch_shards(batch) as local:
         return compute_grads(local, named)
-
-
-@contextlib.contextmanager
-def _on_shards(model, batch: dict):
-    """This rank's rows of ``batch``, with the model's batch shards active and
-    its weights outside the blocks gathered."""
-    b = next(iter(batch.values())).shape[0]
-    with shd.batch_shards(model.mesh, model.axes, b) as shards, model.gathered_top():
-        yield shd.local_batch(batch, shards)
 
 
 def make_train_step(model, tcfg: TrainConfig) -> Callable:
@@ -136,11 +125,8 @@ def make_eval_step(model) -> Callable:
 
     @torch.no_grad()
     def eval_step(model, batch):
-        if getattr(model, "mesh", None) is not None:
-            with _on_shards(model, batch) as local:
-                loss, aux = loss_fn(model, local)
-        else:
-            loss, aux = loss_fn(model, batch)
+        with model.on_batch_shards(batch) as local:
+            loss, aux = loss_fn(model, local)
         return {"loss": loss, **aux}
 
     return eval_step

@@ -232,6 +232,64 @@ def remesh(device, tmp: str) -> dict:
     }
 
 
+# sharded prefill and decode (``tests/test_torch_dryrun.py``): (arch, global
+# batch, prompt, decode steps) on a 2×2 mesh, batch over 'data' (2 shards);
+# smoke granite's shard holds whole 512-token MoE groups at prefill
+SERVE_CASES = [("yi", 8, 16, 3), ("granite-moe", 8, 256, 2)]
+SERVE_MESH = (2, 2)
+
+
+def serve_tokens(arch: str, batch: int, prompt: int, steps: int) -> tuple[np.ndarray, np.ndarray]:
+    """(prompt ids (B, S), each decode step's ids (steps, B, 1)), seeded."""
+    rng = np.random.default_rng(len(arch) + prompt)
+    vocab = smoke_cfg(arch).vocab_size
+    return (rng.integers(0, vocab, (batch, prompt), dtype=np.int32),
+            rng.integers(0, vocab, (steps, batch, 1), dtype=np.int32))
+
+
+def serve_weights_path(tmp: str, arch: str) -> str:
+    return os.path.join(tmp, f"serve_{arch}.pt")
+
+
+def sharded_serve(arch: str, batch: int, prompt: int, steps: int, device, tmp: str) -> dict:
+    """Prefill and ``steps`` decode steps of a model placed on a 2×2 mesh, its
+    weights the test's (carried from JAX and saved whole): this rank's rows
+    of the logits, and which batch shard it computed."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.parallel import sharding as shd
+
+    mesh = make_test_mesh(*SERVE_MESH, device_type=device.type)
+    axes = shd.from_mesh(mesh)
+    model = build_model(smoke_cfg(arch), device="cpu", axes=axes)
+    model.load_state_dict(torch.load(serve_weights_path(tmp, arch), weights_only=True))
+    model.distribute(mesh)
+    ids, dec = serve_tokens(arch, batch, prompt, steps)
+    logits, cache = model.prefill({"tokens": torch.from_numpy(ids).to(device)}, max_len=prompt + steps)
+    out = {"prefill": logits.cpu(), "decode": []}
+    for t in range(steps):
+        step_logits, cache = model.decode_step(cache, {"tokens": torch.from_numpy(dec[t]).to(device)})
+        out["decode"].append(step_logits.cpu())
+    out["batch_shards_after"] = shd.active_shards()      # restored: None
+    out["cache_rows"] = int(cache.kv.k.shape[1])
+    with shd.batch_shards(mesh, axes, batch) as shards:
+        out["shard"], out["shards"] = shards.index, shards.count
+    return out
+
+
+def serve(rank: int, world: int, tmp: str) -> None:
+    """The body of one rank of the sharded prefill/decode scenario (gloo)."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(tmp, 'serve_store')}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        out = {case: sharded_serve(*case, torch.device("cpu"), tmp) for case in SERVE_CASES}
+        torch.save(out, os.path.join(tmp, f"serve_rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
 def run(rank: int, world: int, tmp: str, backend: str) -> None:
     torch.set_num_threads(1)
     if backend == "nccl":
