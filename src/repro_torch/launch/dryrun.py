@@ -5,8 +5,13 @@ and derive its roofline terms at the H100's peaks.
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both --jobs 5 --out results/dryrun_torch.json
 
 The port's counterpart of ``python -m repro.launch.dryrun``, with its flags and
-``--jobs``.  ``--no-seq-shard`` is refused: the port's compute is never
-sequence-sharded, so there is nothing for it to turn off.
+``--jobs``.  ``--no-seq-shard`` turns ``ParallelConfig.seq_shard`` off, as
+JAX's flag does: the residual stream of a split step then stays whole on
+every rank of ``model`` (the logits, the experts and the decode cache are
+split all the same).  The split step's collectives over ``model``
+(sequence all-gathers and their reduce-scatters, the loss's all-reduces,
+the MoE's all-to-alls and the decode all-reduces) are counted by kind in
+``collectives`` beside DTensor's.
 JAX's lowers and compiles each cell on 256 or 512 forced host devices and
 reads the compiled HLO.  The port runs each cell's real step instead:
 
@@ -49,7 +54,12 @@ arguments + temporaries), ``fits`` whether that is within one H100 80GB,
 the K1 launches the step makes, ``collectives`` the count and bytes by
 kind, ``param_bytes_per_card`` a card's parameter bytes, ``bytes_by_op``
 the bytes each op moved (the most first), ``microbatch`` the train cells'
-accumulation.  JAX's ``mem`` and
+accumulation, ``seq_shard`` whether the residual may be sequence-split,
+``commit`` and ``src_tree`` the checkout's commit and the git tree of the
+``src/`` that planned the row (:func:`source_version`),
+``model_split`` how the step splits over ``model`` (``"seq"``: the
+sequence-parallel residual; ``"weights"``: the ranks hold the same tokens;
+``"none"``: each rank computes its batch shard whole).  JAX's ``mem`` and
 ``fit_bytes_tpu`` have no counterpart: there is no XLA memory analysis,
 and no donation to discount, since the port writes its cache in place.
 """
@@ -59,6 +69,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import logging
 import math
 import sys
@@ -83,6 +94,7 @@ MESHES = {
     "16x16": ((16, 16), ("data", "model")),
     "2x16x16": ((2, 16, 16), ("pod", "data", "model")),
     "2x2": ((2, 2), ("data", "model")),
+    "1x4": ((1, 4), ("data", "model")),
     "1x1": ((1, 1), ("data", "model")),
 }
 
@@ -109,6 +121,34 @@ def fake_process_group(world: int):
         dist.destroy_process_group()
 
 
+@functools.lru_cache(maxsize=None)
+def source_version() -> dict:
+    """``{"commit": HEAD, "src_tree": ...}`` of the checkout: the git tree
+    hash of ``src/`` as it is on disk (equal to ``git rev-parse
+    <commit>:src`` of any commit that holds this code, whether or not it
+    is committed yet), read through a temporary index; Nones outside a
+    checkout."""
+    import os
+    import subprocess
+    import tempfile
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+    try:
+        def git(*args, env=None):
+            return subprocess.run(["git", "-C", root, *args], capture_output=True, text=True, timeout=60,
+                                  check=True, env=env).stdout.strip()
+
+        head = git("rev-parse", "HEAD")
+        with tempfile.TemporaryDirectory() as tmp:
+            env = dict(os.environ, GIT_INDEX_FILE=os.path.join(tmp, "index"))
+            git("read-tree", "HEAD", env=env)
+            git("add", "-A", "--", "src", env=env)
+            tree = git("write-tree", "--prefix=src/", env=env)
+    except (OSError, subprocess.SubprocessError):
+        return {"commit": None, "src_tree": None}
+    return {"commit": head, "src_tree": tree}
+
+
 def _local_rows(mesh, axes: shd.MeshAxes, global_batch: int) -> int:
     count = math.prod(mesh.size(d) for d in shd.batch_dims(mesh, axes, global_batch))
     return global_batch // count
@@ -133,6 +173,7 @@ def plan_counts(plan, mesh, cfg, shape: ShapeConfig) -> tuple[OpCost, int]:
         cost.track(model, *state, batch)
         out = plan.fn(model, *state, batch)
         del out
+    cost.model_split = {None: "none", True: "seq", False: "weights"}[model.model_split(batch)]
     return cost, sum(tensor_bytes(p.to_local() if isinstance(p, DTensor) else p) for p in model.parameters())
 
 
@@ -177,7 +218,8 @@ def run_cell(arch: str, shape: str | ShapeConfig, *, multi_pod: bool = False, me
               f"useful={terms.useful_ratio:.2f} frac={terms.roofline_fraction:.3f}")
     row = terms.row()
     row.update(plan_s=wall, k1_ops=cost.k1, ops=cost.ops, collectives=cost.summary()["collectives"],
-               param_bytes_per_card=param_bytes,
+               param_bytes_per_card=param_bytes, seq_shard=(parallel or ParallelConfig()).seq_shard,
+               model_split=cost.model_split, **source_version(),
                bytes_by_op=dict(sorted(cost.bytes_by_op.items(), key=lambda kv: -kv[1])))
     if plan.tcfg is not None:
         row["microbatch"] = plan.tcfg.microbatch
@@ -203,26 +245,27 @@ def _cell_job(task) -> tuple[dict, str]:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", default=None, help="arch id (default: all)")
+    ap.add_argument("--arch", default=None, help="arch id, or several separated by commas (default: all)")
     ap.add_argument("--shape", default=None, help="shape cell (default: all applicable)")
     ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
     ap.add_argument("--all", action="store_true", help="all archs × shapes")
     ap.add_argument("--out", default=None, help="write JSON rows here")
     ap.add_argument("--no-seq-shard", action="store_true",
-                    help="JAX's flag, refused: the port's compute is never sequence-sharded")
+                    help="turn the sequence-parallel residual off (ParallelConfig.seq_shard=False)")
     ap.add_argument("--microbatch", type=int, default=0)
     ap.add_argument("--remat", default=None)
+    ap.add_argument("--merge", default=None, metavar="COMMIT",
+                    help="keep the rows of --out for the cells not planned now; a kept row that records no commit "
+                         "gets COMMIT (the code that planned it) and model_split 'waiting'")
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells planned at once, each worker a process of its own (the fake process group "
                          "is process-wide)")
     args = ap.parse_args(argv)
-    if args.no_seq_shard:
-        ap.error("--no-seq-shard: the port's compute is never sequence-sharded, so there is nothing to "
-                 "turn off; plan without the flag")
 
-    archs = ARCH_IDS if (args.all or args.arch is None) else [args.arch]
+    archs = ARCH_IDS if (args.all or args.arch is None) else args.arch.split(",")
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
-    kw = dict(microbatch=args.microbatch, remat=args.remat)
+    kw = dict(microbatch=args.microbatch, remat=args.remat,
+              parallel=ParallelConfig(seq_shard=False) if args.no_seq_shard else None)
 
     slots, tasks = [], []          # a skip row, or the index of a planned cell
     for arch in archs:
@@ -257,6 +300,20 @@ def main(argv=None):
             if "error" in row:
                 failures.append((row["arch"], row["shape"], row["mesh"], row["error"]))
     print(rl.format_table(rows))
+    if args.out and args.merge:
+        import json
+        import os
+
+        planned = {(r["arch"], r["shape"], r.get("mesh")) for r in rows}
+        kept = []
+        if os.path.exists(args.out):
+            for r in json.load(open(args.out)):
+                if (r["arch"], r["shape"], r.get("mesh")) not in planned and r["arch"] not in archs:
+                    r.setdefault("commit", args.merge)
+                    r.setdefault("model_split", "waiting")
+                    kept.append(r)
+        rows = kept + rows
+        rows.sort(key=lambda r: ARCH_IDS.index(r["arch"]) if r["arch"] in ARCH_IDS else len(ARCH_IDS))
     if args.out:
         rl.save_rows(args.out, rows)
         print(f"wrote {len(rows)} rows to {args.out}")

@@ -21,7 +21,8 @@ model's), so ``CellPlan.fn`` is ``fn(model, *rest)``; ``args`` and
 ``in_specs`` are the shapes and specs JAX's jitted function would be
 lowered with, which ``launch.dryrun`` turns into fake tensors on a fake
 mesh.  The cache of ``args`` is JAX's global one; the port's rank holds
-its own batch rows of it with every head (``SchemaModel.on_batch_shards``).
+its block of it (its batch rows, and where the step splits over ``model``
+its KV heads or positions: ``DecoderModel.init_cache``).
 """
 
 from __future__ import annotations

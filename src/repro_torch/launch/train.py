@@ -17,7 +17,10 @@ card, ``cuda:{LOCAL_RANK}``; gloo with ``--device cpu``) the process group
 comes from the environment and the model is placed on a ``(data, model)``
 mesh over every rank: ``auto`` is ``(world, 1)``.  Its parameters and
 AdamW state are sharded by the JAX specs (ZeRO-1), each rank computes on
-its rows of the batch, and rank 0 prints and writes the checkpoints.
+its rows of the batch, split over ``model`` where that is above 1 (the
+sequence-parallel residual, vocab-sharded loss and expert-parallel MoE of
+``parallel.sharding``; printed as ``split=seq``), and rank 0 prints and
+writes the checkpoints.
 Without ``torchrun`` one process trains on one device, with no process
 group, and ``--mesh`` must be ``auto`` or ``1x1``.
 """
@@ -85,7 +88,9 @@ def main(argv=None):
         axes = shd.from_mesh(mesh)
         model = build_model(cfg, device="meta", axes=axes).distribute(mesh)
         model.init(gen)
-        where = f"mesh={shd.mesh_sizes(mesh)} ({world} processes, {device.type})"
+        split = model.model_split({"tokens": torch.empty((args.batch, args.seq), device="meta")})
+        how = {None: "none", True: "seq", False: "weights"}[split]
+        where = f"mesh={shd.mesh_sizes(mesh)} ({world} processes, {device.type}) split={how}"
     else:
         model = build_model(cfg, device=device)
         model.init(gen)

@@ -18,10 +18,22 @@ in the same formulation (plain torch, no library attention kernel):
   * cross-attention (the encoder-decoder's) projects K/V from the encoder
     output, unmasked and without RoPE; serving computes them once per
     request (:func:`cross_cache_from_encoder`).
+
+Split over ``model`` (``parallel.sharding.ModelShards``): a full sequence
+whose residual is sequence-split projects q/k/v for the rank's positions,
+all-gathers K and V along the sequence and attends its queries at their
+offset against every key (XLA's gather at JAX's attention boundary,
+``src/repro/models/lm.py:116-121``).  Decode takes the cache layout of
+:func:`cache_spec`: with KV heads over ``model`` the rank computes its
+heads on its column and row slices of the weights and all-reduces the
+output (:func:`attention_decode_heads`); with the sequence over ``model``
+it holds ``S_max/|model|`` positions, and the partial softmaxes merge by a
+max and a sum over ``model`` (:func:`attention_decode_seq`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
@@ -268,6 +280,59 @@ def attention_decode(
     return out @ params["wo"].to(x.dtype), cache
 
 
+def local_heads_cfg(cfg: ModelConfig, params: dict) -> ModelConfig:
+    """``cfg`` with the head counts of ``params``' column slices (a rank's
+    heads over ``model``), the head dim pinned."""
+    hd = cfg.head_dim_
+    return dataclasses.replace(cfg, n_heads=params["wq"].shape[1] // hd, n_kv_heads=params["wk"].shape[1] // hd,
+                               head_dim=hd)
+
+
+def attention_decode_heads(params: dict, x, cache: KVCache, cache_pos: int, *, cfg: ModelConfig, positions,
+                           window: int = 0, is_global=None, shards: shd.ModelShards) -> torch.Tensor:
+    """Decode with the cache split by KV heads over ``model``: ``params`` are
+    this rank's column slices of ``wq``/``wk``/``wv`` and rows of ``wo``
+    (its heads), ``cache`` its heads; the rank's partial output is summed
+    over ``model``."""
+    out, _ = attention_decode(params, x, cache, cache_pos, cfg=local_heads_cfg(cfg, params), positions=positions,
+                              window=window, is_global=is_global)
+    return shd.model_sum(out, shards)
+
+
+def attention_decode_seq(params: dict, x, cache: KVCache, cache_pos: int, *, cfg: ModelConfig, positions,
+                         window: int = 0, is_global=None, shards: shd.ModelShards) -> torch.Tensor:
+    """Decode with the cache split by sequence over ``model``: ``cache`` holds
+    this rank's ``S_max/|model|`` positions, which only the rank that owns
+    ``cache_pos`` writes.  Each rank's scores against its positions are
+    exponentiated at the global max (an all-reduce of the ranks' maxima),
+    and the weighted values and their weights summed over ``model``."""
+    q, k_new, v_new = _project_qkv(params, x, None, cfg, positions)
+    s_loc = cache.k.shape[1]
+    lo = shards.index * s_loc
+    if not 0 <= cache_pos < s_loc * shards.size:
+        raise IndexError(f"cache position {cache_pos} outside a cache of {s_loc * shards.size}")
+    if lo <= cache_pos < lo + s_loc:
+        cache.k.narrow(1, cache_pos - lo, 1).copy_(k_new)
+        cache.v.narrow(1, cache_pos - lo, 1).copy_(v_new)
+    b, _, h, hd = q.shape
+    kvh = cfg.n_kv_heads
+    g = h // kvh
+    t = lo + torch.arange(s_loc, device=x.device)
+    valid = t <= cache_pos
+    if window > 0 and not is_global:
+        valid &= t > cache_pos - window
+    qg = q.reshape(b, 1, kvh, g, hd).to(torch.float32)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, cache.k.to(torch.float32)) * (hd ** -0.5)
+    scores = torch.where(valid, scores, NEG_INF)
+    top = shd.model_max(scores.amax(dim=-1, keepdim=True), shards)
+    p = torch.where(valid, torch.exp(scores - top), 0.0)
+    acc = torch.einsum("bkgst,btkh->bskgh", p, cache.v.to(torch.float32))          # (B,1,KV,G,hd)
+    den = p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]                              # (B,1,KV,G,1)
+    both = shd.model_sum(torch.cat([acc, den], dim=-1), shards)
+    out = both[..., :hd] / both[..., hd:]
+    return out.reshape(b, 1, h * hd).to(q.dtype) @ params["wo"].to(x.dtype)
+
+
 def cross_cache_from_encoder(params: dict, enc_out: torch.Tensor, cfg: ModelConfig) -> KVCache:
     """Cross-attention K/V from the encoder output, once per request."""
     b, sk, _ = enc_out.shape
@@ -293,12 +358,27 @@ class Attention(SchemaModule):
         self.cfg = cfg
 
     def forward(self, x, positions, *, window=0, is_global=None, kv_block=DEFAULT_KV_BLOCK):
-        """Full sequence, causal: (output (B,S,D), k, v), k/v for the cache."""
+        """Full sequence, causal: (output (B,S,D), k, v), k/v for the cache.
+        On a sequence-split residual ``x`` holds this rank's positions and
+        ``k``/``v`` are the whole sequence's."""
         q, k, v = _project_qkv(self.params, x, None, self.cfg, positions)
+        ms = shd.active_model()
+        q_offset = 0
+        if ms is not None and ms.seq:
+            q_offset = ms.index * x.shape[1]
+            k, v = shd.seq_gather(k, 1, ms), shd.seq_gather(v, 1, ms)
         a = grouped_attention(q, k, v, cfg=self.cfg, causal=True, window=window,
-                              is_global=is_global, kv_block=kv_block)
+                              is_global=is_global, q_offset=q_offset, kv_block=kv_block)
         return a @ self.params["wo"].to(x.dtype), k, v
 
     def decode(self, x, cache: KVCache, cache_pos: int, positions, *, window=0, is_global=None):
-        return attention_decode(self.params, x, cache, cache_pos, cfg=self.cfg, positions=positions,
-                                window=window, is_global=is_global)
+        """One token against this layer's cache; under split decode in the
+        cache's layout: by heads where this rank holds its heads' weight
+        slices, else by sequence.  Returns (output, cache)."""
+        ms = shd.active_model()
+        kw = dict(cfg=self.cfg, positions=positions, window=window, is_global=is_global)
+        if ms is None:
+            return attention_decode(self.params, x, cache, cache_pos, **kw)
+        if self.params["wk"].shape[1] < self.cfg.n_kv_heads * self.cfg.head_dim_:
+            return attention_decode_heads(self.params, x, cache, cache_pos, shards=ms, **kw), cache
+        return attention_decode_seq(self.params, x, cache, cache_pos, shards=ms, **kw), cache

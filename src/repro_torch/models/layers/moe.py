@@ -34,11 +34,24 @@ are padded to a multiple of the mesh's ``model`` size
 (:func:`padded_experts`; on one device, and for granite's 40 on ``model``
 2 or 4, none is).
 
-Across cards each rank routes its own batch shard (``parallel.sharding``).
-Groups are cut from the local tokens, so a shard must hold whole groups
-(else the capacity, and with it the dropped tokens, would differ from one
-device's), and the load-balance loss takes ``me`` and ``ce`` as means over
-all the shards before their product.
+Across cards each rank routes its own tokens: its batch shard, and under a
+sequence-split residual its positions of it (``parallel.sharding``).  The
+groups are JAX's, cut from the flattened (B·S) tokens of the batch shard,
+so a shard must hold whole groups, and a group may span the sequence
+shards of several ranks: a token's capacity position then counts the
+earlier tokens of its group on other ranks, from their per-class,
+per-expert counts, all-gathered over ``model`` (JAX ``moe.py:205-216``), so
+the kept and dropped tokens are one device's.  The load-balance loss takes
+``me`` and ``ce`` as means over all the tokens before their product.
+
+Expert parallelism (``exp_in``/``out_e`` at ``P(batch, model, None, None)``,
+JAX ``moe.py:221-228``): with the experts sharded over ``model`` each rank
+computes the FFN of its ``e_pad/|model|`` experts on their stored slices.
+Sequence-split tokens reach their experts and come back by an all-to-all
+over ``model``; a group spread over several ranks is merged (its ranks'
+slots are disjoint) before the FFN, so each expert runs over a group's
+capacity once.  Tokens every rank holds alike (decode) are dispatched to
+the rank's own experts and the outputs summed over ``model``.
 """
 
 from __future__ import annotations
@@ -251,6 +264,61 @@ def _capacity(group: int, moe: MoEConfig, e_pad: int) -> int:
     return max(4, ((c + 3) // 4) * 4)
 
 
+def _experts(params: dict, exp_in: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU FFN of each expert over its capacity slots: (n, E, C, D)."""
+    dtype = exp_in.dtype
+    h = torch.einsum("necd,edf->necf", exp_in, params["wi"].to(dtype))
+    gate = torch.einsum("necd,edf->necf", exp_in, params["wg"].to(dtype))
+    h = torch.nn.functional.silu(gate) * h
+    return torch.einsum("necf,efd->necd", h, params["wo"].to(dtype))
+
+
+def _piece_groups(b: int, s: int, g: int, shards: shd.ModelShards) -> tuple[torch.Tensor, torch.Tensor]:
+    """(starts, groups), each (|model|·b,), rank-major: the flat index in the
+    batch shard's (B·S) tokens of each rank's sequence shard of each row
+    (``s`` positions a rank), and the group of ``g`` tokens it lies in."""
+    starts = (torch.arange(b)[None, :] * (s * shards.size) + torch.arange(shards.size)[:, None] * s).reshape(-1)
+    return starts, starts // g
+
+
+def _spanning_offsets(counts: torch.Tensor, s: int, g: int, shards: shd.ModelShards) -> torch.Tensor:
+    """(b, k, E): for each of this rank's pieces (a row's sequence shard,
+    inside a group that spans ranks), the slots of each class already taken
+    when its first token is placed.  ``counts`` (b, k, E) are this rank's
+    pieces' tokens by class and expert; every rank's are all-gathered over
+    ``model``.  JAX's order (``moe.py:205-216``): class by class over the
+    whole group, each class in token order."""
+    b, k, e = counts.shape
+    every = shd.model_gather(counts[None], 0, shards).reshape(-1, k, e)   # (|model|·b, k, E)
+    starts, groups = _piece_groups(b, s, g, shards)
+    mine = slice(shards.index * b, (shards.index + 1) * b)
+    same = (groups[None, :] == groups[mine, None]).to(counts.device)
+    earlier = same & (starts[None, :] < starts[mine, None]).to(counts.device)
+    before = (earlier[..., None, None] * every[None]).sum(dim=1)                        # this class, earlier pieces
+    whole = (same[..., None, None] * every[None]).sum(dim=1)                            # every class, the group
+    return before + torch.cumsum(whole, dim=1) - whole                                  # + earlier classes
+
+
+def capacity_positions(top_idx: torch.Tensor, e_pad: int, g: int,
+                       shards: Optional[shd.ModelShards] = None) -> torch.Tensor:
+    """(n, p, k): each assignment's slot in its expert's capacity, JAX's
+    order (``moe.py:205-216``): class by class over the whole group, each
+    class in token order; a slot at or past the capacity is a dropped
+    assignment.  ``top_idx`` (n, p, k) are the experts of pieces of ``p``
+    tokens: whole groups (``p == g``), or with ``shards`` one sequence
+    shard of a row each, inside groups that span ranks."""
+    e_ids = torch.arange(e_pad, device=top_idx.device)
+    masks = [(top_idx[..., j][..., None] == e_ids).long() for j in range(top_idx.shape[-1])]   # (n, p, E)
+    counts = torch.stack([mk.sum(dim=1) for mk in masks], dim=1)                          # (n, k, E)
+    if shards is not None:
+        offsets = _spanning_offsets(counts, top_idx.shape[1], g, shards)
+    else:       # whole groups: the fill of the earlier classes
+        offsets = torch.cumsum(counts, dim=1) - counts
+    pos = [(torch.cumsum(mk, dim=1) - 1 + offsets[:, j, None, :]).gather(-1, top_idx[..., j, None])[..., 0]
+           for j, mk in enumerate(masks)]
+    return torch.stack(pos, dim=-1)
+
+
 def moe_apply(
     params: dict,
     x: torch.Tensor,              # (B, S, D)
@@ -259,26 +327,36 @@ def moe_apply(
     group_size: int = 512,
     serve_hard_tree: bool = False,
     route: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    e_pad: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (B,S,D), aux_loss scalar).
 
     ``route(xg) → experts`` serves the hard tree path (a layer's
     :class:`TreeRouter`); without it :func:`hard_tree_route` builds the
-    router tables for this call.
+    router tables for this call.  ``e_pad`` (default: ``wi``'s leading dim)
+    is the padded expert count: under split compute ``params`` may hold
+    this rank's experts only (module docstring).  Under a sequence-split
+    residual ``x`` is this rank's positions.
     """
     moe = cfg.moe
     b, s, d = x.shape
-    e_pad = params["wi"].shape[0]
-    t = b * s
+    e_pad = e_pad or params["wi"].shape[0]
+    ms = shd.active_model()
+    seq = ms is not None and ms.seq
+    t = b * s * (ms.size if seq else 1)            # the batch shard's tokens
     g = min(group_size, t)
-    n_groups = t // g
-    if n_groups * g != t:
+    if t % g:
         raise ValueError(f"tokens {t} not divisible by group {g}")
     shards = shd.active_shards()
     if shards is not None and shards.count > 1 and t % group_size:
         raise ValueError(f"a batch shard of {t} tokens does not hold whole groups of {group_size}: "
                          "its capacity, and so its dropped tokens, would differ from one device's")
-    xg = x.reshape(n_groups, g, d)
+    # this rank's tokens in pieces of p, each inside one group of g
+    p = min(s, g) if seq else g
+    if seq and s % g and g % s:
+        raise ValueError(f"sequence shards of {s} positions and groups of {g} tokens do not nest")
+    n = b * s // p
+    xg = x.reshape(n, p, d)
     dev = x.device
 
     if serve_hard_tree and moe.router == "tree":
@@ -287,62 +365,99 @@ def moe_apply(
         if route is not None:
             experts = route(xg)
         else:
-            experts = hard_tree_route(params, xg, cfg=cfg, e_pad=e_pad)        # (n, g)
+            experts = hard_tree_route(params, xg, cfg=cfg, e_pad=e_pad)        # (n, p)
         k = moe.top_k
         offs = torch.arange(k, device=dev)
         top_idx = (experts.long()[..., None] + offs) % moe.n_experts
-        top_gates = torch.full((n_groups, g, k), 1.0 / k, dtype=torch.float32, device=dev)
+        top_gates = torch.full((n, p, k), 1.0 / k, dtype=torch.float32, device=dev)
         aux = torch.zeros((), dtype=torch.float32, device=dev)
     else:
-        probs = router_probs(params, xg, cfg=cfg, e_pad=e_pad)              # (n, g, E)
-        top_gates, top_idx = torch.topk(probs, moe.top_k, dim=-1)            # (n, g, k)
+        probs = router_probs(params, xg, cfg=cfg, e_pad=e_pad)              # (n, p, E)
+        top_gates, top_idx = torch.topk(probs, moe.top_k, dim=-1)            # (n, p, k)
         top_gates = top_gates / torch.clamp(top_gates.sum(-1, keepdim=True), min=1e-9)
         # Switch-style load-balance loss over real experts, on the means
-        # over every batch shard
-        me = shd.batch_mean(probs.mean(dim=(0, 1)))                          # (E,)
+        # over every token of the step
+        me = shd.token_mean(probs.mean(dim=(0, 1)))                          # (E,)
         onehot_top1 = torch.nn.functional.one_hot(top_idx[..., 0], e_pad).to(torch.float32)
-        ce = shd.batch_mean(onehot_top1.mean(dim=(0, 1)))
+        ce = shd.token_mean(onehot_top1.mean(dim=(0, 1)))
         aux = moe.aux_loss_weight * e_pad * torch.sum(me * ce)
 
     cap = _capacity(g, moe, e_pad)
     dtype = x.dtype
     e_ids = torch.arange(e_pad, device=dev)
     c_ids = torch.arange(cap, device=dev)
+    slots = capacity_positions(top_idx, e_pad, g, ms if p < g else None)                 # (n, p, k)
 
-    dispatch = torch.zeros((n_groups, g, e_pad, cap), dtype=dtype, device=dev)
-    combine = torch.zeros((n_groups, g, e_pad, cap), dtype=torch.float32, device=dev)
-    # running per-expert fill count across the k priority classes
-    fill = torch.zeros((n_groups, e_pad), dtype=torch.long, device=dev)
+    dispatch = torch.zeros((n, p, e_pad, cap), dtype=dtype, device=dev)
+    combine = torch.zeros((n, p, e_pad, cap), dtype=torch.float32, device=dev)
     for j in range(moe.top_k):
-        idx_j = top_idx[..., j]                                              # (n, g)
-        mask_j = (idx_j[..., None] == e_ids).long()                          # (n, g, E)
-        pos_in_e = torch.cumsum(mask_j, dim=1) - 1 + fill[:, None, :]        # (n, g, E)
-        fill = fill + mask_j.sum(dim=1)
-        pos_j = pos_in_e.gather(-1, idx_j[..., None])[..., 0]
+        idx_j = top_idx[..., j]                                              # (n, p)
+        pos_j = slots[..., j]
         keep = pos_j < cap
         # a position past the capacity one-hots to zeros, as jax.nn.one_hot does
         oh_pos = (pos_j[..., None] == c_ids).to(dtype) * keep[..., None].to(dtype)
         oh_e = (idx_j[..., None] == e_ids).to(dtype)
-        d_j = oh_e[..., :, None] * oh_pos[..., None, :]                      # (n, g, E, C)
+        d_j = oh_e[..., :, None] * oh_pos[..., None, :]                      # (n, p, E, C)
         dispatch = dispatch + d_j
         combine = combine + d_j.to(torch.float32) * (
             top_gates[..., j] * keep.to(torch.float32)
         )[..., None, None]
 
     # --- expert compute: every expert over all of its capacity slots ---
-    exp_in = torch.einsum("ngec,ngd->necd", dispatch, xg)
-    h = torch.einsum("necd,edf->necf", exp_in, params["wi"].to(dtype))
-    gate = torch.einsum("necd,edf->necf", exp_in, params["wg"].to(dtype))
-    h = torch.nn.functional.silu(gate) * h
-    out_e = torch.einsum("necf,efd->necd", h, params["wo"].to(dtype))
-    y = torch.einsum("ngec,necd->ngd", combine.to(dtype), out_e)
+    e_loc = params["wi"].shape[0]
+    partial = None                 # this rank's share of a sum over 'model'
+    if ms is None or e_loc == e_pad:         # every expert on this rank
+        exp_in = torch.einsum("ngec,ngd->necd", dispatch, xg)
+        y = torch.einsum("ngec,necd->ngd", combine.to(dtype), _experts(params, exp_in))
+    elif seq:
+        y = torch.einsum("ngec,necd->ngd", combine.to(dtype),
+                         _experts_all_to_all(params, torch.einsum("ngec,ngd->necd", dispatch, xg), b, s, g, ms))
+    else:                                    # the same tokens on every rank: its own experts
+        own = slice(ms.index * e_loc, (ms.index + 1) * e_loc)
+        if torch.is_grad_enabled():
+            exp_in = torch.einsum("ngec,ngd->necd", dispatch[:, :, own], shd.enter_split(xg, ms))
+            out_e = shd.gather_alike(_experts(params, exp_in), 1, ms)
+            y = torch.einsum("ngec,necd->ngd", combine.to(dtype), out_e)
+        else:
+            exp_in = torch.einsum("ngec,ngd->necd", dispatch[:, :, own], xg)
+            y, partial = None, torch.einsum("ngec,necd->ngd", combine[:, :, own].to(dtype), _experts(params, exp_in))
 
     if moe.shared_d_ff:
         hs = xg @ params["shared_wi"].to(dtype)
         gs = xg @ params["shared_wg"].to(dtype)
-        y = y + (torch.nn.functional.silu(gs) * hs) @ params["shared_wo"].to(dtype)
+        shared = (torch.nn.functional.silu(gs) * hs) @ params["shared_wo"].to(dtype)
+        if params["shared_wi"].shape[1] < moe.shared_d_ff:     # this rank's slice of d_ff (decode)
+            partial = shared if partial is None else partial + shared
+        else:
+            y = shared if y is None else y + shared
+    if partial is not None:
+        partial = shd.model_sum(partial, ms)
+        y = partial if y is None else y + partial
 
     return y.reshape(b, s, d), aux
+
+
+def _experts_all_to_all(params: dict, exp_in: torch.Tensor, b: int, s: int, g: int,
+                        ms: shd.ModelShards) -> torch.Tensor:
+    """``out_e`` (n, E, C, D) of this rank's pieces ``exp_in`` (n, E, C, D),
+    the FFN of each expert computed on the rank that stores it: each
+    expert block's slots go to its rank by an all-to-all over ``model``, the
+    pieces of a group that spans ranks are merged there (their slots are
+    disjoint), and the outputs come back the same way."""
+    n, e_pad, cap, d = exp_in.shape
+    m = ms.size
+    e_loc = e_pad // m
+    recv = shd.model_all_to_all(exp_in.reshape(n, m, e_loc, cap, d).transpose(0, 1), ms)   # (m from, n, E_l, C, D)
+    recv = recv.reshape(m * n, e_loc, cap, d)
+    if s >= g:                               # each piece a whole group
+        back = _experts(params, recv)
+    else:
+        _, groups = _piece_groups(n, s, g, ms)
+        groups = groups.to(exp_in.device)
+        merged = torch.zeros((n * s * m // g, e_loc, cap, d), dtype=recv.dtype, device=recv.device)
+        back = _experts(params, merged.index_add(0, groups, recv))[groups]
+    out = shd.model_all_to_all(back.reshape(m, n, e_loc, cap, d), ms)                    # (m owner, n, E_l, C, D)
+    return out.transpose(0, 1).reshape(n, e_pad, cap, d)
 
 
 class MoE(SchemaModule):
@@ -352,8 +467,8 @@ class MoE(SchemaModule):
         schema = moe_schema(cfg, axes)
         super().__init__(schema, device)
         self.cfg = cfg
-        e_pad = schema["wi"].shape[0]
-        self.tree_router = TreeRouter(cfg, e_pad) if cfg.moe.router == "tree" else None
+        self.e_pad = schema["wi"].shape[0]
+        self.tree_router = TreeRouter(cfg, self.e_pad) if cfg.moe.router == "tree" else None
 
     def pack_router(self) -> None:
         if self.tree_router is not None:
@@ -364,4 +479,4 @@ class MoE(SchemaModule):
         if self.tree_router is not None:
             route = lambda xg: self.tree_router(xg, self.router_proj)   # noqa: E731
         return moe_apply(self.params, x, cfg=self.cfg, group_size=group_size,
-                         serve_hard_tree=serve_hard_tree, route=route)
+                         serve_hard_tree=serve_hard_tree, route=route, e_pad=self.e_pad)

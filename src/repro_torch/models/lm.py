@@ -28,7 +28,17 @@ cache), ``decode_step`` (one token against the cache).
 
 Across cards (:meth:`~repro_torch.models.schema.SchemaModel.distribute`)
 each block gathers its weights inside its rematerialized body, so a
-"full" or "offload" block gathers them again in the backward pass.
+"full" or "offload" block gathers them again in the backward pass.  With
+``tp`` on and ``model`` > 1 the dense, MoE and VLM families split the step
+over ``model`` as the JAX mesh program lays out its activations
+(:meth:`DecoderModel.model_split`, ``parallel.sharding``): the residual
+stream holds ``S/|model|`` positions a rank between blocks where
+``free_model_seq`` names ``model`` and ``parallel.seq_shard`` is on (the
+embedding takes the rank's positions at their global offsets), the logits
+and the loss are vocab-sharded, the MoE is expert-parallel, and decode
+splits its cache by KV heads, else by sequence (:meth:`cache_specs`).  The
+hybrid family computes each batch shard whole on every rank of a
+``model`` row: its SSM is not sequence-split in this slice.
 
 Rematerialization follows ``ParallelConfig.remat`` block by block, as the
 JAX package's ``_remat`` wraps its scanned layer body, and only while grad
@@ -50,6 +60,7 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch import _device
 from repro_torch.configs.base import ModelConfig, ParallelConfig
@@ -100,6 +111,12 @@ class DecodeCache(NamedTuple):
     pos: int                  # tokens already in the cache
 
 
+def cache_split_by_heads(cfg: ModelConfig, axes: shd.MeshAxes) -> bool:
+    """Whether JAX's ``cache_spec`` splits the decode cache by KV heads over
+    ``model`` (else by sequence, where ``model`` is split at all)."""
+    return attn.cache_spec(cfg, axes).k[2] == axes.model
+
+
 class Block(nn.Module):
     """One transformer block: attention (beside an SSM head in the hybrid
     family), then the MoE or dense MLP."""
@@ -107,6 +124,7 @@ class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, device, axes: shd.MeshAxes | None = None):
         super().__init__()
         self.cfg = cfg
+        self.axes = axes or shd.single_device_axes()
         self.ln1 = RMSNorm(cfg, device)
         self.attn = attn.Attention(cfg, device)
         self.ln2 = RMSNorm(cfg, device)
@@ -117,10 +135,25 @@ class Block(nn.Module):
         if cfg.family == "hybrid":
             self.ssm = SSM(cfg, device)
 
+    def model_local_names(self, decode: bool) -> set:
+        """The weights a step split over ``model`` takes as this rank's block
+        (``shd.gather(keep_model=True)``, where they are sharded over it): the
+        experts; at decode also the attention's (its heads, where the cache
+        splits by heads) and the dense or shared FFN's ``d_ff`` slices."""
+        names = {"moe.wi", "moe.wg", "moe.wo"} if self.cfg.moe is not None else set()
+        if decode:
+            if cache_split_by_heads(self.cfg, self.axes):
+                names |= {"attn.wq", "attn.wk", "attn.wv", "attn.wo"}
+            names |= {"mlp.wi", "mlp.wg", "mlp.wo", "moe.shared_wi", "moe.shared_wg", "moe.shared_wo"}
+        return names
+
     def _ffn(self, h2, *, group_size: int, serve_hard_tree: bool):
         if self.cfg.moe is not None:
             return self.moe(h2, group_size=group_size, serve_hard_tree=serve_hard_tree)
-        return self.mlp(h2), None
+        y = self.mlp(h2)
+        if self.mlp.wi.shape[1] < self.cfg.d_ff:       # this rank's d_ff slice (split decode)
+            y = shd.model_sum(y)
+        return y, None
 
     def forward(self, x, positions, is_global, *, serve_hard_tree=False, kv_block):
         """Full sequence. Returns (x, aux, k, v, ssm state); k/v and the SSM's
@@ -239,24 +272,97 @@ class DecoderModel(sch.SchemaModel):
             return [True] * cfg.n_layers
         return [i in set(cfg.global_attn_layers) for i in range(cfg.n_layers)]
 
+    # --------------------------- split over 'model' ---------------------------
+
+    SPLIT_FAMILIES = ("dense", "moe", "vlm")
+
+    def _splits(self) -> bool:
+        """Placed on a mesh whose ``model`` splits the compute, in a family that splits."""
+        return (self.mesh is not None and self.cfg.family in self.SPLIT_FAMILIES
+                and shd.model_dim(self.mesh, self.axes) is not None)
+
+    def model_split(self, batch: dict) -> bool | None:
+        """None on one device, with ``tp`` off or ``model`` 1, and for the hybrid
+        family; else True where the residual is sequence-split (``parallel.
+        seq_shard`` on and ``free_model_seq`` naming ``model`` for the global
+        batch), False where the ranks of ``model`` hold the same tokens."""
+        if not self._splits():
+            return None
+        x = batch["tokens"] if "tokens" in batch else batch["embeds"]
+        b, s = x.shape[:2]
+        return bool(self.parallel.seq_shard and shd.free_model_seq(self.axes, b, s) == self.axes.model)
+
+    def top_local_names(self, decode: bool) -> set:
+        """The output projection's vocabulary slice; at decode the embedding
+        table's too (the lookup is vocab-sharded)."""
+        names = set() if self.cfg.tie_embeddings else {"lm_head.w"}
+        return names | {"embed.table"} if decode else names
+
+    def cache_split(self) -> tuple[str | None, int, int]:
+        """("heads" | "seq" | None, |model|, this rank's index on it): how this
+        rank's decode cache splits (:meth:`cache_specs`)."""
+        if not self._splits():
+            return None, 1, 0
+        m = self.axes.model_size
+        r = self.mesh.get_coordinate()[shd.model_dim(self.mesh, self.axes)]
+        return ("heads" if cache_split_by_heads(self.cfg, self.axes) else "seq"), m, r
+
+    def _seq_slice(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's positions of ``t`` along ``dim`` under a sequence split."""
+        ms = shd.active_model()
+        if ms is None or not ms.seq:
+            return t
+        n = t.shape[dim] // ms.size
+        return t.narrow(dim, ms.index * n, n)
+
     def embed(self, batch: dict) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(x (B,S,D) in the activation dtype, positions) for ``batch``'s
-        ``tokens`` (B,S) or ``embeds`` (B,S,D)."""
+        ``tokens`` (B,S) or ``embeds`` (B,S,D).  Under a sequence split, this
+        rank's positions, at their global offsets (JAX's ``_constrain_resid``
+        after the gather, ``lm.py:116-121``); under split decode the lookup
+        is vocab-sharded, summed over ``model``."""
         cfg = self.cfg
+        ms = shd.active_model()
         if cfg.embeds_input:
-            x = batch["embeds"].to(cfg.act_dtype)
+            x = self._seq_slice(batch["embeds"], 1).to(cfg.act_dtype)
         else:
-            # the table is cast before the gather, as in JAX: in training the
-            # gradient then accumulates repeated tokens in the activation dtype
-            x = self.embed_table.to(cfg.act_dtype)[batch["tokens"].long()]
+            tokens = self._seq_slice(batch["tokens"], 1).long()
+            table = self.embed_table
+            if isinstance(table, DTensor):      # split decode: this rank's vocabulary rows
+                table = shd.gather(table, keep_model=True).to(cfg.act_dtype)
+                local = tokens - ms.index * table.shape[0]
+                own = (local >= 0) & (local < table.shape[0])
+                x = torch.where(own[..., None], table[local.clamp(0, table.shape[0] - 1)], 0.0)
+                x = shd.model_sum(x, ms)
+            else:
+                # the table is cast before the gather, as in JAX: in training the
+                # gradient then accumulates repeated tokens in the activation dtype
+                x = table.to(cfg.act_dtype)[tokens]
         b, s = x.shape[:2]
         positions = batch.get("positions")
-        if positions is None and cfg.rope_style != "none":
-            positions = positions_for(b, s, style=cfg.rope_style, device=x.device)
+        if positions is not None:
+            positions = self._seq_slice(positions, positions.dim() - 1)
+        elif cfg.rope_style != "none":
+            offset = ms.index * s if ms is not None and ms.seq else 0
+            positions = positions_for(b, s, style=cfg.rope_style, offset=offset, device=x.device)
         return x, positions
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self._out_w(x.dtype)
+        """``x @`` the output projection.  Under split compute ``x`` is this
+        rank's positions (sequence split) or the whole (else), and the
+        result this rank's ``V_pad/|model|`` columns of every position
+        (JAX's ``P(batch, None, model)``, ``lm.py:195-203``)."""
+        return self._every_position(x) @ self._out_w(x.dtype)
+
+    @staticmethod
+    def _every_position(x: torch.Tensor) -> torch.Tensor:
+        """Under split compute, every position of this rank's rows for a
+        vocab-sharded projection: all-gathered along a split sequence, else
+        entering the split (its gradient summed over ``model``)."""
+        ms = shd.active_model()
+        if ms is None:
+            return x
+        return shd.seq_gather(x, 1, ms) if ms.seq else shd.enter_split(x, ms)
 
     def _remat(self, fn):
         """``fn`` (one block) wrapped as ``parallel.remat`` says; see the module
@@ -289,6 +395,11 @@ class DecoderModel(sch.SchemaModel):
         return self.logits(x), aux
 
     def _out_w(self, dtype: torch.dtype) -> torch.Tensor:
+        """(D, V_pad): under split compute this rank's vocabulary columns."""
+        if shd.active_model() is not None:
+            name = "embed.table" if self.cfg.tie_embeddings else "lm_head.w"
+            w = shd.gather(self.placed[name], keep_model=True).to(dtype)
+            return w.T if self.cfg.tie_embeddings else w
         if self.cfg.tie_embeddings:
             return self.embed_table.to(dtype).T
         return self.lm_head.w.to(dtype)
@@ -298,7 +409,9 @@ class DecoderModel(sch.SchemaModel):
         ``batch["labels"]`` (negative ids masked, the padded vocabulary
         excluded) plus the MoE load-balance loss, all 0-d f32."""
         x, aux = self.hidden(batch)
-        nll, _ = chunked_softmax_xent(x, self._out_w(x.dtype), batch["labels"], vocab_size=self.cfg.vocab_size)
+        x = self._every_position(x)
+        nll, _ = chunked_softmax_xent(x, self._out_w(x.dtype), batch["labels"], vocab_size=self.cfg.vocab_size,
+                                      shards=shd.active_model())
         return nll + aux, {"nll": nll, "aux": aux}
 
     # ------------------------------- decode -------------------------------
@@ -308,8 +421,18 @@ class DecoderModel(sch.SchemaModel):
         return self.init_cache(batch, max_len, device="meta")
 
     def init_cache(self, batch: int, max_len: int, device=None) -> DecodeCache:
+        """The zero cache of ``batch`` rows and ``max_len`` positions; on a mesh
+        whose ``model`` splits the cache (:meth:`cache_split`), this rank's
+        shard of it: its KV heads, or its ``max_len/|model|`` positions."""
         cfg = self.cfg
         shape, dtype = attn.cache_shape(cfg, batch, max_len)
+        layout, m, _ = self.cache_split()
+        if layout == "heads":
+            shape = (shape[0], shape[1], shape[2] // m, shape[3])
+        elif layout == "seq":
+            if max_len % m:
+                raise ValueError(f"a cache of {max_len} positions does not split over model={m}")
+            shape = (shape[0], shape[1] // m, *shape[2:])
         dev = self.device if device is None else device
         k = torch.zeros((cfg.n_layers, *shape), dtype=dtype, device=dev)
         sstate = None
@@ -322,8 +445,9 @@ class DecoderModel(sch.SchemaModel):
     def cache_specs(self, global_batch: int = 0) -> DecodeCache:
         """The JAX model's cache specs (``src/repro/models/lm.py:265``): batch
         over the batch axes that divide it, KV heads (else the sequence)
-        over a free ``model`` axis, the stack dim unsharded.  The port's
-        rank holds its batch rows with every head (:meth:`prefill`)."""
+        over a free ``model`` axis, the stack dim unsharded.  A split rank's
+        cache is its block of these (:meth:`init_cache`); the hybrid
+        family's rank holds its batch rows with every head."""
         cfg, axes = self.cfg, self.axes
         kv = attn.cache_spec(cfg, axes, global_batch)
         kv = attn.KVCache(k=P(None, *kv.k), v=P(None, *kv.v))
@@ -333,14 +457,32 @@ class DecoderModel(sch.SchemaModel):
             sstate = SSMState(conv=P(None, *ss.conv), h=P(None, *ss.h))
         return DecodeCache(kv=kv, ssm=sstate, pos=P())
 
+    def _write_prefill_cache(self, cache: DecodeCache, i: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        """Layer ``i``'s K/V of the whole prompt (B, S, KV, hd) into this rank's
+        shard of the cache."""
+        s = k.shape[1]
+        layout, m, r = self.cache_split()
+        if layout == "heads":
+            n = k.shape[2] // m
+            k, v = k[:, :, r * n:(r + 1) * n], v[:, :, r * n:(r + 1) * n]
+        elif layout == "seq":
+            n = cache.kv.k.shape[2]
+            k, v = k[:, r * n:min(s, (r + 1) * n)], v[:, r * n:min(s, (r + 1) * n)]
+            s = k.shape[1]
+        if s:
+            cache.kv.k[i, :, :s] = k
+            cache.kv.v[i, :, :s] = v
+
     @torch.no_grad()
     def decode_step(self, cache: DecodeCache, batch: dict) -> tuple[torch.Tensor, DecodeCache]:
         """One token for every sequence in the batch: ``{"tokens": (B,1)}`` (or
         ``{"embeds": (B,1,D)}``); positions are ``cache.pos``.  Writes the
         cache (KV and SSM state) in place and returns it with ``pos + 1``.
         Across cards ``batch`` is the global one and the cache and logits
-        this rank's rows (:meth:`~repro_torch.models.schema.SchemaModel.on_batch_shards`)."""
-        with self.on_batch_shards(batch) as local:
+        this rank's rows (:meth:`~repro_torch.models.schema.SchemaModel.on_batch_shards`);
+        under split compute the cache is this rank's shard and the logits
+        this rank's vocabulary columns (:meth:`gathered_logits` gathers them)."""
+        with self.on_batch_shards(batch, decode=True) as local:
             return self._decode_step(cache, local)
 
     def _decode_step(self, cache: DecodeCache, batch: dict) -> tuple[torch.Tensor, DecodeCache]:
@@ -362,7 +504,7 @@ class DecoderModel(sch.SchemaModel):
             if new_ss is not None:
                 cache.ssm.conv[i].copy_(new_ss.conv)
                 cache.ssm.h[i].copy_(new_ss.h)
-        logits = self.logits(self.final_norm(x))
+        logits = self.final_norm(x) @ self._out_w(x.dtype)
         return logits, cache._replace(pos=pos + 1)
 
     @torch.no_grad()
@@ -374,7 +516,9 @@ class DecoderModel(sch.SchemaModel):
         logits (B,1,V_pad) and the cache with ``pos`` = prompt length.  The
         hybrid family's SSM state gets the conv tail and a zero ``h`` (see
         the module docstring).  Across cards ``batch`` is the global one and
-        the logits and cache this rank's rows.
+        the logits and cache this rank's rows; under split compute the cache
+        is this rank's shard and the logits this rank's vocabulary columns
+        (:meth:`decode_step`).
         """
         with self.on_batch_shards(batch) as local:
             return self._prefill(local, max_len)
@@ -382,15 +526,26 @@ class DecoderModel(sch.SchemaModel):
     def _prefill(self, batch: dict, max_len: int | None) -> tuple[torch.Tensor, DecodeCache]:
         cfg = self.cfg
         x, positions = self.embed(batch)
-        b, s = x.shape[:2]
+        ms = shd.active_model()
+        b = x.shape[0]
+        s = x.shape[1] * (ms.size if ms is not None and ms.seq else 1)
         cache = self.init_cache(b, max(s, max_len or s))
         hard = cfg.moe is not None and cfg.moe.router == "tree"
         for i, (layer, is_g) in enumerate(zip(self.layers, self._is_global_flags())):
             x, _, k, v, ss = layer(x, positions, is_g, serve_hard_tree=hard,
                                    kv_block=self.parallel.attn_kv_block)
-            cache.kv.k[i, :, :s] = k
-            cache.kv.v[i, :, :s] = v
+            self._write_prefill_cache(cache, i, k, v)
             if ss is not None:
                 cache.ssm.conv[i] = ss.conv        # h stays zero, as in JAX
-        logits = self.logits(self.final_norm(x[:, -1:, :]))
+        last = x[:, -1:, :]
+        if ms is not None and ms.seq:           # the last position is the last rank's
+            last = shd.model_gather(last, dim=1)[:, -1:]
+        logits = self.final_norm(last) @ self._out_w(last.dtype)
         return logits, cache._replace(pos=s)
+
+    def gathered_logits(self, logits: torch.Tensor, batch: dict) -> torch.Tensor:
+        """Every vocabulary column of this rank's rows of ``prefill`` or
+        ``decode_step`` logits (all-gathered over ``model`` where the step
+        split it); ``batch`` is the step's global batch."""
+        with self.on_batch_shards(batch, decode=True):
+            return shd.model_gather(logits, dim=-1)

@@ -235,16 +235,17 @@ class SchemaModel(nn.Module):
     checkpoints and the serving engine read.
 
     **Across cards.**  :meth:`distribute` places every parameter on a
-    ``DeviceMesh`` as a DTensor by its JAX spec.  Compute then runs the
-    plain module code on each rank's batch shard: each block
+    ``DeviceMesh`` as a DTensor by its JAX spec.  Each block
     (:meth:`blocks`) gathers its weights when it is called and releases them
     when it returns (a rematerialized block gathers again in the backward
     pass), and the other weights (embedding, final norm, head) are gathered
     around a step by :meth:`gathered_top`.  The train step, ``prefill`` and
     ``decode_step`` take the global batch and compute on this rank's rows
-    (:meth:`on_batch_shards`): ``prefill`` and ``decode_step`` return this
-    rank's rows of the logits and a cache of this rank's rows with every
-    head, since no compute is split over ``model``.
+    (:meth:`on_batch_shards`); a model whose :meth:`model_split` says so
+    also splits the step over ``model`` (``shd.model_shards``: the
+    decoder's sequence-parallel residual, vocab-sharded logits,
+    expert-parallel MoE and split decode cache).  The others compute each
+    batch shard whole on every rank of a ``model`` row.
     """
 
     stacks: dict
@@ -325,39 +326,68 @@ class SchemaModel(nn.Module):
             owner, leaf = shd.owner_of(self, name)
             owner._parameters[leaf] = nn.Parameter(dt, requires_grad=p.requires_grad)
         self.mesh = mesh
+        self.placed = dict(self.named_parameters())
         shd.gather_in_blocks(self.blocks())
         if not meta:
             self.pack_routers()
         return self
 
-    def gathered_top(self):
+    def model_split(self, batch: dict) -> bool | None:
+        """Whether a step on the global ``batch`` splits its compute over
+        ``model`` with a sequence-split residual (True), splits it with the
+        ranks holding the same tokens (False), or does not split it (None:
+        the default, and the model's own choice where ``model`` is 1)."""
+        return None
+
+    def top_local_names(self, decode: bool) -> set:
+        """The weights outside the blocks that a split step takes as this
+        rank's ``model`` block (the vocabulary slices), left out of
+        :meth:`gathered_top`; none by default."""
+        return set()
+
+    def gathered_top(self, decode: bool = False):
         """A context in which the weights outside the blocks (embedding, norms,
-        head) are gathered; nothing to do on one device."""
+        head) are gathered, but for :meth:`top_local_names`; nothing to do
+        on one device."""
         if self.mesh is None:
             return contextlib.nullcontext()
         heads = self._block_heads()
+        local = self.top_local_names(decode) if shd.active_model() is not None else set()
         return shd.gathered(self, [n for n, p in self.named_parameters()
-                                   if n.split(".")[0] not in heads and isinstance(p, DTensor)])
+                                   if n.split(".")[0] not in heads and isinstance(p, DTensor) and n not in local])
 
     @contextlib.contextmanager
-    def on_batch_shards(self, batch: dict):
+    def on_batch_shards(self, batch: dict, decode: bool = False):
         """This rank's rows of the global ``batch``, with the batch shards
-        active (``shd.batch_shards``) and the weights outside the blocks
-        gathered; the batch itself on one device.  Every rank passes the same
-        global batch; the process-wide batch shards are restored on exit."""
+        active (``shd.batch_shards``), the model shards too where
+        :meth:`model_split` says so (``shd.model_shards``), and the weights
+        outside the blocks gathered; the batch itself on one device.  Every
+        rank passes the same global batch; the process-wide shards are
+        restored on exit.  The sequence is not cut here: the model's
+        embedding takes its positions."""
         if self.mesh is None:
             yield batch
             return
         b = next(iter(batch.values())).shape[0]
-        with shd.batch_shards(self.mesh, self.axes, b) as shards, self.gathered_top():
+        split = self.model_split(batch)
+        with contextlib.ExitStack() as stack:
+            shards = stack.enter_context(shd.batch_shards(self.mesh, self.axes, b))
+            if split is not None:
+                stack.enter_context(shd.model_shards(self.mesh, self.axes, seq=split))
+            stack.enter_context(self.gathered_top(decode))
             yield shd.local_batch(batch, shards)
 
     def block_weights(self, block: nn.Module):
         """A context in which ``block``'s weights are gathered, for a block
-        method other than ``forward`` (decode): ``forward`` gathers them itself."""
+        method other than ``forward`` (decode): ``forward`` gathers them
+        itself.  Under split decode the block's ``model_local_names(decode=True)``
+        stay this rank's ``model`` blocks."""
         if self.mesh is None:
             return contextlib.nullcontext()
-        return shd.gathered(block, [n for n, p in block.named_parameters() if isinstance(p, DTensor)])
+        keep = ()
+        if shd.active_model() is not None and hasattr(block, "model_local_names"):
+            keep = block.model_local_names(decode=True)
+        return shd.gathered(block, [n for n, p in block.named_parameters() if isinstance(p, DTensor)], keep)
 
     def stacked_names(self, path: str) -> list[str] | None:
         """The per-layer parameter names behind a stacked schema path, or None."""

@@ -27,15 +27,36 @@ padded so that they shard densely.  A spec is the port's
 
 Storage is decoupled from compute, as the JAX docstring of
 :func:`attn_specs` says.  Parameters live as DTensors placed by their
-specs (FSDP over ``data``, TP or EP over ``model``); compute runs the plain
-module code on each rank's batch shard (:func:`local_batch`), on weights
-gathered just in time (:func:`gather`) whose gradients come back
-reduce-scattered into the storage placement.  The loss's token sums and the
-MoE load-balance statistics are summed over the batch shards inside the
-step (:func:`batch_shards`, :func:`batch_sum`, :func:`batch_mean`).
-Compute-side tensor and expert parallelism (sharded matmuls, an
-all-to-all dispatch) are not ported: with ``tp`` on, the ranks of one
-``model`` row compute the same batch shard.
+specs (FSDP over ``data``, TP or EP over ``model``).  A step computes on
+this rank's batch shard (:func:`local_batch`) and, with ``tp`` on and
+``model`` > 1, splits its work over the ``model`` dim as the JAX mesh
+program's activation constraints do (:class:`ModelShards`):
+
+  * the residual stream is sequence-parallel: each rank of a ``model`` row
+    holds ``S/|model|`` positions between blocks (JAX's ``_constrain_resid``,
+    ``P(batch, free_model_seq(...), None)``), and attention all-gathers K
+    and V along the sequence (:func:`seq_gather`);
+  * the logits and the loss are vocab-sharded (``P(batch, None, model)``):
+    each rank projects onto its ``V_pad/|model|`` columns and the
+    cross-entropy reduces over ``model`` (:func:`model_sum`, :func:`model_max`);
+  * the MoE runs each expert only on the rank that stores it
+    (``P(batch, model, None, None)`` on ``exp_in``/``out_e``): tokens reach
+    their experts and come back by an all-to-all (:func:`model_all_to_all`);
+  * decode splits its cache by KV heads where they divide ``model``, else by
+    sequence, and multiplies by its column and row slices of the weights,
+    with one all-reduce a sum (:func:`model_sum`).
+
+Dense weights are still gathered whole just in time under the sequence
+split (:func:`gather`, ZeRO-3 for (batch × sequence)-sharded activations);
+the weights whose ``model`` block is the compute's own share (the experts,
+the vocabulary slice of the output projection, and at decode the heads'
+and ``d_ff``'s slices) are gathered over ``data`` only
+(``keep_model=True``).  Gradients come back reduce-scattered into the
+storage placement: partial sums over the batch shards, and over ``model``
+where its ranks hold distinct tokens.  The collectives over ``model`` are
+``torch.autograd.Function``s with their transposed backward.  The loss's
+token sums and the MoE load-balance statistics are summed over the shards
+inside the step (:func:`batch_sum`, :func:`token_mean`).
 """
 
 from __future__ import annotations
@@ -48,6 +69,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 AXES = ("records", "trees")
@@ -438,8 +460,10 @@ def distribute(tree, mesh, spec_tree):
 
 
 def constrain(x, spec: PartitionSpec):
-    """JAX's ``with_sharding_constraint``: the port's compute runs on local
-    batch shards, so a plain tensor is returned as it is."""
+    """JAX's ``with_sharding_constraint``: a plain tensor is returned as it
+    is.  The port takes each layout explicitly where JAX constrains one (the
+    calls of :func:`seq_gather`, :func:`model_all_to_all` and the vocabulary
+    slices cite JAX's sites)."""
     return x
 
 
@@ -541,23 +565,287 @@ def batch_mean(t: torch.Tensor) -> torch.Tensor:
     return batch_sum(t) / torch.full((), float(shards.count), dtype=t.dtype, device=t.device)
 
 
-def gather(p) -> torch.Tensor:
-    """The whole of parameter ``p`` as a plain tensor on this rank, for the
-    plain module code (``p`` itself if it is not a DTensor).
+# ---------------------------------------------------------------------------
+# Compute over 'model'
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelShards:
+    """The ``model`` mesh dim over which a step splits its compute, and this
+    rank's place on it.  ``seq``: the residual stream is sequence-split over
+    it in this step (the ranks hold distinct tokens); else its ranks hold
+    the same tokens and split the weights' work (decode, or a sequence
+    that does not divide)."""
+
+    mesh: object
+    dim: int
+    seq: bool = False
+
+    @property
+    def size(self) -> int:
+        return self.mesh.size(self.dim)
+
+    @property
+    def index(self) -> int:
+        return self.mesh.get_coordinate()[self.dim]
+
+    @property
+    def group(self):
+        return self.mesh.get_group(self.dim)
+
+
+# The active step's model shards (process-wide, as ``_BATCH``).
+_MODEL: Optional[ModelShards] = None
+
+
+def model_dim(mesh, axes: MeshAxes) -> Optional[int]:
+    """The mesh dim over which compute splits: ``model`` with ``tp`` on and
+    a size above 1, else None."""
+    if not axes.tp or axes.model_size <= 1:
+        return None
+    return list(mesh.mesh_dim_names).index(axes.model)
+
+
+@contextlib.contextmanager
+def model_shards(mesh, axes: MeshAxes, *, seq: bool) -> Iterator[Optional[ModelShards]]:
+    """Split the step's compute over ``model`` (:class:`ModelShards`); nothing
+    is split where :func:`model_dim` is None.  Restored on exit."""
+    global _MODEL
+    dim = model_dim(mesh, axes)
+    prev, _MODEL = _MODEL, (None if dim is None else ModelShards(mesh, dim, seq))
+    try:
+        yield _MODEL
+    finally:
+        _MODEL = prev
+
+
+def active_model() -> Optional[ModelShards]:
+    return _MODEL
+
+
+def _done(t: torch.Tensor) -> torch.Tensor:
+    """A functional collective's result, waited for."""
+    return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
+# the functional collectives' names in this torch (``*_single`` from 2.13 on)
+_FUNCOL_GATHER = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
+_FUNCOL_SCATTER = getattr(funcol, "reduce_scatter_single", None) or funcol.reduce_scatter_tensor
+
+
+def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _done(_FUNCOL_GATHER(x.contiguous(), dim, group))
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _done(_FUNCOL_SCATTER(x.contiguous(), "sum", dim, group))
+
+
+def _all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
+    return _done(funcol.all_reduce(x.contiguous(), op, group))
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    return _done(funcol.all_to_all_single(x.contiguous(), None, None, group))
+
+
+class _SeqGather(torch.autograd.Function):
+    """All-gather along ``dim``; backward: reduce-scatter (each rank's
+    gradient of the whole is a partial sum over the ranks' consumers)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    """Reduce-scatter along ``dim``; backward: all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group), None, None
+
+
+class _SumPartial(torch.autograd.Function):
+    """All-reduce of a partial sum whose total every rank consumes alike;
+    backward: the identity (each rank's term gets the total's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _EnterSplit(torch.autograd.Function):
+    """The identity on a tensor every rank holds alike, consumed by a split
+    computation; backward: the all-reduce of the ranks' partial gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, "sum", ctx.group), None
+
+
+class _GatherAlike(torch.autograd.Function):
+    """All-gather along ``dim`` of blocks whose whole every rank consumes
+    alike; backward: this rank's block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, index, size):
+        ctx.dim, ctx.index, ctx.size = dim, index, size
+        return _all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.size, dim=ctx.dim)[ctx.index].contiguous(), None, None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """All-to-all over dim 0 in equal chunks (chunk i to rank i); backward:
+    the same exchange of the gradient, its own transpose."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def seq_gather(x: torch.Tensor, dim: int = 1, shards: Optional[ModelShards] = None) -> torch.Tensor:
+    """The whole sequence of a sequence-split tensor, all-gathered over
+    ``model``; the gradient comes back reduce-scattered."""
+    shards = shards or _MODEL
+    return _SeqGather.apply(x, dim, shards.group)
+
+
+def seq_scatter(x: torch.Tensor, dim: int = 1, shards: Optional[ModelShards] = None) -> torch.Tensor:
+    """The sum over ``model`` of ``x``, each rank keeping its block along
+    ``dim``; the gradient comes back all-gathered."""
+    shards = shards or _MODEL
+    return _ScatterSum.apply(x, dim, shards.group)
+
+
+def model_sum(x: torch.Tensor, shards: Optional[ModelShards] = None) -> torch.Tensor:
+    """The sum over ``model`` of each rank's partial ``x``, the same on every
+    rank; its gradient is the identity."""
+    shards = shards or _MODEL
+    return _SumPartial.apply(x, shards.group)
+
+
+@torch.no_grad()
+def model_max(x: torch.Tensor, shards: Optional[ModelShards] = None) -> torch.Tensor:
+    """The elementwise max over ``model`` (no gradient: a stabilizer)."""
+    shards = shards or _MODEL
+    return _all_reduce(x.detach(), "max", shards.group)
+
+
+def enter_split(x: torch.Tensor, shards: Optional[ModelShards] = None) -> torch.Tensor:
+    """``x`` (the same on every rank of ``model``) for a computation split over
+    ``model``: the gradients of the ranks' shares are summed in the backward."""
+    shards = shards or _MODEL
+    return _EnterSplit.apply(x, shards.group)
+
+
+def gather_alike(x: torch.Tensor, dim: int, shards: Optional[ModelShards] = None) -> torch.Tensor:
+    """Each rank's block along ``dim``, all-gathered for a consumer that every
+    rank runs alike; the gradient is sliced back to this rank's block."""
+    shards = shards or _MODEL
+    return _GatherAlike.apply(x, dim, shards.group, shards.index, shards.size)
+
+
+def model_all_to_all(x: torch.Tensor, shards: Optional[ModelShards] = None) -> torch.Tensor:
+    """All-to-all over ``model`` of ``x`` (|model|, …): block i goes to rank i,
+    and block j of the result came from rank j."""
+    shards = shards or _MODEL
+    return _AllToAll.apply(x, shards.group)
+
+
+@torch.no_grad()
+def model_gather(x: torch.Tensor, dim: int = -1, shards: Optional[ModelShards] = None) -> torch.Tensor:
+    """The whole of ``x`` along ``dim`` (a result's vocabulary columns, say)
+    from every rank's block over ``model`` (default: the active shards);
+    ``x`` itself where none are active (no gradient)."""
+    shards = shards or _MODEL
+    if shards is None:
+        return x
+    return _all_gather(x, dim % x.dim(), shards.group)
+
+
+def token_sum(t: torch.Tensor) -> torch.Tensor:
+    """:func:`batch_sum` over every shard that holds distinct tokens: the
+    batch shards, and ``model`` where the residual is sequence-split."""
+    shards, model = _BATCH, _MODEL
+    over_model = model is not None and model.seq
+    if (shards is None or shards.count == 1) and not over_model:
+        return t
+    total = t.detach().clone()
+    if shards is not None:
+        shards.all_reduce(total)
+    if over_model:
+        dist.all_reduce(total, group=model.group)
+    return total + (t - t.detach())
+
+
+def token_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean of ``t`` over the shards of :func:`token_sum` (each holds as
+    many tokens)."""
+    shards, model = _BATCH, _MODEL
+    n = (1 if shards is None else shards.count) * (model.size if model is not None and model.seq else 1)
+    if n == 1:
+        return t
+    return token_sum(t) / torch.full((), float(n), dtype=t.dtype, device=t.device)
+
+
+def gather(p, keep_model: bool = False) -> torch.Tensor:
+    """Parameter ``p`` as a plain tensor on this rank, for the plain module
+    code (``p`` itself if it is not a DTensor): the whole of it, or with
+    ``keep_model`` this rank's block over the active ``model`` dim
+    (gathered over the other dims; the whole where no model shards are
+    active or ``p`` is not sharded over ``model``).
 
     Under :func:`batch_shards` the gradient that comes back is this rank's
-    partial sum over its batch shard (``Partial`` on the batch dims,
-    ``Replicate`` on the others, whose ranks share a batch shard), and the
-    backward pass reduce-scatters it into ``p``'s placement.
+    partial sum (``Partial`` on the batch dims, and on the ``model`` dim of
+    a whole weight where the residual is sequence-split; ``Replicate`` on
+    dims whose ranks compute the same thing; the block's own placement on
+    the ``model`` dim with ``keep_model``), and the backward pass
+    reduce-scatters it into ``p``'s placement.
     """
     if not isinstance(p, DTensor):
         return p
     mesh = p.device_mesh
-    full = p.redistribute(mesh, [Replicate()] * mesh.ndim)
+    model = _MODEL
+    target = [Replicate()] * mesh.ndim
+    keep = keep_model and model is not None and isinstance(p.placements[model.dim], Shard)
+    if keep:
+        target[model.dim] = p.placements[model.dim]
+    full = p.redistribute(mesh, target)
     shards = _BATCH
     if shards is None or not torch.is_grad_enabled():
         return full.to_local()
     grad_plc = [Partial() if d in shards.dims else Replicate() for d in range(mesh.ndim)]
+    if model is not None:
+        grad_plc[model.dim] = target[model.dim] if keep else (Partial() if model.seq else Replicate())
     return full.to_local(grad_placements=grad_plc)
 
 
@@ -571,16 +859,18 @@ def owner_of(module: torch.nn.Module, name: str) -> tuple[torch.nn.Module, str]:
 
 
 @contextlib.contextmanager
-def gathered(module: torch.nn.Module, names: Sequence[str]) -> Iterator[None]:
+def gathered(module: torch.nn.Module, names: Sequence[str], keep: Sequence[str] = ()) -> Iterator[None]:
     """Within the block, ``module``'s parameters ``names`` (dotted) are their
-    gathered plain tensors (:func:`gather`); they are put back after it."""
+    gathered plain tensors (:func:`gather`; those also in ``keep`` with
+    ``keep_model``); they are put back after it."""
     saved = []
+    keep = set(keep)
     try:
         for name in names:
             owner, leaf = owner_of(module, name)
             p = owner._parameters[leaf]
             saved.append((owner, leaf, p))
-            owner._parameters[leaf] = gather(p)
+            owner._parameters[leaf] = gather(p, keep_model=name in keep)
         yield
     finally:
         for owner, leaf, p in reversed(saved):
@@ -588,7 +878,8 @@ def gathered(module: torch.nn.Module, names: Sequence[str]) -> Iterator[None]:
 
 
 def _gather_hook(block, args):
-    ctx = gathered(block, [n for n, p in block.named_parameters() if isinstance(p, DTensor)])
+    keep = block.model_local_names(decode=False) if hasattr(block, "model_local_names") else ()
+    ctx = gathered(block, [n for n, p in block.named_parameters() if isinstance(p, DTensor)], keep)
     ctx.__enter__()
     block._gather_ctx = ctx
 

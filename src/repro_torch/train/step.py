@@ -16,12 +16,15 @@ gradients and loss by k; one microbatch's activations are live at a time.
 from the model (``model.distribute(mesh)``).  Every rank passes the same
 global batch and computes on its own rows: the batch is split over the
 mesh axes that ``axes.batch_axes_for(B)`` picks (with ``tp`` off, the
-model axis among them), and ranks that share a batch shard compute the
-same thing.  The loss is the global token mean (the sums and counts of
-``softmax_xent_sums`` summed over the shards), the MoE load-balance loss
-takes its statistics over all shards, and the gradients come back in the
-parameters' placement, reduce-scattered.  Microbatching splits each rank's
-rows.  ``metrics`` are the same on every rank.
+model axis among them).  With ``tp`` on and ``model`` above 1 the ranks
+that share a batch shard split its work (``DecoderModel.model_split``: the
+sequence-parallel residual, vocab-sharded loss and expert-parallel MoE);
+the models that do not split compute it whole on each.  The loss is the
+global token mean (the sums and counts of ``softmax_xent_sums`` summed
+over the shards), the MoE load-balance loss takes its statistics over all
+the tokens, and the gradients come back in the parameters' placement,
+reduce-scattered.  Microbatching splits each rank's rows.  ``metrics``
+are the same on every rank.
 """
 
 from __future__ import annotations

@@ -250,7 +250,7 @@ def test_sharded_bf16_step_equals_single_device_microbatched_by_its_shards(reque
     arch, (d, m), tp, batch, seq = W.BF16_CASE
     axes = shd.MeshAxes(("data",), "model", {"data": d, "model": m}, tp=tp)
     shards = int(np.prod([{"data": d, "model": m}[a] for a in axes.batch_axes_for(batch)]))
-    assert shards == 2
+    assert shards == 4
     model = build_model(W.smoke_cfg(arch, "bfloat16"), device="cpu", axes=axes)
     model.init(torch.Generator().manual_seed(0))
     got = run["ranks"][0]["bf16"]
@@ -474,7 +474,7 @@ def test_launch_train_mesh_under_torchrun(tmp_path):
            "--steps", "2", "--seq", "16", "--batch", "4", "--ckpt-every", "2", "--ckpt-dir", str(tmp_path / "ckpt")]
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.count("arch=yi-smoke") == 1 and "mesh={'data': 2, 'model': 1} (2 processes, cpu)" in out.stdout
+    assert out.stdout.count("arch=yi-smoke") == 1 and "mesh={'data': 2, 'model': 1} (2 processes, cpu) split=none" in out.stdout
     assert out.stdout.count("2 steps in") == 1 and "restarts=0" in out.stdout
     assert sorted(os.listdir(tmp_path / "ckpt")) == ["LATEST", "step_000002"]
 

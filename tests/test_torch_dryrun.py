@@ -12,9 +12,11 @@ decode it plans.
   (``FLOPS_REL``) of what JAX compiles for one data-parallel card (see
   ``JAX_SCRIPT``'s note on JAX's own 2×2 program), and the numbers are
   printed.
-* Sharded prefill and decode on a real 2×2 gloo mesh (four spawned ranks,
-  ``tests/torch_dist_worker.py``): in f32, each rank's rows bit-equal to the
-  single-device prefill and decode microbatched by the batch shards, and
+* Sharded prefill and decode on a real 4×1 gloo mesh (four spawned ranks,
+  ``tests/torch_dist_worker.py``; a ``model`` axis of 1, so that nothing is
+  split over it: ``tests/test_torch_model_axis.py`` holds the split): in
+  f32, each rank's rows bit-equal to the single-device prefill and decode
+  microbatched by the batch shards, and
   within ``JAX_TOL`` (1e-5) of JAX's single-device ``prefill`` /
   ``decode_step`` on the same rows and weights (carried across by
   ``models.convert.load_jax_params``).
@@ -37,7 +39,7 @@ import torch.distributed as dist
 import torch_dist_worker as W
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.registry import ARCH_IDS, get_smoke_config
-from repro_torch.launch import dryrun
+from repro_torch.launch import dryrun, specs
 from repro_torch.models import build_model
 from repro_torch.models.convert import load_jax_params
 from repro_torch.parallel import sharding as shd
@@ -49,7 +51,7 @@ JOIN_TIMEOUT_S = 150
 ROW_KEYS = {"arch", "shape", "step", "mesh", "chips", "flops_per_card", "bytes_per_card", "coll_bytes_per_chip",
             "compute_s", "memory_s", "collective_s", "dominant", "model_flops", "useful_ratio",
             "roofline_fraction", "coll_summary", "fit_bytes", "fits", "plan_s", "k1_ops", "ops", "collectives",
-            "param_bytes_per_card"}
+            "param_bytes_per_card", "seq_shard", "model_split", "commit", "src_tree"}
 MOE = {"granite-moe-3b-a800m", "phi3.5-moe-42b-a6.6b"}
 
 
@@ -114,11 +116,22 @@ def test_the_cli_writes_rows_and_skips(tmp_path, monkeypatch, capsys):
     assert not dist.is_initialized()
 
 
-def test_the_cli_refuses_no_seq_shard(capsys):
-    with pytest.raises(SystemExit) as exc:
-        dryrun.main(["--arch", "yi-6b", "--no-seq-shard"])
-    assert exc.value.code == 2
-    assert "never sequence-sharded" in capsys.readouterr().err
+def test_the_cli_refuses_no_seq_shard(tmp_path, monkeypatch):
+    """JAX's ``--no-seq-shard`` is accepted and turns the sequence split off:
+    the residual stays whole on each rank of 'model', so a TP card computes
+    more than with the split (the flag is no longer refused)."""
+    monkeypatch.setattr(dryrun, "get_config", lambda arch: get_smoke_config(arch))
+    monkeypatch.setattr(specs, "TP_MIN_PARAMS", 0)
+    monkeypatch.setattr(dryrun, "SHAPES", {"train_s": ShapeConfig("train_s", 32, 8, "train")})
+    monkeypatch.setattr(dryrun, "cells_for", lambda cfg: [(ShapeConfig("train_s", 32, 8, "train"), True, "")])
+    monkeypatch.setitem(dryrun.MESHES, "16x16", dryrun.MESHES["2x2"])
+    rows = {}
+    for flag in ([], ["--no-seq-shard"]):
+        out = tmp_path / f"rows{len(flag)}.json"
+        dryrun.main(["--arch", "yi-6b", "--out", str(out), *flag])
+        (rows[bool(flag)],) = json.loads(out.read_text())
+    assert rows[True]["flops_per_card"] > rows[False]["flops_per_card"]
+    assert "all-to-all" not in rows[True]["collectives"]
     assert not dist.is_initialized()
 
 
@@ -193,7 +206,7 @@ def test_plan_flops_a_card_within_10_percent_of_jax_hlo_cost(jax_flops, kind, ba
 
 
 # ---------------------------------------------------------------------------
-# sharded prefill and decode on a 2×2 gloo mesh
+# sharded prefill and decode on a 4×1 gloo mesh
 # ---------------------------------------------------------------------------
 
 
@@ -255,11 +268,18 @@ def serve_run(tmp_path_factory):
             for case in W.SERVE_CASES:
                 arch, batch, prompt, steps = case
                 jm, params, port = models[arch]
-                with torch.no_grad():
-                    refs[case] = _serve_rows(
-                        lambda ids, n: port.prefill({"tokens": torch.from_numpy(ids)}, max_len=n),
-                        lambda cache, tok: port.decode_step(cache, {"tokens": torch.from_numpy(tok)}),
-                        *case, shards=W.SERVE_MESH[0])
+                # single-threaded, as the ranks run: another thread count
+                # rounds the matmuls otherwise
+                threads = torch.get_num_threads()
+                torch.set_num_threads(1)
+                try:
+                    with torch.no_grad():
+                        refs[case] = _serve_rows(
+                            lambda ids, n: port.prefill({"tokens": torch.from_numpy(ids)}, max_len=n),
+                            lambda cache, tok: port.decode_step(cache, {"tokens": torch.from_numpy(tok)}),
+                            *case, shards=W.SERVE_MESH[0])
+                finally:
+                    torch.set_num_threads(threads)
                 jprefill = jax.jit(jm.prefill, static_argnames="max_len")
                 jdecode = jax.jit(jm.decode_step)
                 jax_refs[case] = _serve_rows(
@@ -287,7 +307,7 @@ def test_sharded_prefill_and_decode_equal_one_device_microbatched_by_the_shards(
     for got in (r[case] for r in serve_run["ranks"]):
         assert got["shards"] == W.SERVE_MESH[0]
         assert got["batch_shards_after"] is None
-        assert got["cache_rows"] == case[1] // W.SERVE_MESH[0]    # this rank's rows, every head
+        assert got["cache_rows"] == case[1] // W.SERVE_MESH[0]    # this rank's rows, every head ('model' 1)
         want_prefill, want_decode = serve_run["refs"][case][got["shard"]]
         assert torch.equal(got["prefill"], want_prefill)
         assert len(got["decode"]) == len(want_decode) == case[3]

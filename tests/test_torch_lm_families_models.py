@@ -40,6 +40,12 @@ RTOL = ATOL = 1e-4
 # training tests' measure): measured max 4.8e-6 (xlstm), 2.2e-6 (whisper),
 # 1.7e-6 (hymba).
 GRAD_TOL = 1e-5
+# The xLSTM's gradients on their own: the port's and JAX's f32 results lie
+# on either side of the f64 evaluation (``tests/torch_f64_probe.py``: max
+# over parameters 7.7e-6 port–f64, 7.4e-6 JAX–f64; the order of operations
+# is JAX's), so they differ by up to the sum of the two (1.25e-5 measured in
+# ``layers.layer_001.block.up``).  The bound is twice the larger distance.
+XLSTM_GRAD_TOL = 1.6e-5
 
 
 @functools.lru_cache(maxsize=None)
@@ -149,8 +155,9 @@ def test_loss_and_gradients_equal_jax(arch):
     _rel_close(loss, jl, GRAD_TOL)
     _rel_close(aux["nll"], jaux["nll"], GRAD_TOL)
     assert float(aux["aux"].detach()) == float(jaux["aux"]) == 0.0
+    tol = XLSTM_GRAD_TOL if arch == "xlstm" else GRAD_TOL
     for (name, _), g in zip(named.items(), grads):
-        _rel_close(g, _jax_leaf(jg, model, name), GRAD_TOL)
+        _rel_close(g, _jax_leaf(jg, model, name), tol)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -28,9 +28,11 @@ STEP_CASES = [
     ("yi", (4, 1), True, 8, 16),
     ("yi", (2, 2), False, 8, 16),
 ]
-# the sharded step in the models' own bf16 activations: smoke yi on 2×2,
-# whose batch is split over 'data' alone (2 shards)
-BF16_CASE = ("yi", (2, 2), True, 8, 16)
+# the sharded step in the models' own bf16 activations: smoke yi on 4×1,
+# whose batch is split over 'data' alone (4 shards) and whose compute is not
+# split over 'model' (a 'model' axis of 1: the premise of the comparison
+# with one device microbatched by the batch shards)
+BF16_CASE = ("yi", (4, 1), True, 8, 16)
 COMPRESSION_ROUNDS = 30
 TCFG = dict(lr=1e-3, warmup_steps=0, total_steps=10)
 # the restart: checkpoints every 2 steps; every rank fails at step 4, while
@@ -233,10 +235,13 @@ def remesh(device, tmp: str) -> dict:
 
 
 # sharded prefill and decode (``tests/test_torch_dryrun.py``): (arch, global
-# batch, prompt, decode steps) on a 2×2 mesh, batch over 'data' (2 shards);
-# smoke granite's shard holds whole 512-token MoE groups at prefill
+# batch, prompt, decode steps) on a 4×1 mesh, batch over 'data' (4 shards),
+# a 'model' axis of 1, where nothing is split over it and each rank computes
+# one device's program on its rows (``tests/test_torch_model_axis.py``
+# holds the split); smoke granite's shard holds whole 512-token MoE groups
+# at prefill
 SERVE_CASES = [("yi", 8, 16, 3), ("granite-moe", 8, 256, 2)]
-SERVE_MESH = (2, 2)
+SERVE_MESH = (4, 1)
 
 
 def serve_tokens(arch: str, batch: int, prompt: int, steps: int) -> tuple[np.ndarray, np.ndarray]:
@@ -252,7 +257,7 @@ def serve_weights_path(tmp: str, arch: str) -> str:
 
 
 def sharded_serve(arch: str, batch: int, prompt: int, steps: int, device, tmp: str) -> dict:
-    """Prefill and ``steps`` decode steps of a model placed on a 2×2 mesh, its
+    """Prefill and ``steps`` decode steps of a model placed on SERVE_MESH, its
     weights the test's (carried from JAX and saved whole): this rank's rows
     of the logits, and which batch shard it computed."""
     from repro_torch.launch.mesh import make_test_mesh
@@ -317,6 +322,182 @@ def run(rank: int, world: int, tmp: str, backend: str) -> None:
         out["remesh"] = remesh(device, tmp)
         out["restart"] = sharded_restart(device, tmp)
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+# the step split over 'model' (``tests/test_torch_model_axis.py``): smoke
+# models on a 1×4 and a 2×2 mesh, tp on.  The batch and prompt give each
+# batch shard whole 512-token MoE groups, each spread over the sequence
+# shards of several rows and ranks; the cache holds prompt + DECODE_ROOM
+# positions (a multiple of |model|) and takes AXIS_DECODE steps.
+AXIS_ARCHS = ["yi", "granite-moe", "phi3.5-moe-42b-a6.6b"]
+AXIS_MESHES = [(1, 4), (2, 2)]
+AXIS_BATCH, AXIS_SEQ, AXIS_DECODE, DECODE_ROOM = 8, 128, 3, 4
+# capacity drops across sequence shards: smoke granite with a capacity
+# factor of 1 on 2×2, one row a batch shard, 512 positions, so each group is
+# one row whose halves lie on the two ranks of a 'model' row
+DROP_ARCH, DROP_MESH, DROP_BATCH, DROP_SEQ, DROP_CAPACITY = "granite-moe", (2, 2), 2, 512, 1.0
+
+
+# ``parallel.seq_shard`` off (JAX's --no-seq-shard): the ranks of 'model'
+# hold the same tokens and split the experts and the vocabulary only
+NOSEQ_ARCH, NOSEQ_MESH = "granite-moe", (2, 2)
+
+
+def axis_cfg(arch: str, capacity: float | None = None):
+    cfg = smoke_cfg(arch)
+    if capacity is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=capacity))
+    return cfg
+
+
+def axis_weights_path(tmp: str, arch: str, mesh) -> str:
+    return os.path.join(tmp, f"axis_{arch}_{mesh[0]}x{mesh[1]}.pt")
+
+
+def axis_inputs(arch: str, batch: int = AXIS_BATCH, seq: int = AXIS_SEQ) -> dict:
+    """The step's batch, the prompt ids (B, S) and each decode step's ids."""
+    rng = np.random.default_rng(len(arch) + seq)
+    vocab = smoke_cfg(arch).vocab_size
+    return {"train": step_batch(arch, batch, seq),
+            "prompt": rng.integers(0, vocab, (batch, seq), dtype=np.int32),
+            "decode": rng.integers(0, vocab, (AXIS_DECODE, batch, 1), dtype=np.int32)}
+
+
+def axis_case(arch: str, shape, device, tmp: str, *, capacity=None, batch=AXIS_BATCH, seq=AXIS_SEQ,
+              serve: bool = True, seq_shard: bool = True) -> dict:
+    """One model split over 'model': a train step (loss, aux, gradients
+    gathered), then prefill and AXIS_DECODE decode steps (this rank's rows,
+    every vocabulary column), this rank's cache shape and batch shard."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.step import loss_and_grads
+
+    mesh = make_test_mesh(*shape, device_type=device.type)
+    axes = shd.from_mesh(mesh)
+    from repro_torch.configs import ParallelConfig
+
+    model = build_model(axis_cfg(arch, capacity), device="cpu", axes=axes,
+                        parallel=ParallelConfig(seq_shard=seq_shard))
+    model.load_state_dict(torch.load(axis_weights_path(tmp, arch, shape), weights_only=True))
+    model.distribute(mesh)
+    inputs = axis_inputs(arch, batch, seq)
+    train = {k: v.to(device) for k, v in inputs["train"].items()}
+    split = model.model_split(train)
+    loss, aux, grads = loss_and_grads(model, train)
+    out = {"loss": float(loss), "nll": float(aux["nll"]), "aux": float(aux["aux"]), "seq_split": split,
+           "grads": {n: _full(g) for n, g in grads.items()}}
+    with shd.batch_shards(mesh, axes, batch) as shards:
+        out["shard"], out["shards"] = shards.index, shards.count
+    if not serve:
+        return out
+    prompt = {"tokens": torch.from_numpy(inputs["prompt"]).to(device)}
+    logits, cache = model.prefill(prompt, max_len=seq + DECODE_ROOM)
+    out["prefill"] = model.gathered_logits(logits, prompt).cpu()
+    out["decode"] = []
+    for t in range(AXIS_DECODE):
+        tok = {"tokens": torch.from_numpy(inputs["decode"][t]).to(device)}
+        logits, cache = model.decode_step(cache, tok)
+        out["decode"].append(model.gathered_logits(logits, tok).cpu())
+    out["cache_shape"] = tuple(cache.kv.k.shape)
+    out["cache_layout"] = model.cache_split()[0]
+    return out
+
+
+def collective_adjoints(device) -> dict:
+    """Each autograd collective over 'model' on a 2×2 mesh, as <f(x), y>
+    and <x, f'(y)> for seeded x and y (f' its backward).  An input or
+    output that the ranks of a 'model' row hold alike (a replicated
+    tensor, or one consumed alike) is drawn alike on them and counted once:
+    this rank's two terms, each divided by |model| where alike, which
+    summed over the ranks must agree."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel import sharding as shd
+
+    mesh = make_test_mesh(2, 2, device_type=device.type)
+    out = {}
+    with shd.model_shards(mesh, shd.from_mesh(mesh), seq=True) as ms:
+        # name: (f, x alike on the row, y alike on the row)
+        fns = {"seq_gather": (lambda x: shd.seq_gather(x, 1, ms), False, False),
+               "seq_scatter": (lambda x: shd.seq_scatter(x, 1, ms), False, False),
+               "model_all_to_all": (lambda x: shd.model_all_to_all(x, ms), False, False),
+               "model_sum": (lambda x: shd.model_sum(x, ms), False, True),
+               "gather_alike": (lambda x: shd.gather_alike(x, 1, ms), False, True),
+               "enter_split": (lambda x: shd.enter_split(x, ms), True, False)}
+        row = mesh.get_coordinate()[0]
+        for name, (fn, x_alike, y_alike) in fns.items():
+            def draw(shape, alike, salt):
+                seed = 1000 * salt + (row if alike else dist.get_rank()) + 10 * len(name)
+                return torch.randn(shape, generator=torch.Generator().manual_seed(seed), dtype=torch.float64)
+
+            x = draw((2, 4, 3), x_alike, 1).requires_grad_()
+            fx = fn(x)
+            y = draw(tuple(fx.shape), y_alike, 2)
+            (gx,) = torch.autograd.grad(fx, x, y)
+            out[name] = (float((fx.detach() * y).sum()) / (ms.size if y_alike else 1),
+                         float((x.detach() * gx).sum()) / (ms.size if x_alike else 1))
+    return out
+
+
+def drop_slots(device) -> dict:
+    """``capacity_positions`` of each rank's pieces of seeded expert ids on
+    DROP_MESH (one row of DROP_SEQ positions a batch shard, split over the
+    'model' row): this rank's slots, and where its tokens lie."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.layers import moe as lm_moe
+    from repro_torch.parallel import sharding as shd
+
+    mesh = make_test_mesh(*DROP_MESH, device_type=device.type)
+    axes = shd.from_mesh(mesh)
+    cfg = axis_cfg(DROP_ARCH, DROP_CAPACITY)
+    e_pad = lm_moe.padded_experts(cfg.moe, axes.model_size)
+    top = drop_experts(cfg, e_pad)
+    with shd.batch_shards(mesh, axes, DROP_BATCH) as shards, shd.model_shards(mesh, axes, seq=True) as ms:
+        s = DROP_SEQ // ms.size
+        rows = DROP_BATCH // shards.count
+        mine = top[shards.index * rows:(shards.index + 1) * rows, ms.index * s:(ms.index + 1) * s]
+        slots = lm_moe.capacity_positions(torch.from_numpy(mine).to(device), e_pad, 512, ms)
+        return {"slots": slots.cpu(), "rows": (shards.index * rows, rows), "seq": (ms.index * s, s),
+                "cap": lm_moe._capacity(512, cfg.moe, e_pad)}
+
+
+def drop_experts(cfg, e_pad: int) -> np.ndarray:
+    """Seeded (B, S, k) expert ids, skewed toward expert 0 so that it overflows."""
+    rng = np.random.default_rng(5)
+    b, s, k = DROP_BATCH, DROP_SEQ, cfg.moe.top_k
+    first = np.where(rng.random((b, s)) < 0.4, 0, rng.integers(0, cfg.moe.n_experts, (b, s)))
+    return ((first[..., None] + np.arange(k)) % cfg.moe.n_experts).astype(np.int64)
+
+
+def model_axis(rank: int, world: int, tmp: str) -> None:
+    """The body of one rank of the split-compute scenario (gloo)."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(tmp, 'axis_store')}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    device = torch.device("cpu")
+    try:
+        out = {}
+        for arch in AXIS_ARCHS:
+            for shape in AXIS_MESHES:
+                res = axis_case(arch, shape, device, tmp)
+                if rank:
+                    res.pop("grads")
+                out[(arch, shape)] = res
+        res = axis_case(DROP_ARCH, DROP_MESH, device, tmp, capacity=DROP_CAPACITY, batch=DROP_BATCH,
+                        seq=DROP_SEQ, serve=False)
+        if rank:
+            res.pop("grads")
+        out["drop_step"] = res
+        out["drop_slots"] = drop_slots(device)
+        res = axis_case(NOSEQ_ARCH, NOSEQ_MESH, device, tmp, seq_shard=False)
+        if rank:
+            res.pop("grads")
+        out["noseq"] = res
+        out["adjoints"] = collective_adjoints(device)
+        torch.save(out, os.path.join(tmp, f"axis_rank{rank}.pt"))
         dist.barrier()
     finally:
         dist.destroy_process_group()
