@@ -132,6 +132,25 @@ Phases, each printing its own lines:
    the replicated norms, peak under the card's memory; the gradients'
    bytes read inside each step); on fewer cards one line says what did not
    run;
+2s. families-dist — hymba, xLSTM and whisper split over ``model``, in a
+   child process after 2d (``chip_smoke.py --families-dist``) that spawns
+   one process a card on four cards (on fewer one line says it did not
+   run). hymba-1.5b and xlstm-125m at full width in f32 on a 2x2 and a 1x4
+   mesh: rank 0's single-device step, then one split train step on the
+   same weights (seed 0) and batch (B 8 x S 128): loss within 1e-4
+   relative, every gradient within 1e-4 of its leaf's max-abs (the xLSTM:
+   its split gradients within 1e-4, or twice the single-device f32 step's
+   distance where that is more, of an f64 step rank 0 takes on the same
+   weights: its exponential gates amplify the rounding a split reorders);
+   each rank's bytes, peak and step time, a warm step's; then each served
+   (``launch.specs.plan_cell``'s model, the size policy lifted so the
+   xLSTM splits): prefill and a decode step counted, their collectives by
+   kind equal to the fake mesh's plan, each rank's cache leaves its block
+   of ``cache_specs``, and 8 greedy decode steps timed. whisper-medium at
+   4 of its 24 + 24 layers with the same step gates, then its tree head on
+   K1 onehot over each rank's rows of the encoder output, ``torch.equal``
+   to K1's plain version and, gathered over 'data', to one card's K1 over
+   the gathered frames (a launch a rank a mesh);
 2r. dryrun — the dry-run (``repro_torch.launch.dryrun``: a fake process
    group, fake tensors, the step's ops counted by ``utils.op_cost``) held
    against the real steps.  Inside 2l, on the serving model (bf16 weights,
@@ -3324,9 +3343,9 @@ def dist_print(rank: int, msg: str) -> None:
         print(msg, flush=True)
 
 
-def dist_cards_line(rank: int, card: str, what: str, per_rank: list) -> None:
+def dist_cards_line(rank: int, card: str, what: str, per_rank: list, tag: str = DIST_TAG) -> None:
     gib = 2.0**30
-    dist_print(rank, f"{DIST_TAG} {card}: {what}: " + "; ".join(
+    dist_print(rank, f"{tag} {card}: {what}: " + "; ".join(
         f"rank {r}: params {p['params'] / gib:.3f} GiB, grads {p['grads'] / gib:.3f} GiB, m+v "
         f"{p['mv'] / gib:.3f} GiB, peak {p['peak'] / gib:.3f} GiB" for r, p in enumerate(per_rank)))
 
@@ -3723,6 +3742,440 @@ def phase_lm_dist(card) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"{DIST_TAG} phase took {time.perf_counter() - t_phase:.1f} s on the host of {card}")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 2s: the hybrid SSM, xLSTM and encoder-decoder split over 'model'
+# across four cards (one process a card)
+# ---------------------------------------------------------------------------
+
+
+FDIST_TAG = "[families-dist]"
+FDIST_ARCHS = ("hymba-1.5b", "xlstm-125m")
+FDIST_WHISPER = "whisper-medium"
+FDIST_WHISPER_LAYERS = 4            # of its 24 + 24: the encoder's 1,500 frames dominate the phase's time
+FDIST_MESHES = ((2, 2), (1, 4))
+FDIST_BATCH, FDIST_SEQ, FDIST_NEW = 8, 128, 8
+FDIST_CARDS = 4
+FDIST_RESULT = FDIST_TAG + " result "
+FDIST_TIMEOUT_S = 1500
+# the archs whose split gradients are held to an f64 step on the same
+# weights: within DIST_GRAD_TOL of it, or twice the single-device f32 step's
+# distance from it where that is more (the mLSTM's exponential gates amplify
+# the f32 rounding of its contractions, which a split reorders)
+FDIST_F64_ARCHS = ("xlstm-125m",)
+FDIST_F64_TIMEOUT_S = 300
+# the f64 step, in a process that imports an f64 copy of the port
+FDIST_F64_SCRIPT = """
+import dataclasses, sys
+import torch
+from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.data.pipeline import pipeline_for
+from repro_torch.models import build_model
+from repro_torch.parallel import sharding as shd
+from repro_torch.train import device_batch, loss_and_grads
+arch, d, m, seq, batch, weights, out, dev = sys.argv[1:9]
+cfg = dataclasses.replace(get_config(arch), dtype="float32")     # f64 in this copy
+model = build_model(cfg, device=dev, axes=shd.MeshAxes(("data",), "model", {"data": int(d), "model": int(m)}))
+state = torch.load(weights, weights_only=True)
+model.load_state_dict({k: v.double() if v.is_floating_point() else v for k, v in state.items()})
+data = device_batch(pipeline_for(cfg, ShapeConfig("train", int(seq), int(batch), "train"), seed=0)(0), dev)
+loss, _, grads = loss_and_grads(model, data)
+torch.save({"loss": float(loss), "grads": {n: g.cpu() for n, g in grads.items()}}, out)
+"""
+
+
+def fdist_cfg(arch: str):
+    """The phase's f32 config of ``arch``: full width; whisper's depth cut."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if arch == FDIST_WHISPER:
+        cfg = dataclasses.replace(cfg, n_layers=FDIST_WHISPER_LAYERS,
+                                  encoder=dataclasses.replace(cfg.encoder, n_layers=FDIST_WHISPER_LAYERS))
+    return cfg
+
+
+def f64_copy(dst: str) -> str:
+    """A copy of ``src/repro_torch`` under ``dst`` computing in f64: every
+    ``torch.float32`` and ``.float()`` made f64 (the configs' "float32"
+    then names f64 too); returns ``dst``.  ``tests/torch_f64_probe.py``
+    makes its copies with it too."""
+    import re
+
+    pkg = os.path.join(dst, "repro_torch")
+    shutil.copytree(Path(__file__).resolve().parent / "src" / "repro_torch", pkg,
+                    ignore=shutil.ignore_patterns("__pycache__", "csrc"))
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(root, f)
+                text = re.sub(r"torch\.float32", "torch.float64", Path(path).read_text())
+                Path(path).write_text(text.replace(".float()", ".double()"))
+    return dst
+
+
+def fdist_f64(cfg, mesh, model, dev) -> dict:
+    """The f64 step of ``cfg`` on ``model``'s weights and the phase's batch,
+    on ``dev``, in a process of its own (an f64 copy of the port):
+    {"loss", "grads" (f64, on the host)}."""
+    import tempfile
+
+    from repro_torch.parallel import sharding as shd
+
+    sizes = shd.mesh_sizes(mesh)
+    with tempfile.TemporaryDirectory(prefix="fdist_f64_") as tmp:
+        weights, out = os.path.join(tmp, "weights.pt"), os.path.join(tmp, "f64.pt")
+        torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, weights)
+        env = dict(os.environ, PYTHONPATH=f64_copy(os.path.join(tmp, "src")))
+        proc = subprocess.run([sys.executable, "-c", FDIST_F64_SCRIPT, cfg.name, str(sizes["data"]),
+                               str(sizes["model"]), str(FDIST_SEQ), str(FDIST_BATCH), weights, out, str(dev)],
+                              env=env, capture_output=True, text=True, timeout=FDIST_F64_TIMEOUT_S)
+        check(proc.returncode == 0, f"the f64 step exited {proc.returncode}: {proc.stderr[-2000:]}")
+        return torch.load(out, weights_only=False)
+
+
+def fdist_step(rank: int, world: int, mesh, cfg, card: str, keep: bool = False):
+    """``cfg``'s train step split over the mesh's 'model' against rank 0's
+    single-device step on the same weights (seed 0) and batch: loss within
+    DIST_LOSS_TOL relative, every gradient within DIST_GRAD_TOL of its
+    leaf's max-abs (FDIST_F64_ARCHS: the split's within that of the f64
+    step, or twice the single-device f32 step's distance from it where
+    that is more); each rank's
+    bytes, peak and step time, then a warm step's.  Returns the sharded
+    model with ``keep``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw as lm_adamw
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import device_batch, loss_and_grads
+
+    dev = shd.mesh_device(mesh)
+    axes = shd.from_mesh(mesh)
+    tcfg = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=10)
+    batch = device_batch(pipeline_for(cfg, ShapeConfig("train", FDIST_SEQ, FDIST_BATCH, "train"), seed=0)(0), dev)
+    gib = 2.0**30
+    where = f"{cfg.name} on a {shd.mesh_sizes(mesh)} mesh"
+    ref = None
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, device=dev, axes=axes)
+        model.init(torch.Generator(device=dev).manual_seed(0))
+        t0 = time.perf_counter()
+        loss, aux, grads = loss_and_grads(model, batch)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        ref = {"loss": float(loss), "grads": {n: g.to("cpu") for n, g in grads.items()}}
+        print(f"{FDIST_TAG} {card}: {where}: the single-device reference on rank 0's card: loss {ref['loss']:.6f}, "
+              f"forward + backward {ref_s * 1e3:.1f} ms, peak {torch.cuda.max_memory_allocated() / gib:.3f} GiB",
+              flush=True)
+        if cfg.name in FDIST_F64_ARCHS:
+            t0 = time.perf_counter()
+            ref["f64"] = fdist_f64(cfg, mesh, model, dev)
+            print(f"{FDIST_TAG} {card}: {where}: the f64 step on the same weights and batch (an f64 copy of the port "
+                  f"in a process of its own on rank 0's card, {time.perf_counter() - t0:.1f} s): loss "
+                  f"{ref['f64']['loss']:.9f}", flush=True)
+        del model, loss, aux, grads
+    torch.cuda.empty_cache()
+    dist.barrier()
+    model = build_model(cfg, device="meta", axes=axes).distribute(mesh)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    opt = lm_adamw.adamw_init(model)
+    decay = lm_adamw.default_decay_mask(model)
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, aux, grads = loss_and_grads(model, batch)
+    lm_adamw.adamw_apply(model, grads, opt, tcfg, decay_mask=decay)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    per_rank = dist_gather({"params": dist_bytes(model.parameters()), "grads": dist_bytes(grads.values()),
+                            "mv": dist_bytes(list(opt.m.values()) + list(opt.v.values())),
+                            "peak": torch.cuda.max_memory_allocated(), "step_s": step_s})
+    split = model.model_split(batch)
+    check(split is not None, f"{where}: the step did not split over 'model'")
+    worst = {"ref": (0.0, ""), "split-f64": (0.0, ""), "ref-f64": (0.0, "")}
+    f64 = ref is not None and "f64" in ref
+    for n in list(grads):
+        g = grads.pop(n).full_tensor()
+        if rank == 0:
+            rg = ref["grads"].pop(n).to(dev)
+            m = float(rg.abs().max())
+            err = float((g - rg).abs().max()) / max(m, 1e-30)
+            worst["ref"] = max(worst["ref"], (err, n))
+            if f64:
+                g64 = ref["f64"]["grads"].pop(n).to(dev)
+                m64 = max(float(g64.abs().max()), 1e-30)
+                worst["split-f64"] = max(worst["split-f64"], (float((g.double() - g64).abs().max()) / m64, n))
+                worst["ref-f64"] = max(worst["ref-f64"], (float((rg.double() - g64).abs().max()) / m64, n))
+                del g64
+            else:
+                check(err <= DIST_GRAD_TOL, f"{where}: gradient {n}: {err:.3g} of its max-abs {m:.3g}")
+            del rg
+        del g
+    if rank == 0:
+        tol, gated = DIST_GRAD_TOL, f"tolerance {DIST_GRAD_TOL}"
+        if f64:
+            tol, gated = max(DIST_GRAD_TOL, 2 * worst["ref-f64"][0]), "not gated: the split is held to the f64 step"
+            print(f"{FDIST_TAG} {card}: {where}: distances from the f64 step, of each leaf's max-abs: the split step "
+                  f"{worst['split-f64'][0]:.3g} ({worst['split-f64'][1]}; tolerance {tol:.3g}: twice the "
+                  f"single-device f32 step's, at least {DIST_GRAD_TOL}), the single-device f32 step "
+                  f"{worst['ref-f64'][0]:.3g} ({worst['ref-f64'][1]})", flush=True)
+            check(worst["split-f64"][0] <= tol, f"{where}: gradient {worst['split-f64'][1]}: "
+                  f"{worst['split-f64'][0]:.3g} of its max-abs from the f64 step's, past {tol:.3g}")
+        loss_err = abs(float(loss) - ref["loss"]) / abs(ref["loss"])
+        check(loss_err <= DIST_LOSS_TOL, f"{where}: the split loss {float(loss)} is not the reference's {ref['loss']}")
+        how = "sequence-split residual" if split else "the ranks of 'model' holding the same tokens"
+        print(f"{FDIST_TAG} {card}: {where} ({world} cards, nccl), B {FDIST_BATCH} x S {FDIST_SEQ}, one step split "
+              f"over 'model' ({how}; forward + backward + ZeRO-1 AdamW): loss {float(loss):.6f}, "
+              f"{loss_err:.3g} relative from the single-device step's (tolerance {DIST_LOSS_TOL}); largest gradient "
+              f"difference {worst['ref'][0]:.3g} of its leaf's max-abs ({worst['ref'][1]}; {gated}); "
+              "step " + ", ".join(f"{p['step_s'] * 1e3:.1f}" for p in per_rank) + " ms by rank (host clock, after "
+              "synchronize)", flush=True)
+    dist_cards_line(rank, card, f"{where}: bytes of this rank's blocks and its peak during the step", per_rank,
+                    FDIST_TAG)
+    del grads, loss, aux
+    dist.barrier()
+    t0 = time.perf_counter()
+    loss, _, grads = loss_and_grads(model, batch)
+    lm_adamw.adamw_apply(model, grads, opt, tcfg, decay_mask=decay)
+    torch.cuda.synchronize()
+    warm = dist_gather(time.perf_counter() - t0)
+    check(bool(np.isfinite(float(loss))), f"{where}: the warm step's loss is {float(loss)}")
+    dist_print(rank, f"{FDIST_TAG} {card}: {where}: a second step on the same batch (warm): loss {float(loss):.6f}, "
+               + ", ".join(f"{t * 1e3:.1f}" for t in warm) + " ms by rank (host clock, after synchronize)")
+    del grads, loss, opt
+    if not keep:
+        del model
+        model = None
+    torch.cuda.empty_cache()
+    return model
+
+
+def fdist_serve(rank: int, mesh, cfg, plans: dict, card: str) -> None:
+    """``cfg``'s serving model (``launch.specs.plan_cell``, the dry-run's)
+    split over 'model': prefill B FDIST_BATCH x S FDIST_SEQ and a decode
+    step counted (``utils.op_cost``), their collectives by kind equal to
+    the fake mesh's plan; each rank's cache leaves its block of
+    ``cache_specs`` (JAX's); then prefill and FDIST_NEW greedy decode steps
+    timed."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.specs import plan_cell
+    from repro_torch.models import build_model
+    from repro_torch.models.schema import cache_leaves
+    from repro_torch.parallel import sharding as shd
+
+    gib = 2.0**30
+    dev = shd.mesh_device(mesh)
+    sizes = shd.mesh_sizes(mesh)
+    where = f"{cfg.name} served on a {sizes} mesh"
+    model = plan_cell(cfg, ShapeConfig("fd_prefill", FDIST_SEQ, FDIST_BATCH, "prefill"),
+                      shd.from_mesh(mesh)).model.distribute(mesh)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(11)
+    prompt = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (FDIST_BATCH, FDIST_SEQ),
+                                                      dtype=np.int32)).to(dev)}
+    max_len = FDIST_SEQ + FDIST_NEW
+    for kind in ("prefill", "decode"):
+        row = plans[kind]
+        if kind == "prefill":
+            real = dryrun_real(lambda: model.prefill(prompt), (model, prompt))
+        else:
+            logits, cache = model.prefill(prompt, max_len=max_len)
+            whole = cache_leaves(build_model(cfg, device="meta").cache_shapes(FDIST_BATCH, max_len))
+            specs = model.cache_specs(FDIST_BATCH)
+            got = cache_leaves(cache)
+            check(set(got) == set(whole), f"{where}: cache leaves {sorted(got)}, whole {sorted(whole)}")
+            mine = want = 0
+            for path, leaf in got.items():
+                spec = specs
+                for part in path.split("."):
+                    spec = spec[int(part)] if part.isdigit() else getattr(spec, part)
+                block = spec_block(tuple(whole[path].shape), spec, sizes)
+                check(tuple(leaf.shape) == block, f"rank {rank} {where}: cache {path} {tuple(leaf.shape)}, "
+                      f"cache_specs' block {block}")
+                mine += leaf.numel() * leaf.element_size()
+                want += int(np.prod(block)) * leaf.element_size()
+            check(mine == want, f"rank {rank} {where}: cache bytes {mine}, cache_specs' block {want}")
+            dist_print(rank, f"{FDIST_TAG} {card}: {where}: rank {rank}'s decode cache ({len(got)} leaves, "
+                       f"max_len {max_len}): {mine:,} bytes ({mine / gib:.4f} GiB), its block of cache_specs "
+                       f"{want:,} bytes; e.g. {next(iter(got))} {tuple(next(iter(got.values())).shape)}")
+            tok = dist_next_tokens(model.gathered_logits(logits, prompt), mesh)
+            real = dryrun_real(lambda: model.decode_step(cache, {"tokens": tok}), (model, cache, {"tokens": tok}))
+        counts = dict(sorted(real["cost"].coll_count.items()))
+        dist_print(rank, f"{FDIST_TAG} {card}: {where}: {kind} on rank {rank}: collectives counted {counts}, planned "
+                   f"{row['collectives']}; peak {real['peak'] / gib:.3f} GiB, planned {row['fit_bytes'] / gib:.3f} "
+                   f"GiB; FLOPs counted {real['cost'].flops:.6e}, planned {row['flops_per_card']:.6e}; "
+                   f"{real['s'] * 1e3:.1f} ms (uncounted run)")
+        check(counts == row["collectives"], f"rank {rank} {where} {kind}: collectives {counts}, planned "
+              f"{row['collectives']}")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(prompt, max_len=max_len)
+    torch.cuda.synchronize()
+    pre = time.perf_counter() - t0
+    steps, batch = [], prompt
+    for _ in range(FDIST_NEW):
+        tok = dist_next_tokens(model.gathered_logits(logits, batch), mesh)
+        batch = {"tokens": tok}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(cache, batch)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    check(bool(torch.isfinite(logits).all()), f"{where}: decode logits are not finite")
+    dist_print(rank, f"{FDIST_TAG} {card}: {where}, rank {rank}: prefill {pre * 1e3:.1f} ms, {FDIST_NEW} greedy "
+               f"decode steps {', '.join(f'{s * 1e3:.1f}' for s in steps)} ms (host clock after synchronize); "
+               f"peak {torch.cuda.max_memory_allocated() / gib:.3f} GiB")
+    del model, cache, logits
+    torch.cuda.empty_cache()
+
+
+def fdist_tree_head(rank: int, mesh, model, cfg, card: str) -> dict:
+    """The tree token head on whisper's encoder output, a frame a record:
+    each rank classifies its batch rows (``tree_head_classify``, K1 onehot,
+    one launch), its classes ``torch.equal`` to K1's plain version on the
+    same ``z``; the ranks' classes, gathered over 'data', equal to K1 on one
+    card over the gathered encoder output (a comparison launch, not
+    counted)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.models import schema as lm_schema
+    from repro_torch.models.layers import moe as lm_moe
+    from repro_torch.models.layers import tree_head as th
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import device_batch
+
+    dev = shd.mesh_device(mesh)
+    batch = device_batch(pipeline_for(cfg, ShapeConfig("train", FDIST_SEQ, FDIST_BATCH, "train"), seed=0)(0), dev)
+    with torch.no_grad(), model.on_batch_shards(batch) as local:
+        enc = model.encode(local["embeds"])
+    hcfg = dataclasses.replace(cfg, tree_head_classes=FAM_TREE_CLASSES)
+    depth = th.tree_head_depth(FAM_TREE_CLASSES)
+    n_int = 2**depth - 1
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = {name: lm_schema.init_leaf_(torch.empty(s.shape, dtype=s.dtype, device=dev), s, gen)
+              for name, s in lm_schema.leaves(th.tree_head_schema(hcfg))}
+    K.reset_launches()
+    classes = th.tree_head_classify(params, enc, cfg=hcfg)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    check(launches["speculative/onehot"] == 1 and sum(launches.values()) == 1,
+          f"rank {rank}: the tree head launched {launches}, not K1 onehot once")
+    z = sanitize_records(lm_moe.router_features(enc, params["proj"]).reshape(-1, n_int))
+    packed = th.pack_tree_head(hcfg, params["thr"])
+    tabs = (packed.attr_idx, packed.attr_select, packed.threshold, packed.child, packed.class_val)
+    jumps = ops._total_jumps(depth)
+    plain = K.speculative_plain(z, *tabs, total_jumps=jumps, jump_mode="onehot")
+    check(torch.equal(classes.reshape(-1), plain), f"rank {rank}: the tree head classed "
+          f"{int((classes.reshape(-1) != plain).sum())} frames otherwise than K1's plain version")
+    group = mesh.get_group(0)
+    n = dist.get_world_size(group)
+    enc_all = torch.empty((n * enc.shape[0], *enc.shape[1:]), dtype=enc.dtype, device=dev)
+    dist.all_gather_into_tensor(enc_all, enc.contiguous(), group=group)
+    cls_all = torch.empty((n * classes.shape[0], *classes.shape[1:]), dtype=classes.dtype, device=dev)
+    dist.all_gather_into_tensor(cls_all, classes.contiguous(), group=group)
+    one = th.tree_head_classify(params, enc_all, cfg=hcfg)        # one card over every row: a comparison launch
+    check(torch.equal(cls_all, one), f"rank {rank}: the gathered classes differ from one card's over the gathered "
+          f"encoder output in {int((cls_all != one).sum())} frames")
+    dist_print(rank, f"{FDIST_TAG} {card}: {cfg.name}'s tree head ({FAM_TREE_CLASSES} classes, depth {depth}) on a "
+               f"{shd.mesh_sizes(mesh)} mesh: rank {rank} classed its {enc.shape[0]} rows x {enc.shape[1]} frames "
+               f"(M {classes.numel()}) on K1 onehot (1 launch), torch.equal to K1's plain version; gathered over "
+               f"'data' ({cls_all.numel()} frames) torch.equal to one card's K1 over the gathered encoder output; "
+               f"classes per id {torch.bincount(cls_all.reshape(-1).long(), minlength=FAM_TREE_CLASSES).tolist()}")
+    return {"launches": launches["speculative/onehot"], "max_abs_err": max_abs_err(classes.reshape(-1), plain)}
+
+
+def families_dist_rank(rank: int, world: int, store: str, plan_path: str, out: str) -> None:
+    """One rank of ``[families-dist]``: a card of its own, NCCL through a FileStore."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_test_mesh
+
+    specs.TP_MIN_PARAMS = 0     # the plan's size policy would run xlstm-125m data-parallel only
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=DIST_RANK_TIMEOUT_S),
+                            device_id=torch.device("cuda", rank))
+    try:
+        card = card_line()
+        plans = json.loads(Path(plan_path).read_text())
+        launches, err = 0, 0
+        for arch in (FDIST_ARCHS[0], FDIST_WHISPER, *FDIST_ARCHS[1:]):
+            cfg = fdist_cfg(arch)
+            for shape in FDIST_MESHES:
+                mesh = make_test_mesh(*shape)
+                if arch == FDIST_WHISPER:
+                    model = fdist_step(rank, world, mesh, cfg, card, keep=True)
+                    head = fdist_tree_head(rank, mesh, model, cfg, card)
+                    del model
+                    torch.cuda.empty_cache()
+                    launches += sum(dist_gather(head["launches"]))
+                    err = max(err, head["max_abs_err"])
+                else:
+                    fdist_step(rank, world, mesh, cfg, card)
+                    fdist_serve(rank, mesh, cfg, plans[f"{arch} {shape[0]}x{shape[1]}"], card)
+        if rank == 0:
+            Path(out).write_text(json.dumps({"k1_onehot_launches": launches, "max_abs_err": err}))
+        dist.barrier()
+    except BaseException:
+        import traceback
+
+        traceback.print_exc()
+        sys.stdout.flush()
+        os._exit(1)
+    dist.destroy_process_group()
+
+
+def phase_families_dist(card) -> dict:
+    """The hybrid, xLSTM and encoder-decoder families split over 'model' on
+    four cards (module docstring, phase 2s); on fewer one line says it did
+    not run."""
+    import tempfile
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import specs
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    if cards < FDIST_CARDS:
+        print(f"{FDIST_TAG} hymba-1.5b, xlstm-125m and whisper-medium split over 'model' on 2x2 and 1x4 meshes need "
+              f"{FDIST_CARDS} cards; {cards} here, so it did not run", flush=True)
+        return {"k1_onehot_launches": 0, "max_abs_err": 0}
+    specs.TP_MIN_PARAMS = 0     # as the ranks: xlstm-125m split over 'model', not data-parallel only
+    plans = {}
+    for arch in FDIST_ARCHS:
+        cfg = fdist_cfg(arch)
+        for d, m in FDIST_MESHES:
+            key = f"{arch} {d}x{m}"
+            plans[key] = {}
+            for kind, seq in (("prefill", FDIST_SEQ), ("decode", FDIST_SEQ + FDIST_NEW)):
+                row = dryrun_plan(cfg, ShapeConfig(f"fd_{kind}", seq, FDIST_BATCH, kind), mesh=f"{d}x{m}")
+                plans[key][kind] = row
+                print(f"{FDIST_TAG} {key} {kind} (B {FDIST_BATCH}, S {seq}) planned on a fake mesh in "
+                      f"{row['plan_s']:.1f} s: split {row['model_split']}, collectives {row['collectives']}, peak "
+                      f"{row['fit_bytes'] / 2**30:.3f} GiB, {row['flops_per_card']:.6e} FLOPs a card", flush=True)
+    tmp = tempfile.mkdtemp(prefix="families_dist_")
+    try:
+        plan_path, out = os.path.join(tmp, "plan.json"), os.path.join(tmp, "result.json")
+        Path(plan_path).write_text(json.dumps(plans))
+        torch.multiprocessing.spawn(families_dist_rank, args=(FDIST_CARDS, os.path.join(tmp, "store"), plan_path, out),
+                                    nprocs=FDIST_CARDS, join=True)
+        result = json.loads(Path(out).read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"{FDIST_TAG} phase took {time.perf_counter() - t_phase:.1f} s on the host of {card}")
     return result
 
 
@@ -4325,6 +4778,9 @@ def main() -> None:
     parser.add_argument("--lm-dist", action="store_true",
                         help="run phase 2d (the LM trained across the cards, one process a card) alone; the full "
                              "run starts it so, in a child")
+    parser.add_argument("--families-dist", action="store_true",
+                        help="run phase 2s (hymba, xLSTM and whisper split over 'model' on four cards) alone; the "
+                             "full run starts it so, in a child, where four cards are present")
     parser.add_argument("--dryrun", action="store_true",
                         help="run [dryrun]'s own part (the dry-run CLI on one production cell; on four cards "
                              "phi3.5-moe served on 2x2 against its plan) alone; the full run starts it so, in a "
@@ -4356,6 +4812,10 @@ def main() -> None:
         _build.build(K.SOURCE)
         print(LM_DIST_RESULT + json.dumps(phase_lm_dist(card)))
         return
+    if args.families_dist:
+        _build.build(K.SOURCE)
+        print(FDIST_RESULT + json.dumps(phase_families_dist(card)))
+        return
     if args.dryrun:
         _build.build(K.SOURCE)
         print(DRYRUN_RESULT + json.dumps(phase_dryrun(card)))
@@ -4373,6 +4833,10 @@ def main() -> None:
     lm_families_train = run_lm_child(card, "--lm-families-train", LM_FAMILIES_TRAIN_RESULT,
                                      LM_FAMILIES_TRAIN_TIMEOUT_S)
     lm_dist = run_lm_child(card, "--lm-dist", LM_DIST_RESULT, LM_DIST_TIMEOUT_S)
+    if torch.cuda.device_count() >= FDIST_CARDS:
+        families_dist = run_lm_child(card, "--families-dist", FDIST_RESULT, FDIST_TIMEOUT_S)
+    else:
+        families_dist = phase_families_dist(card)
     lm_dryrun = run_lm_child(card, "--dryrun", DRYRUN_RESULT, DRYRUN_TIMEOUT_S)
 
     errs = phase_kernels(dev)
@@ -4458,7 +4922,7 @@ def main() -> None:
         print(f"[parent] {root}")
         phase_parent(dev, images[0], enc, forest, plan, second, layouts, root, card)
     check(len(timings) == len(K.LAUNCHES), f"timed {len(timings)} kernels, not {len(K.LAUNCHES)}")
-    for child in (lm, lm_train, lm_families, lm_families_train, lm_dist, lm_dryrun):
+    for child in (lm, lm_train, lm_families, lm_families_train, lm_dist, families_dist, lm_dryrun):
         launches["speculative/onehot"] += child["k1_onehot_launches"]
         errs["speculative/onehot"] = max(errs["speculative/onehot"], child["max_abs_err"])
     kernels = []

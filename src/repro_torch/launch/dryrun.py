@@ -256,7 +256,7 @@ def main(argv=None):
     ap.add_argument("--remat", default=None)
     ap.add_argument("--merge", default=None, metavar="COMMIT",
                     help="keep the rows of --out for the cells not planned now; a kept row that records no commit "
-                         "gets COMMIT (the code that planned it) and model_split 'waiting'")
+                         "gets COMMIT (the code that planned it)")
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells planned at once, each worker a process of its own (the fake process group "
                          "is process-wide)")
@@ -310,7 +310,6 @@ def main(argv=None):
             for r in json.load(open(args.out)):
                 if (r["arch"], r["shape"], r.get("mesh")) not in planned and r["arch"] not in archs:
                     r.setdefault("commit", args.merge)
-                    r.setdefault("model_split", "waiting")
                     kept.append(r)
         rows = kept + rows
         rows.sort(key=lambda r: ARCH_IDS.index(r["arch"]) if r["arch"] in ARCH_IDS else len(ARCH_IDS))

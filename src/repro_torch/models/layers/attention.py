@@ -85,6 +85,12 @@ def cache_spec(cfg: ModelConfig, axes: shd.MeshAxes, global_batch: int = 0) -> K
     return KVCache(k=s, v=s)
 
 
+def cache_split_by_heads(cfg: ModelConfig, axes: shd.MeshAxes) -> bool:
+    """Whether :func:`cache_spec` splits the decode cache by KV heads over
+    ``model`` (else by sequence, where ``model`` is split at all)."""
+    return cache_spec(cfg, axes).k[2] == axes.model
+
+
 def _project_qkv(params, x, kv_x, cfg: ModelConfig, positions):
     b, s, _ = x.shape
     hd = cfg.head_dim_

@@ -12,6 +12,19 @@ JAX runs ``lax.associative_scan`` inside a ``lax.scan``.
 
 Decode keeps a recurrent state per layer: ``(conv (B, W-1, Di),
 h (B, Di, Ns))``, O(1) in sequence length.
+
+Split over ``model`` (``shards``, a ``parallel.sharding.ModelShards``), as
+JAX's constraint on the scan (``src/repro/models/layers/ssm.py:122``) lays
+it out: each rank computes its ``Di/|model|`` channels over every token of
+its rows (the sequence all-gathered where the residual is sequence-split).
+Its ``x_in`` and ``z`` channels are columns of the whole ``in_proj`` (the
+weight's own ``model`` block is not that slice); ``conv_w``, ``conv_b``,
+``dt_proj``'s columns, ``dt_bias``, ``a_log``, ``d_skip`` and
+``out_proj``'s rows are the rank's blocks.  ``x_dtbc`` contracts over the
+split channels, so Δ, B and C are summed over ``model``, and the rank's
+partial output returns to the residual's layout by a reduce-scatter (an
+all-reduce where the ranks hold the same tokens).  The decode state is the
+rank's channels: ``conv P(ba, None, di)``, ``h P(ba, di, None)``.
 """
 
 from __future__ import annotations
@@ -58,10 +71,20 @@ def ssm_schema(cfg: ModelConfig, axes: shd.MeshAxes | None = None) -> dict:
     }
 
 
-def ssm_state_shape(cfg: ModelConfig, batch: int) -> tuple[tuple, torch.dtype, tuple, torch.dtype]:
-    """(conv shape, conv dtype, h shape, h dtype) of one layer's state."""
+def ssm_state_shape(cfg: ModelConfig, batch: int, model: int = 1) -> tuple[tuple, torch.dtype, tuple, torch.dtype]:
+    """(conv shape, conv dtype, h shape, h dtype) of one layer's state; with
+    ``model`` > 1 a rank's block of ``Di/model`` channels."""
     d_in, _, ns, w = _dims(cfg)
+    d_in = split_channels(d_in, model)
     return (batch, w - 1, d_in), cfg.act_dtype, (batch, d_in, ns), torch.float32
+
+
+def split_channels(d_in: int, model: int) -> int:
+    """A rank's share of ``d_in`` channels over ``model`` (JAX's ``shard_if``:
+    the SSM splits only where they divide)."""
+    if d_in % model:
+        raise ValueError(f"d_inner {d_in} does not split over model={model}")
+    return d_in // model
 
 
 def ssm_state_spec(cfg: ModelConfig, axes: shd.MeshAxes, global_batch: int = 0) -> SSMState:
@@ -83,9 +106,11 @@ def causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Te
     return out if b is None else out + b
 
 
-def _dt_b_c(params, x_a, cfg: ModelConfig):
+def _dt_b_c(params, x_a, cfg: ModelConfig, shards: Optional[shd.ModelShards] = None):
     d_in, dt_rank, ns, _ = _dims(cfg)
     dtbc = x_a @ params["x_dtbc"].to(x_a.dtype)
+    if shards is not None:          # a partial sum over this rank's channels
+        dtbc = shd.shared_sum(dtbc, shards)
     dt_r, bm, cm = torch.split(dtbc, [dt_rank, ns, ns], dim=-1)
     dt = F.softplus(dt_r @ params["dt_proj"].to(x_a.dtype) + params["dt_bias"].to(x_a.dtype))
     return dt.float(), bm.float(), cm.float()
@@ -103,6 +128,18 @@ def _scan(da: torch.Tensor, dbx: torch.Tensor) -> tuple[torch.Tensor, torch.Tens
     return a, b
 
 
+def _channel_params(params: dict, cfg: ModelConfig, shards: shd.ModelShards) -> dict:
+    """``params`` with ``in_proj`` (whole) cut to this rank's ``x_in`` and
+    ``z`` columns; the other leaves are already its channel blocks."""
+    d_in = _dims(cfg)[0]
+    n = split_channels(d_in, shards.size)
+    if params["conv_w"].shape[1] != n:
+        raise ValueError(f"the SSM's channel weights hold {params['conv_w'].shape[1]} channels, not {n}")
+    lo = shards.index * n
+    w_in = params["in_proj"]
+    return dict(params, in_proj=torch.cat([w_in[:, lo:lo + n], w_in[:, d_in + lo:d_in + lo + n]], dim=1))
+
+
 def ssm_apply(
     params: dict,
     x: torch.Tensor,             # (B, S, D)
@@ -110,20 +147,27 @@ def ssm_apply(
     cfg: ModelConfig,
     chunk: int = 256,
     return_state: bool = False,
+    shards: Optional[shd.ModelShards] = None,
 ):
     """Full-sequence selective scan (train / prefill).
 
     ``S`` must be a multiple of ``min(chunk, S)``: a ``ValueError`` where
     JAX fails its assert.  With
     ``return_state`` also returns the terminal :class:`SSMState`: the last
-    W − 1 inputs of the conv and the scan's last ``h``.
+    W − 1 inputs of the conv and the scan's last ``h``.  With ``shards``
+    ``x`` is in the residual's layout and the scan runs on this rank's
+    channels (module docstring); the state is its channels' too.
     """
+    if shards is not None:
+        x = shd.whole_tokens(x, shards)
+        params = _channel_params(params, cfg, shards)
     b, s, _ = x.shape
-    d_in, _, ns, w = _dims(cfg)
+    _, _, ns, w = _dims(cfg)
+    d_in = params["conv_w"].shape[1]
     xz = x @ params["in_proj"].to(x.dtype)
     x_in, z = torch.chunk(xz, 2, dim=-1)
     x_a = F.silu(causal_depthwise_conv(x_in, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype)))
-    dt, bm, cm = _dt_b_c(params, x_a, cfg)
+    dt, bm, cm = _dt_b_c(params, x_a, cfg, shards)
     a = -torch.exp(params["a_log"])                      # (Di, Ns)
     x_f = x_a.float()
 
@@ -147,6 +191,8 @@ def ssm_apply(
     y = y + params["d_skip"] * x_f
     y = y.to(x.dtype) * F.silu(z)
     out = y @ params["out_proj"].to(x.dtype)
+    if shards is not None:
+        out = shd.residual_sum(out, shards)
     if return_state:
         return out, SSMState(conv=x_in[:, -(w - 1):, :].to(cfg.act_dtype), h=h)
     return out
@@ -158,14 +204,19 @@ def ssm_decode(
     state: SSMState,
     *,
     cfg: ModelConfig,
+    shards: Optional[shd.ModelShards] = None,
 ) -> tuple[torch.Tensor, SSMState]:
-    """Single-token recurrent step; returns the output and a new state."""
+    """Single-token recurrent step; returns the output and a new state.
+    With ``shards`` the state is this rank's channels and the output is
+    summed over ``model``."""
+    if shards is not None:
+        params = _channel_params(params, cfg, shards)
     xz = x @ params["in_proj"].to(x.dtype)
     x_in, z = torch.chunk(xz, 2, dim=-1)                 # (B,1,Di)
     window = torch.cat([state.conv.to(x.dtype), x_in], dim=1)   # (B,W,Di)
     conv_out = (window * params["conv_w"].to(x.dtype)[None]).sum(dim=1, keepdim=True)
     x_a = F.silu(conv_out + params["conv_b"].to(x.dtype))
-    dt, bm, cm = _dt_b_c(params, x_a, cfg)
+    dt, bm, cm = _dt_b_c(params, x_a, cfg, shards)
     a = -torch.exp(params["a_log"])
     da = torch.exp(dt[:, 0, :, None] * a)                # (B, Di, Ns)
     dbx = (dt[:, 0] * x_a[:, 0].float())[..., None] * bm[:, 0, None, :]
@@ -174,18 +225,26 @@ def ssm_decode(
     y = y + params["d_skip"] * x_a[:, 0].float()
     y = y[:, None].to(x.dtype) * F.silu(z)
     out = y @ params["out_proj"].to(x.dtype)
+    if shards is not None:
+        out = shd.model_sum(out, shards)
     return out, SSMState(conv=window[:, 1:].to(state.conv.dtype), h=h)
 
 
+# the leaves a split SSM takes as its rank's channel blocks; ``in_proj`` is
+# gathered whole and cut by columns (:func:`_channel_params`)
+CHANNEL_LEAVES = ("conv_w", "conv_b", "x_dtbc", "dt_proj", "dt_bias", "a_log", "d_skip", "out_proj")
+
+
 class SSM(SchemaModule):
-    """One hybrid block's SSM weights."""
+    """One hybrid block's SSM weights; split over the active ``model``
+    shards where a step splits."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__(ssm_schema(cfg), device)
         self.cfg = cfg
 
     def forward(self, x: torch.Tensor, *, return_state: bool = False):
-        return ssm_apply(self.params, x, cfg=self.cfg, return_state=return_state)
+        return ssm_apply(self.params, x, cfg=self.cfg, return_state=return_state, shards=shd.active_model())
 
     def decode(self, x: torch.Tensor, state: SSMState) -> tuple[torch.Tensor, SSMState]:
-        return ssm_decode(self.params, x, state, cfg=self.cfg)
+        return ssm_decode(self.params, x, state, cfg=self.cfg, shards=shd.active_model())

@@ -14,6 +14,26 @@ the whole sequence ahead of the loop, and only ``h_prev @ R`` stays in it.
 
 Stabilization follows the xLSTM paper: log-sigmoid forget gates and a
 running max-state ``m`` (starting at −1e30) so every exponential is ≤ 1.
+
+Split over ``model`` (``shards``, a ``parallel.sharding.ModelShards``), as
+``mlstm_schema`` and ``mlstm_state_spec`` lay the mLSTM out
+(``src/repro/models/layers/xlstm.py:52-66``, ``:94-103``): each rank takes
+its ``Di/|model|`` channels of ``x_m`` and ``z`` (columns of the whole
+``up``: its own ``model`` block is not that slice), their conv
+(``conv_w``'s block) and their share of the output (``down``'s rows,
+summed over ``model``); the conv's output and ``x_m`` are all-gathered
+along the channels for the projections.  Where the heads divide ``model``
+the rank runs its heads (``wq``/``wk``/``wv``'s column blocks, its heads'
+columns of the whole ``w_if`` over every channel: a sum over ``model``,
+JAX's ``P(di, None)`` layout, would reorder the contraction, which the
+exponential gates amplify (a departure, ROADMAP.md §3 item 19); the state
+``c``, ``n``, ``m`` its heads').  Where they do not it holds a
+``dh/|model|`` slice of every head's queries and keys (columns of the
+whole ``wq``/``wk``), of ``c``'s rows and of ``n``; ``v`` and the gate
+logits are summed over ``model`` from ``wv``'s and ``w_if``'s rows, and
+the contractions over ``dh`` are summed over ``model``.  The sLSTM stays
+whole on every rank: JAX gathers its gate weights replicated for the time
+loop (``xlstm.py:283-290``).
 """
 
 from __future__ import annotations
@@ -99,15 +119,33 @@ def slstm_state_spec(cfg: ModelConfig, axes: shd.MeshAxes, global_batch: int = 0
     return SLSTMState(c=s, n=s, h=s, m=s)
 
 
-def mlstm_init_state(cfg: ModelConfig, batch: int, device) -> MLSTMState:
-    """The zero state with the stabilizer at ``M_INIT``."""
+def mlstm_layout(cfg: ModelConfig, model: int) -> str | None:
+    """How an mLSTM splits over ``model`` (``mlstm_state_spec``): "heads"
+    where they divide it, else "dh" where the head dim does; None on one."""
     d_in, h, dh = _mdims(cfg)
+    if model <= 1:
+        return None
+    if d_in % model:
+        raise ValueError(f"the mLSTM's d_inner {d_in} does not split over model={model}")
+    if h % model == 0:
+        return "heads"
+    if dh % model == 0:
+        return "dh"
+    raise ValueError(f"neither the mLSTM's {h} heads nor its head dim {dh} split over model={model}")
+
+
+def mlstm_init_state(cfg: ModelConfig, batch: int, device, model: int = 1) -> MLSTMState:
+    """The zero state with the stabilizer at ``M_INIT``; with ``model`` > 1
+    a rank's block of it (:func:`mlstm_layout`)."""
+    d_in, h, dh = _mdims(cfg)
+    layout = mlstm_layout(cfg, model)
+    hs, dk = (h // model, dh) if layout == "heads" else (h, dh // model if layout == "dh" else dh)
     f32 = torch.float32
     return MLSTMState(
-        c=torch.zeros((batch, h, dh, dh), dtype=f32, device=device),
-        n=torch.zeros((batch, h, dh), dtype=f32, device=device),
-        m=torch.full((batch, h), M_INIT, dtype=f32, device=device),
-        conv=torch.zeros((batch, cfg.xlstm.conv_width - 1, d_in), dtype=cfg.act_dtype, device=device),
+        c=torch.zeros((batch, hs, dk, dh), dtype=f32, device=device),
+        n=torch.zeros((batch, hs, dk), dtype=f32, device=device),
+        m=torch.full((batch, hs), M_INIT, dtype=f32, device=device),
+        conv=torch.zeros((batch, cfg.xlstm.conv_width - 1, d_in // model), dtype=cfg.act_dtype, device=device),
     )
 
 
@@ -130,8 +168,65 @@ def _mlstm_qkv_gates(params, x, cfg: ModelConfig):
     return q, k, v, ig, fg, z, xm, xc
 
 
-def _mlstm_chunk(state, qc, kc, vc, igc, fgc):
-    """One chunk of the chunkwise-parallel form: (new (c, n, m), h (B,c,H,dh))."""
+def _dh_columns(cfg: ModelConfig, shards: shd.ModelShards, device) -> torch.Tensor:
+    """The columns of every head's ``dh/|model|`` slice of this rank in a
+    (Di, H·dh) projection (the "dh" layout)."""
+    _, h, dh = _mdims(cfg)
+    dl = dh // shards.size
+    lo = shards.index * dl
+    return (torch.arange(h, device=device)[:, None] * dh + lo + torch.arange(dl, device=device)).reshape(-1)
+
+
+def _gate_columns(h: int, hl: int, index: int, device) -> torch.Tensor:
+    """The columns of this rank's ``hl`` heads in the (Di, 2H) gate weight
+    (input gates, then forget gates)."""
+    own = index * hl + torch.arange(hl, device=device)
+    return torch.cat([own, h + own])
+
+
+def _mlstm_split_qkv_gates(params, x, cfg: ModelConfig, shards: shd.ModelShards, layout: str):
+    """The split mLSTM's projections on this rank (module docstring): q, k
+    (its heads, or its dh slice of every head), v (its heads, or every head
+    whole), the gate logits of the heads it runs, its ``z`` and ``x_m``
+    channels.  ``x`` is in the residual's layout."""
+    d_in, h, dh = _mdims(cfg)
+    n = d_in // shards.size
+    lo = shards.index * n
+    x = shd.whole_tokens(x, shards)
+    b, s, _ = x.shape
+    up = params["up"]
+    xz = x @ torch.cat([up[:, lo:lo + n], up[:, d_in + lo:d_in + lo + n]], dim=1).to(x.dtype)
+    xm_l, z_l = torch.chunk(xz, 2, dim=-1)
+    xc_l = F.silu(causal_depthwise_conv(xm_l, params["conv_w"].to(x.dtype)))
+    xc = shd.seq_gather(xc_l, -1, shards)                # every channel, for the projections
+    if layout == "heads":
+        hl = h // shards.size
+        xm = shd.seq_gather(xm_l, -1, shards)
+        q = (xc @ params["wq"].to(x.dtype)).reshape(b, s, hl, dh)
+        k = (xc @ params["wk"].to(x.dtype)).reshape(b, s, hl, dh) * (dh ** -0.5)
+        v = (xm @ params["wv"].to(x.dtype)).reshape(b, s, hl, dh)
+        cols = _gate_columns(h, hl, shards.index, x.device)
+        ig, fg = torch.chunk(xc.float() @ params["w_if"][:, cols] + params["b_if"][cols], 2, dim=-1)
+        return q, k, v, ig, fg, z_l, xm_l
+    gates = shd.model_sum(xc_l.float() @ params["w_if"], shards) + params["b_if"]
+    ig, fg = torch.chunk(gates, 2, dim=-1)               # (B, S, H) logits
+    cols = _dh_columns(cfg, shards, x.device)
+    dl = dh // shards.size
+    q = (xc @ params["wq"][:, cols].to(x.dtype)).reshape(b, s, h, dl)
+    k = (xc @ params["wk"][:, cols].to(x.dtype)).reshape(b, s, h, dl) * (dh ** -0.5)
+    v = shd.model_sum(xm_l @ params["wv"][lo:lo + n].to(x.dtype), shards).reshape(b, s, h, dh)
+    return q, k, v, ig, fg, z_l, xm_l
+
+
+def _mlstm_chunk(state, qc, kc, vc, igc, fgc, shards: shd.ModelShards | None = None):
+    """One chunk of the chunkwise-parallel form: (new (c, n, m), h (B,c,H,dh)).
+
+    With ``shards`` (the "dh" layout) ``qc``, ``kc`` and the state's ``c``
+    rows and ``n`` are this rank's slice of each head's dh: the contractions
+    over it are summed over ``model``, and the tensors every rank computes
+    alike enter the rank's own state update through ``enter_split``."""
+    sum_d = (lambda t: shd.model_sum(t, shards)) if shards is not None else (lambda t: t)
+    own = (lambda t: shd.enter_split(t, shards)) if shards is not None else (lambda t: t)
     c0, n0, m0 = state                                   # (B,H,dh,dh), (B,H,dh), (B,H)
     chunk = qc.shape[1]
     qf = qc.float().transpose(1, 2)                      # (B,H,c,dh)
@@ -147,18 +242,19 @@ def _mlstm_chunk(state, qc, kc, vc, igc, fgc):
     inter_log = bcum + m0[..., None]                     # (B,H,c)
     m_t = torch.maximum(inter_log, dmat.amax(dim=-1))    # (B,H,c)
     d_exp = torch.exp(dmat - m_t[..., None])
-    sc = torch.einsum("bhtd,bhsd->bhts", qf, kf) * d_exp   # (B,H,c,c)
+    sc = sum_d(torch.einsum("bhtd,bhsd->bhts", qf, kf)) * d_exp   # (B,H,c,c)
     inter_w = torch.exp(inter_log - m_t)                 # (B,H,c)
-    num = torch.einsum("bhts,bhsd->bhtd", sc, vf) + inter_w[..., None] * torch.einsum("bhtd,bhde->bhte", qf, c0)
-    den = torch.abs(sc.sum(-1) + inter_w * torch.einsum("bhtd,bhd->bht", qf, n0))
+    num = torch.einsum("bhts,bhsd->bhtd", sc, vf) + inter_w[..., None] * sum_d(
+        torch.einsum("bhtd,bhde->bhte", qf, c0))
+    den = torch.abs(sc.sum(-1) + inter_w * sum_d(torch.einsum("bhtd,bhd->bht", qf, n0)))
     hout = num / torch.maximum(den, torch.exp(-m_t))[..., None]
     # ---- carry the state to the chunk's end ----
     btot = bcum[..., -1]                                 # (B,H)
     scale_s = btot[..., None] - bcum + ii                # (B,H,c): decay for kv_s
     m_new = torch.maximum(btot + m0, scale_s.amax(-1))
-    w_s = torch.exp(scale_s - m_new[..., None])          # (B,H,c)
-    decay = torch.exp(btot + m0 - m_new)
-    c_new = decay[..., None, None] * c0 + torch.einsum("bhs,bhsd,bhse->bhde", w_s, kf, vf)
+    w_s = own(torch.exp(scale_s - m_new[..., None]))     # (B,H,c)
+    decay = own(torch.exp(btot + m0 - m_new))
+    c_new = decay[..., None, None] * c0 + torch.einsum("bhs,bhsd,bhse->bhde", w_s, kf, own(vf))
     n_new = decay[..., None] * n0 + torch.einsum("bhs,bhsd->bhd", w_s, kf)
     return (c_new, n_new, m_new), hout.transpose(1, 2)  # (B,c,H,dh)
 
@@ -170,29 +266,43 @@ def mlstm_apply(
     cfg: ModelConfig,
     chunk: int = 1024,
     return_state: bool = False,
+    shards: shd.ModelShards | None = None,
 ):
     """Chunkwise-parallel mLSTM over a full sequence.
 
     With ``return_state`` also returns the terminal :class:`MLSTMState`
     (the state the chunk loop carries, plus the conv tail), so a prefill
-    seeds decode without a sequential re-pass."""
+    seeds decode without a sequential re-pass.  With ``shards`` ``x`` is in
+    the residual's layout, the mLSTM runs on this rank's share (module
+    docstring) and the state is its block."""
     b, s, _ = x.shape
     d_in, h, dh = _mdims(cfg)
-    q, k, v, ig, fg, z, xm, _ = _mlstm_qkv_gates(params, x, cfg)
+    layout = None if shards is None else mlstm_layout(cfg, shards.size)
+    if layout is None:
+        q, k, v, ig, fg, z, xm, _ = _mlstm_qkv_gates(params, x, cfg)
+    else:
+        q, k, v, ig, fg, z, xm = _mlstm_split_qkv_gates(params, x, cfg, shards, layout)
     chunk = min(chunk, s)
     while s % chunk:
         chunk //= 2
     dev = x.device
-    state = (torch.zeros((b, h, dh, dh), dtype=torch.float32, device=dev),
-             torch.zeros((b, h, dh), dtype=torch.float32, device=dev),
-             torch.full((b, h), M_INIT, dtype=torch.float32, device=dev))
+    hs_, dk = q.shape[2], q.shape[3]
+    state = (torch.zeros((b, hs_, dk, dh), dtype=torch.float32, device=dev),
+             torch.zeros((b, hs_, dk), dtype=torch.float32, device=dev),
+             torch.full((b, hs_), M_INIT, dtype=torch.float32, device=dev))
+    dh_shards = shards if layout == "dh" else None
     hs = []
     for i in range(s // chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
-        state, hc = _mlstm_chunk(state, q[:, sl], k[:, sl], v[:, sl], ig[:, sl], fg[:, sl])
+        state, hc = _mlstm_chunk(state, q[:, sl], k[:, sl], v[:, sl], ig[:, sl], fg[:, sl], dh_shards)
         hs.append(hc)
-    hout = torch.cat(hs, dim=1).reshape(b, s, d_in).to(x.dtype)
+    hout = torch.cat(hs, dim=1).reshape(b, s, -1).to(x.dtype)
+    if layout == "dh":                                   # every head whole: this rank's channels
+        n = d_in // shards.size
+        hout = shd.enter_split(hout, shards)[..., shards.index * n:(shards.index + 1) * n]
     out = (hout * F.silu(z)) @ params["down"].to(x.dtype)
+    if shards is not None:
+        out = shd.residual_sum(out, shards)
     if return_state:
         w = cfg.xlstm.conv_width
         c_f, n_f, m_f = state
@@ -206,17 +316,46 @@ def mlstm_decode(
     state: MLSTMState,
     *,
     cfg: ModelConfig,
+    shards: shd.ModelShards | None = None,
 ) -> tuple[torch.Tensor, MLSTMState]:
+    """The exact recurrent step; with ``shards`` on this rank's block of the
+    state, the output summed over ``model``."""
     b = x.shape[0]
     d_in, h, dh = _mdims(cfg)
-    xz = x @ params["up"].to(x.dtype)
+    layout = None if shards is None else mlstm_layout(cfg, shards.size)
+    up = params["up"]
+    if layout is not None:
+        n = d_in // shards.size
+        lo = shards.index * n
+        up = torch.cat([up[:, lo:lo + n], up[:, d_in + lo:d_in + lo + n]], dim=1)
+    xz = x @ up.to(x.dtype)
     xm, z = torch.chunk(xz, 2, dim=-1)
     window = torch.cat([state.conv.to(x.dtype), xm], dim=1)
     xc = F.silu((window * params["conv_w"].to(x.dtype)[None]).sum(1, keepdim=True))
-    q = (xc @ params["wq"].to(x.dtype)).reshape(b, h, dh).float()
-    k = ((xc @ params["wk"].to(x.dtype)).reshape(b, h, dh) * (dh ** -0.5)).float()
-    v = (xm @ params["wv"].to(x.dtype)).reshape(b, h, dh).float()
-    gates = xc[:, 0].float() @ params["w_if"] + params["b_if"]
+    sum_d = lambda t: t                                  # noqa: E731
+    if layout is None:
+        q = (xc @ params["wq"].to(x.dtype)).reshape(b, h, dh).float()
+        k = ((xc @ params["wk"].to(x.dtype)).reshape(b, h, dh) * (dh ** -0.5)).float()
+        v = (xm @ params["wv"].to(x.dtype)).reshape(b, h, dh).float()
+        gates = xc[:, 0].float() @ params["w_if"] + params["b_if"]
+    else:
+        xc_all = shd.model_gather(xc, -1, shards)
+        if layout == "heads":
+            hl = h // shards.size
+            xm_all = shd.model_gather(xm, -1, shards)
+            q = (xc_all @ params["wq"].to(x.dtype)).reshape(b, hl, dh).float()
+            k = ((xc_all @ params["wk"].to(x.dtype)).reshape(b, hl, dh) * (dh ** -0.5)).float()
+            v = (xm_all @ params["wv"].to(x.dtype)).reshape(b, hl, dh).float()
+            cols = _gate_columns(h, hl, shards.index, x.device)
+            gates = xc_all[:, 0].float() @ params["w_if"][:, cols] + params["b_if"][cols]
+        else:
+            gates = shd.model_sum(xc[:, 0].float() @ params["w_if"], shards) + params["b_if"]
+            cols = _dh_columns(cfg, shards, x.device)
+            dl = dh // shards.size
+            q = (xc_all @ params["wq"][:, cols].to(x.dtype)).reshape(b, h, dl).float()
+            k = ((xc_all @ params["wk"][:, cols].to(x.dtype)).reshape(b, h, dl) * (dh ** -0.5)).float()
+            v = shd.model_sum(xm @ params["wv"][lo:lo + n].to(x.dtype), shards).reshape(b, h, dh).float()
+            sum_d = lambda t: shd.model_sum(t, shards)  # noqa: E731
     ig, fg = torch.chunk(gates, 2, dim=-1)               # (B, H)
     lf = F.logsigmoid(fg)
     m_new = torch.maximum(lf + state.m, ig)
@@ -224,11 +363,15 @@ def mlstm_decode(
     iw = torch.exp(ig - m_new)[..., None]
     c_new = fw[..., None] * state.c + iw[..., None] * (k[..., :, None] * v[..., None, :])
     n_new = fw * state.n + iw * k
-    num = torch.einsum("bhd,bhde->bhe", q, c_new)
-    den = torch.abs(torch.einsum("bhd,bhd->bh", q, n_new))
+    num = sum_d(torch.einsum("bhd,bhde->bhe", q, c_new))
+    den = torch.abs(sum_d(torch.einsum("bhd,bhd->bh", q, n_new)))
     hout = num / torch.maximum(den, torch.exp(-m_new))[..., None]
-    hout = hout.reshape(b, 1, d_in).to(x.dtype)
+    hout = hout.reshape(b, 1, -1).to(x.dtype)
+    if layout == "dh":
+        hout = hout[..., lo:lo + n]
     out = (hout * F.silu(z)) @ params["down"].to(x.dtype)
+    if layout is not None:
+        out = shd.model_sum(out, shards)
     return out, MLSTMState(c=c_new, n=n_new, m=m_new, conv=window[:, 1:].to(state.conv.dtype))
 
 
@@ -286,18 +429,37 @@ def slstm_decode(params: dict, x: torch.Tensor, state: SLSTMState, *,
 
 
 class MLSTM(SchemaModule):
+    """One mLSTM block's weights; split over the active ``model`` shards
+    where a step splits."""
+
     def __init__(self, cfg: ModelConfig, device):
         super().__init__(mlstm_schema(cfg), device)
         self.cfg = cfg
 
     def forward(self, x, *, return_state: bool = False):
-        return mlstm_apply(self.params, x, cfg=self.cfg, return_state=return_state)
+        return mlstm_apply(self.params, x, cfg=self.cfg, return_state=return_state, shards=shd.active_model())
 
     def decode(self, x, state: MLSTMState):
-        return mlstm_decode(self.params, x, state, cfg=self.cfg)
+        return mlstm_decode(self.params, x, state, cfg=self.cfg, shards=shd.active_model())
 
-    def init_state(self, batch: int, device) -> MLSTMState:
-        return mlstm_init_state(self.cfg, batch, device)
+    def init_state(self, batch: int, device, model: int = 1) -> MLSTMState:
+        return mlstm_init_state(self.cfg, batch, device, model)
+
+    def model_local_names(self, model: int) -> set:
+        """The leaves a split step takes as this rank's ``model`` block: the
+        conv and ``down``'s rows, and the heads' projections or (the "dh"
+        layout) the gates' rows."""
+        if mlstm_layout(self.cfg, model) == "heads":
+            return {"conv_w", "down", "wq", "wk", "wv"}
+        return {"conv_w", "down", "w_if"}
+
+    def model_partial_names(self, model: int) -> set:
+        """The whole leaves of which each rank uses its slice: ``up``'s
+        columns, and the gates' columns of its heads or (the "dh" layout)
+        ``wq``/``wk``'s columns and ``wv``'s rows."""
+        if mlstm_layout(self.cfg, model) == "heads":
+            return {"up", "w_if", "b_if"}
+        return {"up", "wq", "wk", "wv"}
 
 
 class SLSTM(SchemaModule):
@@ -311,5 +473,11 @@ class SLSTM(SchemaModule):
     def decode(self, x, state: SLSTMState):
         return slstm_decode(self.params, x, state, cfg=self.cfg)
 
-    def init_state(self, batch: int, device) -> SLSTMState:
+    def init_state(self, batch: int, device, model: int = 1) -> SLSTMState:
         return slstm_init_state(self.cfg, batch, device)
+
+    def model_local_names(self, model: int) -> set:
+        return set()
+
+    def model_partial_names(self, model: int) -> set:
+        return set()

@@ -37,8 +37,13 @@ stream holds ``S/|model|`` positions a rank between blocks where
 embedding takes the rank's positions at their global offsets), the logits
 and the loss are vocab-sharded, the MoE is expert-parallel, and decode
 splits its cache by KV heads, else by sequence (:meth:`cache_specs`).  The
-hybrid family computes each batch shard whole on every rank of a
-``model`` row: its SSM is not sequence-split in this slice.
+hybrid family splits the same way, and its SSM runs on the rank's
+``d_inner/|model|`` channels over the whole sequence of its rows
+(``layers.ssm``: the sequence all-gathered in, the partial output
+reduce-scattered back to the rank's positions, JAX's constraint on the
+scan at ``src/repro/models/layers/ssm.py:122``); hymba's 25 heads divide
+no ``model`` axis, so its attention projections stay whole on every rank,
+and its decode state is the rank's channels.
 
 Rematerialization follows ``ParallelConfig.remat`` block by block, as the
 JAX package's ``_remat`` wraps its scanned layer body, and only while grad
@@ -69,7 +74,7 @@ from repro_torch.models.layers import attention as attn
 from repro_torch.models.layers.mlp import MLP, RMSNorm, rmsnorm_schema, mlp_schema
 from repro_torch.models.layers.moe import MoE, TreeRouter, moe_schema
 from repro_torch.models.layers.rope import positions_for
-from repro_torch.models.layers.ssm import SSM, SSMState, ssm_schema, ssm_state_shape, ssm_state_spec
+from repro_torch.models.layers.ssm import CHANNEL_LEAVES, SSM, SSMState, ssm_schema, ssm_state_shape, ssm_state_spec
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import P, pad_vocab
 from repro_torch.utils.losses import chunked_softmax_xent
@@ -111,12 +116,6 @@ class DecodeCache(NamedTuple):
     pos: int                  # tokens already in the cache
 
 
-def cache_split_by_heads(cfg: ModelConfig, axes: shd.MeshAxes) -> bool:
-    """Whether JAX's ``cache_spec`` splits the decode cache by KV heads over
-    ``model`` (else by sequence, where ``model`` is split at all)."""
-    return attn.cache_spec(cfg, axes).k[2] == axes.model
-
-
 class Block(nn.Module):
     """One transformer block: attention (beside an SSM head in the hybrid
     family), then the MoE or dense MLP."""
@@ -138,14 +137,22 @@ class Block(nn.Module):
     def model_local_names(self, decode: bool) -> set:
         """The weights a step split over ``model`` takes as this rank's block
         (``shd.gather(keep_model=True)``, where they are sharded over it): the
-        experts; at decode also the attention's (its heads, where the cache
-        splits by heads) and the dense or shared FFN's ``d_ff`` slices."""
+        experts and the SSM's channel leaves; at decode also the attention's
+        (its heads, where the cache splits by heads) and the dense or shared
+        FFN's ``d_ff`` slices."""
         names = {"moe.wi", "moe.wg", "moe.wo"} if self.cfg.moe is not None else set()
+        if self.cfg.family == "hybrid":
+            names |= {f"ssm.{n}" for n in CHANNEL_LEAVES}
         if decode:
-            if cache_split_by_heads(self.cfg, self.axes):
+            if attn.cache_split_by_heads(self.cfg, self.axes):
                 names |= {"attn.wq", "attn.wk", "attn.wv", "attn.wo"}
             names |= {"mlp.wi", "mlp.wg", "mlp.wo", "moe.shared_wi", "moe.shared_wg", "moe.shared_wo"}
         return names
+
+    def model_partial_names(self) -> set:
+        """The whole weights of which each rank of a split step uses its own
+        slice: the SSM's ``in_proj`` (its ``x_in`` and ``z`` columns)."""
+        return {"ssm.in_proj"} if self.cfg.family == "hybrid" else set()
 
     def _ffn(self, h2, *, group_size: int, serve_hard_tree: bool):
         if self.cfg.moe is not None:
@@ -274,38 +281,25 @@ class DecoderModel(sch.SchemaModel):
 
     # --------------------------- split over 'model' ---------------------------
 
-    SPLIT_FAMILIES = ("dense", "moe", "vlm")
-
-    def _splits(self) -> bool:
-        """Placed on a mesh whose ``model`` splits the compute, in a family that splits."""
-        return (self.mesh is not None and self.cfg.family in self.SPLIT_FAMILIES
-                and shd.model_dim(self.mesh, self.axes) is not None)
-
     def model_split(self, batch: dict) -> bool | None:
-        """None on one device, with ``tp`` off or ``model`` 1, and for the hybrid
-        family; else True where the residual is sequence-split (``parallel.
+        """None on one device and with ``tp`` off or ``model`` 1; else True
+        where the residual is sequence-split (``parallel.
         seq_shard`` on and ``free_model_seq`` naming ``model`` for the global
         batch), False where the ranks of ``model`` hold the same tokens."""
-        if not self._splits():
+        if not self.splits():
             return None
         x = batch["tokens"] if "tokens" in batch else batch["embeds"]
         b, s = x.shape[:2]
         return bool(self.parallel.seq_shard and shd.free_model_seq(self.axes, b, s) == self.axes.model)
 
-    def top_local_names(self, decode: bool) -> set:
-        """The output projection's vocabulary slice; at decode the embedding
-        table's too (the lookup is vocab-sharded)."""
-        names = set() if self.cfg.tie_embeddings else {"lm_head.w"}
-        return names | {"embed.table"} if decode else names
-
     def cache_split(self) -> tuple[str | None, int, int]:
         """("heads" | "seq" | None, |model|, this rank's index on it): how this
         rank's decode cache splits (:meth:`cache_specs`)."""
-        if not self._splits():
+        if not self.splits():
             return None, 1, 0
         m = self.axes.model_size
         r = self.mesh.get_coordinate()[shd.model_dim(self.mesh, self.axes)]
-        return ("heads" if cache_split_by_heads(self.cfg, self.axes) else "seq"), m, r
+        return ("heads" if attn.cache_split_by_heads(self.cfg, self.axes) else "seq"), m, r
 
     def _seq_slice(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's positions of ``t`` along ``dim`` under a sequence split."""
@@ -329,11 +323,7 @@ class DecoderModel(sch.SchemaModel):
             tokens = self._seq_slice(batch["tokens"], 1).long()
             table = self.embed_table
             if isinstance(table, DTensor):      # split decode: this rank's vocabulary rows
-                table = shd.gather(table, keep_model=True).to(cfg.act_dtype)
-                local = tokens - ms.index * table.shape[0]
-                own = (local >= 0) & (local < table.shape[0])
-                x = torch.where(own[..., None], table[local.clamp(0, table.shape[0] - 1)], 0.0)
-                x = shd.model_sum(x, ms)
+                x = shd.vocab_lookup(shd.gather(table, keep_model=True).to(cfg.act_dtype), tokens, ms)
             else:
                 # the table is cast before the gather, as in JAX: in training the
                 # gradient then accumulates repeated tokens in the activation dtype
@@ -360,9 +350,7 @@ class DecoderModel(sch.SchemaModel):
         vocab-sharded projection: all-gathered along a split sequence, else
         entering the split (its gradient summed over ``model``)."""
         ms = shd.active_model()
-        if ms is None:
-            return x
-        return shd.seq_gather(x, 1, ms) if ms.seq else shd.enter_split(x, ms)
+        return x if ms is None else shd.whole_tokens(x, ms)
 
     def _remat(self, fn):
         """``fn`` (one block) wrapped as ``parallel.remat`` says; see the module
@@ -394,16 +382,6 @@ class DecoderModel(sch.SchemaModel):
         x, aux = self.hidden(batch, serve_hard_tree=serve_hard_tree)
         return self.logits(x), aux
 
-    def _out_w(self, dtype: torch.dtype) -> torch.Tensor:
-        """(D, V_pad): under split compute this rank's vocabulary columns."""
-        if shd.active_model() is not None:
-            name = "embed.table" if self.cfg.tie_embeddings else "lm_head.w"
-            w = shd.gather(self.placed[name], keep_model=True).to(dtype)
-            return w.T if self.cfg.tie_embeddings else w
-        if self.cfg.tie_embeddings:
-            return self.embed_table.to(dtype).T
-        return self.lm_head.w.to(dtype)
-
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """(total, {"nll", "aux"}): the chunked next-token cross-entropy over
         ``batch["labels"]`` (negative ids masked, the padded vocabulary
@@ -423,7 +401,8 @@ class DecoderModel(sch.SchemaModel):
     def init_cache(self, batch: int, max_len: int, device=None) -> DecodeCache:
         """The zero cache of ``batch`` rows and ``max_len`` positions; on a mesh
         whose ``model`` splits the cache (:meth:`cache_split`), this rank's
-        shard of it: its KV heads, or its ``max_len/|model|`` positions."""
+        shard of it: its KV heads, or its ``max_len/|model|`` positions, and
+        the hybrid family's SSM state its ``d_inner/|model|`` channels."""
         cfg = self.cfg
         shape, dtype = attn.cache_shape(cfg, batch, max_len)
         layout, m, _ = self.cache_split()
@@ -437,7 +416,7 @@ class DecoderModel(sch.SchemaModel):
         k = torch.zeros((cfg.n_layers, *shape), dtype=dtype, device=dev)
         sstate = None
         if cfg.family == "hybrid":
-            conv_shape, conv_dtype, h_shape, h_dtype = ssm_state_shape(cfg, batch)
+            conv_shape, conv_dtype, h_shape, h_dtype = ssm_state_shape(cfg, batch, m)
             sstate = SSMState(conv=torch.zeros((cfg.n_layers, *conv_shape), dtype=conv_dtype, device=dev),
                               h=torch.zeros((cfg.n_layers, *h_shape), dtype=h_dtype, device=dev))
         return DecodeCache(kv=attn.KVCache(k=k, v=torch.zeros_like(k)), ssm=sstate, pos=0)
@@ -445,9 +424,9 @@ class DecoderModel(sch.SchemaModel):
     def cache_specs(self, global_batch: int = 0) -> DecodeCache:
         """The JAX model's cache specs (``src/repro/models/lm.py:265``): batch
         over the batch axes that divide it, KV heads (else the sequence)
-        over a free ``model`` axis, the stack dim unsharded.  A split rank's
-        cache is its block of these (:meth:`init_cache`); the hybrid
-        family's rank holds its batch rows with every head."""
+        over a free ``model`` axis, the stack dim unsharded, the hybrid
+        family's SSM state by ``d_inner``.  A split rank's cache is its block
+        of these (:meth:`init_cache`)."""
         cfg, axes = self.cfg, self.axes
         kv = attn.cache_spec(cfg, axes, global_batch)
         kv = attn.KVCache(k=P(None, *kv.k), v=P(None, *kv.v))
@@ -542,10 +521,3 @@ class DecoderModel(sch.SchemaModel):
             last = shd.model_gather(last, dim=1)[:, -1:]
         logits = self.final_norm(last) @ self._out_w(last.dtype)
         return logits, cache._replace(pos=s)
-
-    def gathered_logits(self, logits: torch.Tensor, batch: dict) -> torch.Tensor:
-        """Every vocabulary column of this rank's rows of ``prefill`` or
-        ``decode_step`` logits (all-gathered over ``model`` where the step
-        split it); ``batch`` is the step's global batch."""
-        with self.on_batch_shards(batch, decode=True):
-            return shd.model_gather(logits, dim=-1)

@@ -80,6 +80,25 @@ def nest(flat: dict) -> dict:
     return out
 
 
+def cache_leaves(cache) -> dict:
+    """{dotted field path: leaf} of a decode cache, or of its specs or
+    shapes (NamedTuples and tuples; ``pos`` and absent parts left out)."""
+    out = {}
+
+    def walk(node, path):
+        if node is None or path.endswith("pos"):
+            return
+        if isinstance(node, tuple):
+            names = node._fields if hasattr(node, "_fields") else [str(i) for i in range(len(node))]
+            for name, child in zip(names, node):
+                walk(child, f"{path}.{name}" if path else name)
+        else:
+            out[path] = node
+
+    walk(cache, "")
+    return out
+
+
 def param_count(schema) -> int:
     return int(sum(int(np.prod(s.shape)) for _, s in leaves(schema)))
 
@@ -241,11 +260,13 @@ class SchemaModel(nn.Module):
     pass), and the other weights (embedding, final norm, head) are gathered
     around a step by :meth:`gathered_top`.  The train step, ``prefill`` and
     ``decode_step`` take the global batch and compute on this rank's rows
-    (:meth:`on_batch_shards`); a model whose :meth:`model_split` says so
-    also splits the step over ``model`` (``shd.model_shards``: the
-    decoder's sequence-parallel residual, vocab-sharded logits,
-    expert-parallel MoE and split decode cache).  The others compute each
-    batch shard whole on every rank of a ``model`` row.
+    (:meth:`on_batch_shards`); where :meth:`model_split` says so the
+    step also splits over ``model`` (``shd.model_shards``): the decoders'
+    sequence-parallel residual, the SSM's channels, the mLSTM's and the
+    encoder's heads, vocab-sharded logits, expert-parallel MoE and a split
+    decode cache.  A block names the weights it takes as its rank's
+    ``model`` block (``model_local_names``) and the whole ones each rank
+    uses a slice of (``model_partial_names``).
     """
 
     stacks: dict
@@ -332,6 +353,18 @@ class SchemaModel(nn.Module):
             self.pack_routers()
         return self
 
+    def splits(self) -> bool:
+        """Placed on a mesh whose ``model`` splits the compute (``tp`` on and
+        ``model`` above 1)."""
+        return self.mesh is not None and shd.model_dim(self.mesh, self.axes) is not None
+
+    def gathered_logits(self, logits: torch.Tensor, batch: dict) -> torch.Tensor:
+        """Every vocabulary column of this rank's rows of ``prefill`` or
+        ``decode_step`` logits (all-gathered over ``model`` where the step
+        split it); ``batch`` is the step's global batch."""
+        with self.on_batch_shards(batch, decode=True):
+            return shd.model_gather(logits, dim=-1)
+
     def model_split(self, batch: dict) -> bool | None:
         """Whether a step on the global ``batch`` splits its compute over
         ``model`` with a sequence-split residual (True), splits it with the
@@ -340,10 +373,22 @@ class SchemaModel(nn.Module):
         return None
 
     def top_local_names(self, decode: bool) -> set:
-        """The weights outside the blocks that a split step takes as this
-        rank's ``model`` block (the vocabulary slices), left out of
-        :meth:`gathered_top`; none by default."""
-        return set()
+        """The weights outside the blocks that a split step gathers itself,
+        left out of :meth:`gathered_top`: the output projection's vocabulary
+        slice (:meth:`_out_w`), and at decode the embedding table's too (the
+        lookup is vocab-sharded)."""
+        names = set() if self.cfg.tie_embeddings else {"lm_head.w"}
+        return names | {"embed.table"} if decode else names
+
+    def _out_w(self, dtype: torch.dtype) -> torch.Tensor:
+        """(D, V_pad): the output projection (the tied table's transpose);
+        under split compute this rank's vocabulary columns."""
+        tied = self.cfg.tie_embeddings
+        if shd.active_model() is not None:
+            w = shd.gather(self.placed["embed.table" if tied else "lm_head.w"], keep_model=True).to(dtype)
+        else:
+            w = (self._modules["embed"].table if tied else self._modules["lm_head"].w).to(dtype)
+        return w.T if tied else w
 
     def gathered_top(self, decode: bool = False):
         """A context in which the weights outside the blocks (embedding, norms,
@@ -377,16 +422,16 @@ class SchemaModel(nn.Module):
             stack.enter_context(self.gathered_top(decode))
             yield shd.local_batch(batch, shards)
 
-    def block_weights(self, block: nn.Module):
+    def block_weights(self, block: nn.Module, decode: bool = True):
         """A context in which ``block``'s weights are gathered, for a block
-        method other than ``forward`` (decode): ``forward`` gathers them
-        itself.  Under split decode the block's ``model_local_names(decode=True)``
-        stay this rank's ``model`` blocks."""
+        method other than ``forward`` (decode, or a prefill under no grad):
+        ``forward`` gathers them itself.  Under split compute the block's
+        ``model_local_names(decode)`` stay this rank's ``model`` blocks."""
         if self.mesh is None:
             return contextlib.nullcontext()
         keep = ()
         if shd.active_model() is not None and hasattr(block, "model_local_names"):
-            keep = block.model_local_names(decode=True)
+            keep = block.model_local_names(decode=decode)
         return shd.gathered(block, [n for n, p in block.named_parameters() if isinstance(p, DTensor)], keep)
 
     def stacked_names(self, path: str) -> list[str] | None:

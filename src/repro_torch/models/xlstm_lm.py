@@ -13,6 +13,15 @@ state per layer; prefill is one pass whose blocks return their terminal
 states.  Rematerialization: any ``remat`` but ``"none"`` recomputes each
 block in the backward pass, as the JAX model checkpoints each block whole
 (``"dots"`` and ``"offload"`` included), and only while grad is enabled.
+
+Across cards with ``tp`` on and ``model`` > 1 the step splits over
+``model`` as the JAX mesh program lays it out (:meth:`XLSTMModel.model_split`
+is False: the ranks of a ``model`` row hold the same tokens, the residual
+whole, ``src/repro/models/xlstm_lm.py:88``, ``:98``): each mLSTM runs on
+the rank's heads (or its ``dh`` slice of every head) and its output is
+summed over ``model``, the sLSTMs run whole on every rank, and the logits
+and the loss are vocab-sharded (``:117``).  The decode state is each
+rank's block of :meth:`~XLSTMModel.cache_specs`.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch import _device
 from repro_torch.configs.base import ModelConfig, ParallelConfig
@@ -40,10 +50,19 @@ class XLSTMCache(NamedTuple):
 class XLSTMBlock(nn.Module):
     """``ln`` then the layer's mLSTM or sLSTM ``block``, added to the residual."""
 
-    def __init__(self, cfg: ModelConfig, slstm: bool, device):
+    def __init__(self, cfg: ModelConfig, slstm: bool, device, model: int = 1):
         super().__init__()
+        self.model = model          # the mesh's 'model' size (the split's layout)
         self.ln = RMSNorm(cfg, device)
         self.block = (xl.SLSTM if slstm else xl.MLSTM)(cfg, device)
+
+    def model_local_names(self, decode: bool) -> set:
+        """The weights a split step takes as this rank's ``model`` block."""
+        return {f"block.{n}" for n in self.block.model_local_names(self.model)}
+
+    def model_partial_names(self) -> set:
+        """The whole weights of which each rank uses its own slice."""
+        return {f"block.{n}" for n in self.block.model_partial_names(self.model)}
 
     def forward(self, x, *, return_state: bool = False):
         y = self.block(self.ln(x), return_state=return_state)
@@ -72,7 +91,8 @@ class XLSTMModel(sch.SchemaModel):
         self.stacks = {}
         self.v_pad = pad_vocab(cfg.vocab_size, self.axes)
         self.embed = sch.SchemaModule({"table": sch.PSpec((self.v_pad, cfg.d_model), dtype=cfg.p_dtype)}, dev)
-        self.layers = nn.ModuleDict({f"layer_{i:03d}": XLSTMBlock(cfg, self.is_slstm(i), dev)
+        model = self.axes.model_size if self.axes.tp else 1
+        self.layers = nn.ModuleDict({f"layer_{i:03d}": XLSTMBlock(cfg, self.is_slstm(i), dev, model)
                                      for i in range(cfg.n_layers)})
         self.final_norm = RMSNorm(cfg, dev)
         if not cfg.tie_embeddings:
@@ -106,17 +126,29 @@ class XLSTMModel(sch.SchemaModel):
     def _block_heads(self) -> set:
         return {"layers"}
 
+    # --------------------------- split over 'model' ---------------------------
+
+    def model_split(self, batch: dict) -> bool | None:
+        """False (the ranks of ``model`` hold the same tokens and split the
+        mLSTMs' heads and the vocabulary) on a mesh whose ``model`` splits
+        the compute; None on one device, with ``tp`` off or ``model`` 1."""
+        return False if self.splits() else None
+
     # ------------------------------ forward ------------------------------
 
     def _tokens(self, batch: dict) -> torch.Tensor:
-        return self.embed.table.to(self.cfg.act_dtype)[batch["tokens"].long()]
-
-    def _out_w(self, dtype: torch.dtype) -> torch.Tensor:
-        if self.cfg.tie_embeddings:
-            return self.embed.table.to(dtype).T
-        return self.lm_head.w.to(dtype)
+        table = self.embed.table
+        if isinstance(table, DTensor):          # split decode: this rank's vocabulary rows
+            return shd.vocab_lookup(shd.gather(table, keep_model=True).to(self.cfg.act_dtype),
+                                    batch["tokens"].long())
+        return table.to(self.cfg.act_dtype)[batch["tokens"].long()]
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """``x @`` the output projection: under split compute this rank's
+        ``V_pad/|model|`` columns (``gathered_logits`` gathers them)."""
+        ms = shd.active_model()
+        if ms is not None:
+            x = shd.whole_tokens(x, ms)
         return x @ self._out_w(x.dtype)
 
     def hidden(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -135,7 +167,11 @@ class XLSTMModel(sch.SchemaModel):
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """(total, {"nll", "aux"}): the chunked next-token cross-entropy."""
         x, aux = self.hidden(batch)
-        nll, _ = chunked_softmax_xent(x, self._out_w(x.dtype), batch["labels"], vocab_size=self.cfg.vocab_size)
+        ms = shd.active_model()
+        if ms is not None:
+            x = shd.whole_tokens(x, ms)
+        nll, _ = chunked_softmax_xent(x, self._out_w(x.dtype), batch["labels"], vocab_size=self.cfg.vocab_size,
+                                      shards=ms)
         return nll + aux, {"nll": nll, "aux": aux}
 
     # ------------------------------- decode -------------------------------
@@ -145,9 +181,12 @@ class XLSTMModel(sch.SchemaModel):
         return self.init_cache(batch, max_len, device="meta")
 
     def init_cache(self, batch: int, max_len: int, device=None) -> XLSTMCache:
-        """Zero states, the stabilizers at −1e30; ``max_len`` is unused (O(1) state)."""
+        """Zero states, the stabilizers at −1e30; ``max_len`` is unused (O(1)
+        state).  On a mesh whose ``model`` splits the compute, this rank's
+        block of each mLSTM's state (:meth:`cache_specs`)."""
         dev = self.device if device is None else device
-        return XLSTMCache(states=tuple(layer.block.init_state(batch, dev) for layer in self.layers.values()),
+        model = self.axes.model_size if self.splits() else 1
+        return XLSTMCache(states=tuple(layer.block.init_state(batch, dev, model) for layer in self.layers.values()),
                           pos=0)
 
     def cache_specs(self, global_batch: int = 0) -> XLSTMCache:
@@ -160,8 +199,10 @@ class XLSTMModel(sch.SchemaModel):
     @torch.no_grad()
     def decode_step(self, cache: XLSTMCache, batch: dict) -> tuple[torch.Tensor, XLSTMCache]:
         """One token for every sequence: ``{"tokens": (B,1)}``.  Across cards
-        ``batch`` is the global one and the states and logits this rank's rows."""
-        with self.on_batch_shards(batch) as local:
+        ``batch`` is the global one and the states and logits this rank's
+        rows; under split compute the states are this rank's blocks and the
+        logits its vocabulary columns (:meth:`gathered_logits`)."""
+        with self.on_batch_shards(batch, decode=True) as local:
             return self._decode_step(cache, local)
 
     def _decode_step(self, cache: XLSTMCache, batch: dict) -> tuple[torch.Tensor, XLSTMCache]:

@@ -792,6 +792,44 @@ def model_gather(x: torch.Tensor, dim: int = -1, shards: Optional[ModelShards] =
     return _all_gather(x, dim % x.dim(), shards.group)
 
 
+def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor, shards: Optional[ModelShards] = None) -> torch.Tensor:
+    """Rows ``tokens`` of an embedding table split by vocabulary rows over
+    ``model``, ``table`` this rank's block: each rank looks up the ids it
+    holds (zeros for the others) and the rows are summed over ``model``."""
+    shards = shards or _MODEL
+    local = tokens - shards.index * table.shape[0]
+    own = (local >= 0) & (local < table.shape[0])
+    x = torch.where(own[..., None], table[local.clamp(0, table.shape[0] - 1)], 0.0)
+    return model_sum(x, shards)
+
+
+def whole_tokens(x: torch.Tensor, shards: Optional[ModelShards] = None) -> torch.Tensor:
+    """Every token of this rank's rows, for a computation split over
+    ``model`` that every rank runs on all of them (its channels, heads or
+    vocabulary columns): all-gathered along dim 1 where the residual is
+    sequence-split, else entering the split (the gradient summed over
+    ``model`` either way)."""
+    shards = shards or _MODEL
+    return seq_gather(x, 1, shards) if shards.seq else enter_split(x, shards)
+
+
+def residual_sum(y: torch.Tensor, shards: Optional[ModelShards] = None) -> torch.Tensor:
+    """The ranks' partial outputs over every token (:func:`whole_tokens`)
+    summed over ``model`` into the residual's layout: reduce-scattered
+    along dim 1 where it is sequence-split, else all-reduced."""
+    shards = shards or _MODEL
+    return seq_scatter(y, 1, shards) if shards.seq else model_sum(y, shards)
+
+
+def shared_sum(x: torch.Tensor, shards: Optional[ModelShards] = None) -> torch.Tensor:
+    """The sum over ``model`` of partial sums (a contraction over a split
+    dim) whose total each rank then consumes in its own way: all-reduced,
+    and the gradient all-reduced too (:func:`model_sum` then
+    :func:`enter_split`)."""
+    shards = shards or _MODEL
+    return enter_split(model_sum(x, shards), shards)
+
+
 def token_sum(t: torch.Tensor) -> torch.Tensor:
     """:func:`batch_sum` over every shard that holds distinct tokens: the
     batch shards, and ``model`` where the residual is sequence-split."""
@@ -817,7 +855,7 @@ def token_mean(t: torch.Tensor) -> torch.Tensor:
     return token_sum(t) / torch.full((), float(n), dtype=t.dtype, device=t.device)
 
 
-def gather(p, keep_model: bool = False) -> torch.Tensor:
+def gather(p, keep_model: bool = False, partial: bool = False, seq: Optional[bool] = None) -> torch.Tensor:
     """Parameter ``p`` as a plain tensor on this rank, for the plain module
     code (``p`` itself if it is not a DTensor): the whole of it, or with
     ``keep_model`` this rank's block over the active ``model`` dim
@@ -826,10 +864,13 @@ def gather(p, keep_model: bool = False) -> torch.Tensor:
 
     Under :func:`batch_shards` the gradient that comes back is this rank's
     partial sum (``Partial`` on the batch dims, and on the ``model`` dim of
-    a whole weight where the residual is sequence-split; ``Replicate`` on
-    dims whose ranks compute the same thing; the block's own placement on
-    the ``model`` dim with ``keep_model``), and the backward pass
-    reduce-scatters it into ``p``'s placement.
+    a whole weight where the tokens are sequence-split or where ``partial``
+    says each rank uses its own slice of it; ``Replicate`` on dims whose
+    ranks compute the same thing; the block's own placement on the
+    ``model`` dim with ``keep_model``), and the backward pass
+    reduce-scatters it into ``p``'s placement.  ``seq`` overrides the
+    active shards' ``seq`` for a consumer whose ranks hold the same tokens
+    inside a sequence-split step (the encoder of an encoder-decoder).
     """
     if not isinstance(p, DTensor):
         return p
@@ -845,7 +886,8 @@ def gather(p, keep_model: bool = False) -> torch.Tensor:
         return full.to_local()
     grad_plc = [Partial() if d in shards.dims else Replicate() for d in range(mesh.ndim)]
     if model is not None:
-        grad_plc[model.dim] = target[model.dim] if keep else (Partial() if model.seq else Replicate())
+        split_tokens = model.seq if seq is None else seq
+        grad_plc[model.dim] = target[model.dim] if keep else (Partial() if partial or split_tokens else Replicate())
     return full.to_local(grad_placements=grad_plc)
 
 
@@ -859,18 +901,20 @@ def owner_of(module: torch.nn.Module, name: str) -> tuple[torch.nn.Module, str]:
 
 
 @contextlib.contextmanager
-def gathered(module: torch.nn.Module, names: Sequence[str], keep: Sequence[str] = ()) -> Iterator[None]:
+def gathered(module: torch.nn.Module, names: Sequence[str], keep: Sequence[str] = (), partial: Sequence[str] = (),
+             seq: Optional[bool] = None) -> Iterator[None]:
     """Within the block, ``module``'s parameters ``names`` (dotted) are their
     gathered plain tensors (:func:`gather`; those also in ``keep`` with
-    ``keep_model``); they are put back after it."""
+    ``keep_model``, those in ``partial`` with ``partial``, all with
+    ``seq``); they are put back after it."""
     saved = []
-    keep = set(keep)
+    keep, partial = set(keep), set(partial)
     try:
         for name in names:
             owner, leaf = owner_of(module, name)
             p = owner._parameters[leaf]
             saved.append((owner, leaf, p))
-            owner._parameters[leaf] = gather(p, keep_model=name in keep)
+            owner._parameters[leaf] = gather(p, keep_model=name in keep, partial=name in partial, seq=seq)
         yield
     finally:
         for owner, leaf, p in reversed(saved):
@@ -878,8 +922,14 @@ def gathered(module: torch.nn.Module, names: Sequence[str], keep: Sequence[str] 
 
 
 def _gather_hook(block, args):
+    """A block's weights for its forward: ``model_local_names(decode=False)``
+    as this rank's ``model`` blocks, ``model_partial_names()`` whole with
+    partial gradients, and ``tokens_split`` (where the block sets it) in
+    place of the step's sequence split for the others' gradients."""
     keep = block.model_local_names(decode=False) if hasattr(block, "model_local_names") else ()
-    ctx = gathered(block, [n for n, p in block.named_parameters() if isinstance(p, DTensor)], keep)
+    partial = block.model_partial_names() if hasattr(block, "model_partial_names") else ()
+    ctx = gathered(block, [n for n, p in block.named_parameters() if isinstance(p, DTensor)], keep, partial,
+                   getattr(block, "tokens_split", None))
     ctx.__enter__()
     block._gather_ctx = ctx
 

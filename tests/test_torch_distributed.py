@@ -72,13 +72,20 @@ def _join(job) -> list[dict]:
 
 def _reference(arch: str, shape, tp: bool, batch: int, seq: int) -> dict:
     """The single-device step on the same weights and batch, its model built
-    with the mesh's axes (they set the padded vocabulary and experts)."""
+    with the mesh's axes (they set the padded vocabulary and experts).  It
+    runs single-threaded, as the ranks do: another thread count rounds the
+    matmuls otherwise."""
     sizes = {"data": shape[0], "model": shape[1]}
     axes = shd.MeshAxes(("data",) if tp else ("data", "model"), "model", sizes, tp=tp)
     model = build_model(W.smoke_cfg(arch), device="cpu", axes=axes)
     model.init(torch.Generator().manual_seed(0))
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    loss, aux, grads = loss_and_grads(model, W.step_batch(arch, batch, seq))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        loss, aux, grads = loss_and_grads(model, W.step_batch(arch, batch, seq))
+    finally:
+        torch.set_num_threads(threads)
     return {"model": model, "loss": float(loss), "nll": float(aux["nll"]), "aux": float(aux["aux"]),
             "grads": grads, "before": before}
 

@@ -116,6 +116,26 @@ def test_the_cli_writes_rows_and_skips(tmp_path, monkeypatch, capsys):
     assert not dist.is_initialized()
 
 
+RESULTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "results", "dryrun_torch.json")
+
+
+def test_the_committed_plan_leaves_no_row_waiting_and_splits_hymba_by_sequence():
+    """``results/dryrun_torch.json``: every planned row records how its step
+    splits over 'model' ("seq", "weights" or "none"), none is left
+    "waiting", and hymba-1.5b's train_4k, once the only cell past 80 GB
+    (its unsplit plan: 1.03e15 FLOPs, 297.3 GiB a card on 16×16), is
+    sequence-split with fewer FLOPs a card."""
+    rows = json.load(open(RESULTS))
+    planned = [r for r in rows if "skip" not in r]
+    assert planned and all("error" not in r for r in planned)
+    assert {r["model_split"] for r in planned} <= {"seq", "weights", "none"}
+    assert not [r for r in rows if r.get("model_split") == "waiting"]
+    hymba = [r for r in planned if r["arch"] == "hymba-1.5b" and r["shape"] == "train_4k"]
+    assert {r["mesh"] for r in hymba} == {"16x16", "2x16x16"}
+    for r in hymba:
+        assert r["model_split"] == "seq" and r["flops_per_card"] < 1.03e15, r["mesh"]
+
+
 def test_the_cli_refuses_no_seq_shard(tmp_path, monkeypatch):
     """JAX's ``--no-seq-shard`` is accepted and turns the sequence split off:
     the residual stays whole on each rank of 'model', so a TP card computes

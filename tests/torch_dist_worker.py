@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.models.schema import cache_leaves  # noqa: F401  (the tests walk caches with it)
+
 # (arch, mesh (data, model), tensor parallel, batch, seq): smoke granite's
 # tree-routed MoE needs whole 512-token groups on each batch shard; with tp
 # off the model axis carries batch too
@@ -331,8 +333,14 @@ def run(rank: int, world: int, tmp: str, backend: str) -> None:
 # models on a 1×4 and a 2×2 mesh, tp on.  The batch and prompt give each
 # batch shard whole 512-token MoE groups, each spread over the sequence
 # shards of several rows and ranks; the cache holds prompt + DECODE_ROOM
-# positions (a multiple of |model|) and takes AXIS_DECODE steps.
-AXIS_ARCHS = ["yi", "granite-moe", "phi3.5-moe-42b-a6.6b"]
+# positions (a multiple of |model|) and takes AXIS_DECODE steps.  Whisper's
+# inputs carry its smoke encoder's 24 frames.
+AXIS_ARCHS = ["yi", "granite-moe", "phi3.5-moe-42b-a6.6b", "hymba", "xlstm", "whisper"]
+# the archs whose ranks of 'model' hold the same tokens (no sequence split)
+AXIS_WHOLE_TOKENS = ("xlstm",)
+# the mLSTM's "dh" layout: smoke xLSTM with 2 heads on 1×4 (the heads do not
+# divide 'model', the head dim does)
+DH_ARCH, DH_MESH, DH_HEADS = "xlstm", (1, 4), 2
 AXIS_MESHES = [(1, 4), (2, 2)]
 AXIS_BATCH, AXIS_SEQ, AXIS_DECODE, DECODE_ROOM = 8, 128, 3, 4
 # capacity drops across sequence shards: smoke granite with a capacity
@@ -346,28 +354,43 @@ DROP_ARCH, DROP_MESH, DROP_BATCH, DROP_SEQ, DROP_CAPACITY = "granite-moe", (2, 2
 NOSEQ_ARCH, NOSEQ_MESH = "granite-moe", (2, 2)
 
 
-def axis_cfg(arch: str, capacity: float | None = None):
+def axis_cfg(arch: str, capacity: float | None = None, heads: int | None = None):
     cfg = smoke_cfg(arch)
     if capacity is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=capacity))
+    if heads is not None:
+        cfg = dataclasses.replace(cfg, n_heads=heads, n_kv_heads=heads)
     return cfg
 
 
-def axis_weights_path(tmp: str, arch: str, mesh) -> str:
-    return os.path.join(tmp, f"axis_{arch}_{mesh[0]}x{mesh[1]}.pt")
+def axis_weights_path(tmp: str, arch: str, mesh, tag: str = "") -> str:
+    return os.path.join(tmp, f"axis_{arch}{tag}_{mesh[0]}x{mesh[1]}.pt")
 
 
 def axis_inputs(arch: str, batch: int = AXIS_BATCH, seq: int = AXIS_SEQ) -> dict:
-    """The step's batch, the prompt ids (B, S) and each decode step's ids."""
+    """The step's batch, the prompt (ids (B, S), and frame embeddings for an
+    encoder-decoder) and each decode step's ids."""
     rng = np.random.default_rng(len(arch) + seq)
-    vocab = smoke_cfg(arch).vocab_size
-    return {"train": step_batch(arch, batch, seq),
-            "prompt": rng.integers(0, vocab, (batch, seq), dtype=np.int32),
-            "decode": rng.integers(0, vocab, (AXIS_DECODE, batch, 1), dtype=np.int32)}
+    cfg = smoke_cfg(arch)
+    prompt = {"tokens": rng.integers(0, cfg.vocab_size, (batch, seq), dtype=np.int32)}
+    if cfg.encoder is not None:
+        prompt["embeds"] = (rng.normal(size=(batch, cfg.encoder.n_frames, cfg.d_model)) * 0.02).astype(np.float32)
+    return {"train": step_batch(arch, batch, seq), "prompt": prompt,
+            "decode": rng.integers(0, cfg.vocab_size, (AXIS_DECODE, batch, 1), dtype=np.int32)}
+
+
+def cache_layout(model) -> str | None:
+    """How this rank's decode cache splits over 'model': the attention
+    cache's layout ("heads" | "seq"), else the mLSTM's ("heads" | "dh")."""
+    if hasattr(model, "cache_split"):
+        return model.cache_split()[0]
+    from repro_torch.models.layers.xlstm import mlstm_layout
+
+    return mlstm_layout(model.cfg, model.axes.model_size)
 
 
 def axis_case(arch: str, shape, device, tmp: str, *, capacity=None, batch=AXIS_BATCH, seq=AXIS_SEQ,
-              serve: bool = True, seq_shard: bool = True) -> dict:
+              serve: bool = True, seq_shard: bool = True, heads: int | None = None, tag: str = "") -> dict:
     """One model split over 'model': a train step (loss, aux, gradients
     gathered), then prefill and AXIS_DECODE decode steps (this rank's rows,
     every vocabulary column), this rank's cache shape and batch shard."""
@@ -380,9 +403,9 @@ def axis_case(arch: str, shape, device, tmp: str, *, capacity=None, batch=AXIS_B
     axes = shd.from_mesh(mesh)
     from repro_torch.configs import ParallelConfig
 
-    model = build_model(axis_cfg(arch, capacity), device="cpu", axes=axes,
+    model = build_model(axis_cfg(arch, capacity, heads), device="cpu", axes=axes,
                         parallel=ParallelConfig(seq_shard=seq_shard))
-    model.load_state_dict(torch.load(axis_weights_path(tmp, arch, shape), weights_only=True))
+    model.load_state_dict(torch.load(axis_weights_path(tmp, arch, shape, tag), weights_only=True))
     model.distribute(mesh)
     inputs = axis_inputs(arch, batch, seq)
     train = {k: v.to(device) for k, v in inputs["train"].items()}
@@ -394,7 +417,7 @@ def axis_case(arch: str, shape, device, tmp: str, *, capacity=None, batch=AXIS_B
         out["shard"], out["shards"] = shards.index, shards.count
     if not serve:
         return out
-    prompt = {"tokens": torch.from_numpy(inputs["prompt"]).to(device)}
+    prompt = {k: torch.from_numpy(v).to(device) for k, v in inputs["prompt"].items()}
     logits, cache = model.prefill(prompt, max_len=seq + DECODE_ROOM)
     out["prefill"] = model.gathered_logits(logits, prompt).cpu()
     out["decode"] = []
@@ -402,8 +425,8 @@ def axis_case(arch: str, shape, device, tmp: str, *, capacity=None, batch=AXIS_B
         tok = {"tokens": torch.from_numpy(inputs["decode"][t]).to(device)}
         logits, cache = model.decode_step(cache, tok)
         out["decode"].append(model.gathered_logits(logits, tok).cpu())
-    out["cache_shape"] = tuple(cache.kv.k.shape)
-    out["cache_layout"] = model.cache_split()[0]
+    out["cache_shapes"] = {k: tuple(v.shape) for k, v in cache_leaves(cache).items()}
+    out["cache_layout"] = cache_layout(model)
     return out
 
 
@@ -418,15 +441,24 @@ def collective_adjoints(device) -> dict:
     from repro_torch.parallel import sharding as shd
 
     mesh = make_test_mesh(2, 2, device_type=device.type)
+    axes = shd.from_mesh(mesh)
     out = {}
-    with shd.model_shards(mesh, shd.from_mesh(mesh), seq=True) as ms:
+    with shd.model_shards(mesh, axes, seq=False) as alike, shd.model_shards(mesh, axes, seq=True) as ms:
+        ids = torch.tensor([[0, 5, 9], [15, 3, 12]])       # rows of a (16, 3) table split over model 2
         # name: (f, x alike on the row, y alike on the row)
         fns = {"seq_gather": (lambda x: shd.seq_gather(x, 1, ms), False, False),
                "seq_scatter": (lambda x: shd.seq_scatter(x, 1, ms), False, False),
                "model_all_to_all": (lambda x: shd.model_all_to_all(x, ms), False, False),
                "model_sum": (lambda x: shd.model_sum(x, ms), False, True),
                "gather_alike": (lambda x: shd.gather_alike(x, 1, ms), False, True),
-               "enter_split": (lambda x: shd.enter_split(x, ms), True, False)}
+               "enter_split": (lambda x: shd.enter_split(x, ms), True, False),
+               "channel_gather": (lambda x: shd.seq_gather(x, -1, ms), False, False),
+               "whole_tokens": (lambda x: shd.whole_tokens(x, alike), True, False),
+               "whole_tokens_seq": (lambda x: shd.whole_tokens(x, ms), False, False),
+               "residual_sum": (lambda x: shd.residual_sum(x, alike), False, True),
+               "residual_sum_seq": (lambda x: shd.residual_sum(x, ms), False, False),
+               "shared_sum": (lambda x: shd.shared_sum(x, ms), False, False),
+               "vocab_lookup": (lambda x: shd.vocab_lookup(x.reshape(8, 3), ids, ms), False, True)}
         row = mesh.get_coordinate()[0]
         for name, (fn, x_alike, y_alike) in fns.items():
             def draw(shape, alike, salt):
@@ -496,6 +528,10 @@ def model_axis(rank: int, world: int, tmp: str) -> None:
         if rank:
             res.pop("grads")
         out["noseq"] = res
+        res = axis_case(DH_ARCH, DH_MESH, device, tmp, heads=DH_HEADS, tag="dh")
+        if rank:
+            res.pop("grads")
+        out["dh"] = res
         out["adjoints"] = collective_adjoints(device)
         torch.save(out, os.path.join(tmp, f"axis_rank{rank}.pt"))
         dist.barrier()
