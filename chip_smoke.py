@@ -144,8 +144,9 @@ Phases, each printing its own lines:
    weights: its exponential gates amplify the rounding a split reorders);
    each rank's bytes, peak and step time, a warm step's; then each served
    (``launch.specs.plan_cell``'s model, the size policy lifted so the
-   xLSTM splits): prefill and a decode step counted, their collectives by
-   kind equal to the fake mesh's plan, each rank's cache leaves its block
+   xLSTM splits; its plan's line names the mLSTM's layout): prefill and a
+   decode step counted, their collectives by kind equal to the fake mesh's
+   plan, each rank's cache leaves its block
    of ``cache_specs``, and 8 greedy decode steps timed. whisper-medium at
    4 of its 24 + 24 layers with the same step gates, then its tree head on
    K1 onehot over each rank's rows of the encoder output, ``torch.equal``
@@ -371,7 +372,10 @@ L2_BYTES = 50 * 2**20
 
 
 def fail(msg: str) -> None:
+    """Stop the run: the reason on standard output, where the phases print,
+    and on standard error, which a caller that keeps only the errors sees."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
 
 
@@ -4153,6 +4157,8 @@ def phase_families_dist(card) -> dict:
         print(f"{FDIST_TAG} hymba-1.5b, xlstm-125m and whisper-medium split over 'model' on 2x2 and 1x4 meshes need "
               f"{FDIST_CARDS} cards; {cards} here, so it did not run", flush=True)
         return {"k1_onehot_launches": 0, "max_abs_err": 0}
+    from repro_torch.models.layers.xlstm import mlstm_layout
+
     specs.TP_MIN_PARAMS = 0     # as the ranks: xlstm-125m split over 'model', not data-parallel only
     plans = {}
     for arch in FDIST_ARCHS:
@@ -4160,12 +4166,14 @@ def phase_families_dist(card) -> dict:
         for d, m in FDIST_MESHES:
             key = f"{arch} {d}x{m}"
             plans[key] = {}
+            layout = "" if cfg.xlstm is None else (f", mLSTM layout {mlstm_layout(cfg, m)} (each rank its rows of "
+                                                   "w_if, the gate logits summed over 'model')")
             for kind, seq in (("prefill", FDIST_SEQ), ("decode", FDIST_SEQ + FDIST_NEW)):
                 row = dryrun_plan(cfg, ShapeConfig(f"fd_{kind}", seq, FDIST_BATCH, kind), mesh=f"{d}x{m}")
                 plans[key][kind] = row
                 print(f"{FDIST_TAG} {key} {kind} (B {FDIST_BATCH}, S {seq}) planned on a fake mesh in "
-                      f"{row['plan_s']:.1f} s: split {row['model_split']}, collectives {row['collectives']}, peak "
-                      f"{row['fit_bytes'] / 2**30:.3f} GiB, {row['flops_per_card']:.6e} FLOPs a card", flush=True)
+                      f"{row['plan_s']:.1f} s: split {row['model_split']}{layout}, collectives {row['collectives']}, "
+                      f"peak {row['fit_bytes'] / 2**30:.3f} GiB, {row['flops_per_card']:.6e} FLOPs a card", flush=True)
     tmp = tempfile.mkdtemp(prefix="families_dist_")
     try:
         plan_path, out = os.path.join(tmp, "plan.json"), os.path.join(tmp, "result.json")

@@ -22,15 +22,14 @@ its ``Di/|model|`` channels of ``x_m`` and ``z`` (columns of the whole
 ``up``: its own ``model`` block is not that slice), their conv
 (``conv_w``'s block) and their share of the output (``down``'s rows,
 summed over ``model``); the conv's output and ``x_m`` are all-gathered
-along the channels for the projections.  Where the heads divide ``model``
-the rank runs its heads (``wq``/``wk``/``wv``'s column blocks, its heads'
-columns of the whole ``w_if`` over every channel: a sum over ``model``,
-JAX's ``P(di, None)`` layout, would reorder the contraction, which the
-exponential gates amplify (a departure, ROADMAP.md §3 item 19); the state
-``c``, ``n``, ``m`` its heads').  Where they do not it holds a
-``dh/|model|`` slice of every head's queries and keys (columns of the
-whole ``wq``/``wk``), of ``c``'s rows and of ``n``; ``v`` and the gate
-logits are summed over ``model`` from ``wv``'s and ``w_if``'s rows, and
+along the channels for the projections.  In either layout below the gate
+logits are summed over ``model`` from each rank's rows of ``w_if`` (JAX's
+``P(di, None)``), the bias added after the sum.  Where the heads divide
+``model`` the rank runs its heads (``wq``/``wk``/``wv``'s column blocks,
+its heads' columns of the summed logits; the state ``c``, ``n``, ``m`` its
+heads').  Where they do not it holds a ``dh/|model|`` slice of every
+head's queries and keys (columns of the whole ``wq``/``wk``), of ``c``'s
+rows and of ``n``; ``v`` is summed over ``model`` from ``wv``'s rows, and
 the contractions over ``dh`` are summed over ``model``.  The sLSTM stays
 whole on every rank: JAX gathers its gate weights replicated for the time
 loop (``xlstm.py:283-290``).
@@ -187,8 +186,9 @@ def _gate_columns(h: int, hl: int, index: int, device) -> torch.Tensor:
 def _mlstm_split_qkv_gates(params, x, cfg: ModelConfig, shards: shd.ModelShards, layout: str):
     """The split mLSTM's projections on this rank (module docstring): q, k
     (its heads, or its dh slice of every head), v (its heads, or every head
-    whole), the gate logits of the heads it runs, its ``z`` and ``x_m``
-    channels.  ``x`` is in the residual's layout."""
+    whole), the gate logits of the heads it runs (summed over ``model`` from
+    its rows of ``w_if``, as JAX's ``P(di, None)`` lays them out), its ``z``
+    and ``x_m`` channels.  ``x`` is in the residual's layout."""
     d_in, h, dh = _mdims(cfg)
     n = d_in // shards.size
     lo = shards.index * n
@@ -199,17 +199,17 @@ def _mlstm_split_qkv_gates(params, x, cfg: ModelConfig, shards: shd.ModelShards,
     xm_l, z_l = torch.chunk(xz, 2, dim=-1)
     xc_l = F.silu(causal_depthwise_conv(xm_l, params["conv_w"].to(x.dtype)))
     xc = shd.seq_gather(xc_l, -1, shards)                # every channel, for the projections
+    part = xc_l.float() @ params["w_if"]                 # the gate logits over this rank's channel rows
     if layout == "heads":
         hl = h // shards.size
         xm = shd.seq_gather(xm_l, -1, shards)
         q = (xc @ params["wq"].to(x.dtype)).reshape(b, s, hl, dh)
         k = (xc @ params["wk"].to(x.dtype)).reshape(b, s, hl, dh) * (dh ** -0.5)
         v = (xm @ params["wv"].to(x.dtype)).reshape(b, s, hl, dh)
-        cols = _gate_columns(h, hl, shards.index, x.device)
-        ig, fg = torch.chunk(xc.float() @ params["w_if"][:, cols] + params["b_if"][cols], 2, dim=-1)
+        gates = shd.shared_sum(part, shards) + params["b_if"]
+        ig, fg = torch.chunk(gates[..., _gate_columns(h, hl, shards.index, x.device)], 2, dim=-1)
         return q, k, v, ig, fg, z_l, xm_l
-    gates = shd.model_sum(xc_l.float() @ params["w_if"], shards) + params["b_if"]
-    ig, fg = torch.chunk(gates, 2, dim=-1)               # (B, S, H) logits
+    ig, fg = torch.chunk(shd.model_sum(part, shards) + params["b_if"], 2, dim=-1)   # (B, S, H) logits
     cols = _dh_columns(cfg, shards, x.device)
     dl = dh // shards.size
     q = (xc @ params["wq"][:, cols].to(x.dtype)).reshape(b, s, h, dl)
@@ -340,16 +340,15 @@ def mlstm_decode(
         gates = xc[:, 0].float() @ params["w_if"] + params["b_if"]
     else:
         xc_all = shd.model_gather(xc, -1, shards)
+        gates = shd.model_sum(xc[:, 0].float() @ params["w_if"], shards) + params["b_if"]
         if layout == "heads":
             hl = h // shards.size
             xm_all = shd.model_gather(xm, -1, shards)
             q = (xc_all @ params["wq"].to(x.dtype)).reshape(b, hl, dh).float()
             k = ((xc_all @ params["wk"].to(x.dtype)).reshape(b, hl, dh) * (dh ** -0.5)).float()
             v = (xm_all @ params["wv"].to(x.dtype)).reshape(b, hl, dh).float()
-            cols = _gate_columns(h, hl, shards.index, x.device)
-            gates = xc_all[:, 0].float() @ params["w_if"][:, cols] + params["b_if"][cols]
+            gates = gates[:, _gate_columns(h, hl, shards.index, x.device)]
         else:
-            gates = shd.model_sum(xc[:, 0].float() @ params["w_if"], shards) + params["b_if"]
             cols = _dh_columns(cfg, shards, x.device)
             dl = dh // shards.size
             q = (xc_all @ params["wq"][:, cols].to(x.dtype)).reshape(b, h, dl).float()
@@ -447,18 +446,18 @@ class MLSTM(SchemaModule):
 
     def model_local_names(self, model: int) -> set:
         """The leaves a split step takes as this rank's ``model`` block: the
-        conv and ``down``'s rows, and the heads' projections or (the "dh"
-        layout) the gates' rows."""
+        conv, ``down``'s and the gates' rows, and (the "heads" layout) the
+        heads' projections."""
         if mlstm_layout(self.cfg, model) == "heads":
-            return {"conv_w", "down", "wq", "wk", "wv"}
+            return {"conv_w", "down", "w_if", "wq", "wk", "wv"}
         return {"conv_w", "down", "w_if"}
 
     def model_partial_names(self, model: int) -> set:
         """The whole leaves of which each rank uses its slice: ``up``'s
-        columns, and the gates' columns of its heads or (the "dh" layout)
-        ``wq``/``wk``'s columns and ``wv``'s rows."""
+        columns, and the gate bias's columns of its heads or (the "dh"
+        layout) ``wq``/``wk``'s columns and ``wv``'s rows."""
         if mlstm_layout(self.cfg, model) == "heads":
-            return {"up", "w_if", "b_if"}
+            return {"up", "b_if"}
         return {"up", "wq", "wk", "wv"}
 
 

@@ -430,6 +430,40 @@ def axis_case(arch: str, shape, device, tmp: str, *, capacity=None, batch=AXIS_B
     return out
 
 
+def served_collectives(arch: str, shape, device, heads: int | None = None) -> dict:
+    """The collectives by kind of a prefill (AXIS_BATCH x AXIS_SEQ) and of a
+    decode step of the model the dry-run serves on this mesh
+    (``launch.specs.plan_cell``, its size policy lifted so that the smoke
+    model splits over 'model'), seeded weights: what its fake plan counts."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.utils.op_cost import OpCost
+
+    mesh = make_test_mesh(*shape, device_type=device.type)
+    floor, specs.TP_MIN_PARAMS = specs.TP_MIN_PARAMS, 0
+    try:
+        plan = specs.plan_cell(axis_cfg(arch, heads=heads), ShapeConfig("prefill", AXIS_SEQ, AXIS_BATCH, "prefill"),
+                               shd.from_mesh(mesh))
+    finally:
+        specs.TP_MIN_PARAMS = floor
+    model = plan.model.distribute(mesh)
+    model.init(torch.Generator(device=device).manual_seed(0))
+    inputs = axis_inputs(arch)
+    prompt = {k: torch.from_numpy(v).to(device) for k, v in inputs["prompt"].items()}
+    out = {}
+    with torch.no_grad():
+        with OpCost() as counted:
+            _, cache = model.prefill(prompt, max_len=AXIS_SEQ + DECODE_ROOM)
+        out["prefill"] = dict(counted.coll_count)
+        tok = {"tokens": torch.from_numpy(inputs["decode"][0]).to(device)}
+        with OpCost() as counted:
+            model.decode_step(cache, tok)
+        out["decode"] = dict(counted.coll_count)
+    return out
+
+
 def collective_adjoints(device) -> dict:
     """Each autograd collective over 'model' on a 2×2 mesh, as <f(x), y>
     and <x, f'(y)> for seeded x and y (f' its backward).  An input or
@@ -532,6 +566,8 @@ def model_axis(rank: int, world: int, tmp: str) -> None:
         if rank:
             res.pop("grads")
         out["dh"] = res
+        out["served_collectives"] = {mesh: served_collectives("xlstm", mesh, device) for mesh in AXIS_MESHES}
+        out["served_collectives"]["dh"] = served_collectives(DH_ARCH, DH_MESH, device, heads=DH_HEADS)
         out["adjoints"] = collective_adjoints(device)
         torch.save(out, os.path.join(tmp, f"axis_rank{rank}.pt"))
         dist.barrier()
