@@ -27,6 +27,7 @@ from repro_torch.core.tree import (
     pad_tree,
     tree_depth,
 )
+from repro_torch.obs.trace import NULL_TRACER
 
 
 class EncodedForest:
@@ -232,9 +233,10 @@ def majority_vote(per_tree, n_classes: int, *, device=None) -> torch.Tensor:
     Ties go to the lowest class (:func:`vote_winner`).  Classes outside
     ``[0, n_classes)`` cast no vote.
     """
-    dev = _device.resolve(per_tree, device)
-    per_tree = _device.as_tensor(per_tree, torch.int64, dev)
-    return vote_winner(vote_counts(per_tree, n_classes))
+    with NULL_TRACER.span("forest.vote", cat="forest"):
+        dev = _device.resolve(per_tree, device)
+        per_tree = _device.as_tensor(per_tree, torch.int64, dev)
+        return vote_winner(vote_counts(per_tree, n_classes))
 
 
 def route_topk(per_tree: torch.Tensor) -> torch.Tensor:

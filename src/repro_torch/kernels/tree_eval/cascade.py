@@ -423,9 +423,11 @@ class CascadeEvaluator:
         with self.tracer.span("cascade.stage", cat="cascade", stage=s,
                               survivors=n, rows=rows):
             votes = self._stages[s](rec)
-            _synchronize(self.device)
+            with self.tracer.span("cascade.sync", cat="cascade", stage=s, phase="stage"):
+                _synchronize(self.device)
         ms = (time.perf_counter() - t0) * 1e3
-        self.m_stage_ms.labels(stage=s).observe(ms)
+        with self.tracer.span("cascade.observe", cat="cascade"):
+            self.m_stage_ms.labels(stage=s).observe(ms)
         key = (s, rows)
         prev = self._stage_ms.get(key)
         self._stage_ms[key] = ms if prev is None else 0.7 * prev + 0.3 * ms
@@ -473,7 +475,8 @@ class CascadeEvaluator:
                     if elapsed + self._stage_estimate_ms(s, n_alive) > deadline_ms:
                         break
                 survivors.append(n_alive)
-                self.m_survival.labels(stage=s).observe(n_alive / max(m, 1))
+                with self.tracer.span("cascade.observe", cat="cascade"):
+                    self.m_survival.labels(stage=s).observe(n_alive / max(m, 1))
                 c0 = time.perf_counter()
                 with self.tracer.span("cascade.compact", cat="cascade", stage=s,
                                       phase="gather", survivors=n_alive):
@@ -496,21 +499,26 @@ class CascadeEvaluator:
                         margin = (top2[:, 0] - top2[:, 1]).double()
                         decided = margin > self.bound * remaining
                         exit_stage[alive] = torch.where(decided, s, exit_stage[alive])
-                        alive = alive[~decided]      # the stage's one host read
+                        with self.tracer.span("cascade.sync", cat="cascade", stage=s,
+                                              phase="survivors"):
+                            alive = alive[~decided]      # the stage's one host read
                         n_alive = alive.numel()
                 compact_ms += (time.perf_counter() - c1) * 1e3
-                self.m_compact_ms.labels(stage=s).observe(compact_ms)
+                with self.tracer.span("cascade.observe", cat="cascade"):
+                    self.m_compact_ms.labels(stage=s).observe(compact_ms)
             espan.set(stages_run=stages_run)
 
-        classes = vote_winner(votes)
-        top2 = votes.topk(2, dim=1).values
-        margin = (top2[:, 0] - top2[:, 1]).to(torch.int32)
-        if self.obs.enabled:
-            self.m_exit_margin.observe_many(margin.cpu().numpy())
-        remaining_all = t_total - trees_evaluated
-        # float64 as numpy divides int32 arrays, then cast: bit-identical.
-        ratio = margin.double() / remaining_all.clamp(min=1).double()
-        conf = torch.where(remaining_all <= 0, 1.0, ratio.clamp(0.0, 1.0)).to(torch.float32)
+        with self.tracer.span("cascade.finish", cat="cascade"):
+            classes = vote_winner(votes)
+            top2 = votes.topk(2, dim=1).values
+            margin = (top2[:, 0] - top2[:, 1]).to(torch.int32)
+            if self.obs.enabled:
+                with self.tracer.span("cascade.observe", cat="cascade"):
+                    self.m_exit_margin.observe_many(margin.cpu().numpy())
+            remaining_all = t_total - trees_evaluated
+            # float64 as numpy divides int32 arrays, then cast: bit-identical.
+            ratio = margin.double() / remaining_all.clamp(min=1).double()
+            conf = torch.where(remaining_all <= 0, 1.0, ratio.clamp(0.0, 1.0)).to(torch.float32)
         return CascadeResult(
             classes=classes,
             margin=margin,

@@ -71,6 +71,7 @@ from repro_torch.core.eval_speculative import pointer_jump, speculative_node_eva
 from repro_torch.core.forest import vote_counts
 from repro_torch.kernels import _build
 from repro_torch.kernels.tree_eval.ref import forest_eval_ref, tree_eval_ref
+from repro_torch.obs.trace import NULL_TRACER
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "tree_eval.cu"
 
@@ -375,11 +376,13 @@ def launch_cost_ms(device) -> float:
 
 
 def _launch(c_name: str, counter: str, tensors, ints) -> None:
-    lib = _library()
-    device = tensors[0].device
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, c_name)(*(t.data_ptr() for t in tensors), *ints, stream)
+    """Launch one kernel (K7/K8 through ``_launch_q``) on the current stream."""
+    with NULL_TRACER.span("kernel.launch", cat="kernel"):
+        lib = _library()
+        device = tensors[0].device
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = getattr(lib, c_name)(*(t.data_ptr() for t in tensors), *ints, stream)
     if err != 0:
         msg = lib.tree_eval_error_string(err).decode()
         raise RuntimeError(f"{c_name} launch failed: CUDA error {err} ({msg})")

@@ -28,6 +28,7 @@ from repro_torch.core.eval_speculative import (
 from repro_torch.core.tree import EncodedTree, attr_select_matrix, check_table_indices, tree_depth
 from repro_torch.kernels.tree_eval import kernel as _k
 from repro_torch.kernels.tree_eval.quant import QuantizedForest, packed_forest_nbytes
+from repro_torch.obs.trace import NULL_TRACER
 
 SMEM_TARGET = _k.SMEM_TARGET   # a tile this small needs no opt-in and leaves room
                                # for several CTAs on one SM
@@ -166,25 +167,27 @@ def tree_eval(
       (M,) int32 class assignments.  On CPU tensors the kernels' plain
       versions compute them.
     """
-    _check_args(algorithm, jump_mode)
-    if isinstance(tree, EncodedTree):
-        if n_attrs is None:
-            n_attrs = int(np.shape(records)[-1])
-        tree = PackedTree(tree, n_attrs, device=_device.resolve(records, device))
-    records = _records(records, tree, tree.n_attrs, device)
-    block_m = _tile(records, block_m, tree.n_nodes, tree.n_attrs, algorithm=algorithm, jump_mode=jump_mode)
-    if algorithm == "data_parallel":
-        return _k.data_parallel(
-            records, tree.attr_idx, tree.threshold, tree.child, tree.class_val,
-            max_depth=tree.max_depth, block_m=block_m,
+    with NULL_TRACER.span("kernel.op", cat="kernel"):
+        _check_args(algorithm, jump_mode)
+        if isinstance(tree, EncodedTree):
+            if n_attrs is None:
+                n_attrs = int(np.shape(records)[-1])
+            tree = PackedTree(tree, n_attrs, device=_device.resolve(records, device))
+        records = _records(records, tree, tree.n_attrs, device)
+        block_m = _tile(records, block_m, tree.n_nodes, tree.n_attrs, algorithm=algorithm,
+                        jump_mode=jump_mode)
+        if algorithm == "data_parallel":
+            return _k.data_parallel(
+                records, tree.attr_idx, tree.threshold, tree.child, tree.class_val,
+                max_depth=tree.max_depth, block_m=block_m,
+            )
+        # Both jump modes sanitize, as the JAX package's ops.tree_eval does: the
+        # one-hot form multiplies every attribute (inf*0 = NaN).
+        return _k.speculative(
+            sanitize_records(records), tree.attr_idx, tree.attr_select, tree.threshold,
+            tree.child, tree.class_val, total_jumps=_total_jumps(tree.max_depth),
+            jump_mode=jump_mode, block_m=block_m,
         )
-    # Both jump modes sanitize, as the JAX package's ops.tree_eval does: the
-    # one-hot form multiplies every attribute (inf*0 = NaN).
-    return _k.speculative(
-        sanitize_records(records), tree.attr_idx, tree.attr_select, tree.threshold,
-        tree.child, tree.class_val, total_jumps=_total_jumps(tree.max_depth),
-        jump_mode=jump_mode, block_m=block_m,
-    )
 
 
 def forest_eval(records, trees: list[PackedTree], **kw) -> torch.Tensor:
@@ -252,24 +255,25 @@ def forest_eval_fused(
       (T, M) int32 per-tree class assignments, bit-identical to running
       :func:`tree_eval` tree by tree.
     """
-    _check_args(algorithm, jump_mode)
-    if not isinstance(forest, PackedForest):
-        if n_attrs is None:
-            n_attrs = int(np.shape(records)[-1])
-        forest = PackedForest(forest, n_attrs, device=_device.resolve(records, device))
-    records = _records(records, forest, forest.n_attrs, device)
-    block_m = _tile(records, block_m, forest.n_nodes, forest.n_attrs, algorithm=algorithm,
-                    jump_mode=jump_mode)
-    if algorithm == "data_parallel":
-        return _k.fused_data_parallel(
-            records, forest.attr_idx, forest.threshold, forest.child, forest.class_val,
-            max_depth=forest.max_depth, block_m=block_m,
+    with NULL_TRACER.span("kernel.op", cat="kernel"):
+        _check_args(algorithm, jump_mode)
+        if not isinstance(forest, PackedForest):
+            if n_attrs is None:
+                n_attrs = int(np.shape(records)[-1])
+            forest = PackedForest(forest, n_attrs, device=_device.resolve(records, device))
+        records = _records(records, forest, forest.n_attrs, device)
+        block_m = _tile(records, block_m, forest.n_nodes, forest.n_attrs, algorithm=algorithm,
+                        jump_mode=jump_mode)
+        if algorithm == "data_parallel":
+            return _k.fused_data_parallel(
+                records, forest.attr_idx, forest.threshold, forest.child, forest.class_val,
+                max_depth=forest.max_depth, block_m=block_m,
+            )
+        return _k.fused_speculative(
+            sanitize_records(records), forest.attr_idx, forest.attr_select, forest.threshold,
+            forest.child, forest.class_val, total_jumps=_total_jumps(forest.max_depth),
+            jump_mode=jump_mode, block_m=block_m,
         )
-    return _k.fused_speculative(
-        sanitize_records(records), forest.attr_idx, forest.attr_select, forest.threshold,
-        forest.child, forest.class_val, total_jumps=_total_jumps(forest.max_depth),
-        jump_mode=jump_mode, block_m=block_m,
-    )
 
 
 def forest_votes_fused(
@@ -295,26 +299,27 @@ def forest_votes_fused(
       casts no vote); ``core.forest.vote_winner`` of it reproduces
       ``majority_vote`` exactly.
     """
-    _check_args(algorithm, jump_mode)
-    if not isinstance(forest, PackedForest):
-        if n_attrs is None:
-            n_attrs = int(np.shape(records)[-1])
-        forest = PackedForest(forest, n_attrs, device=_device.resolve(records, device))
-    records = _records(records, forest, forest.n_attrs, device)
-    n_classes = int(n_classes)
-    block_m = _tile(records, block_m, forest.n_nodes, forest.n_attrs, algorithm=algorithm,
-                    jump_mode=jump_mode, n_classes=n_classes)
-    if algorithm == "data_parallel":
-        return _k.fused_votes_data_parallel(
-            records, forest.attr_idx, forest.threshold, forest.child, forest.class_val,
-            n_classes=n_classes, max_depth=forest.max_depth, block_m=block_m,
+    with NULL_TRACER.span("kernel.op", cat="kernel"):
+        _check_args(algorithm, jump_mode)
+        if not isinstance(forest, PackedForest):
+            if n_attrs is None:
+                n_attrs = int(np.shape(records)[-1])
+            forest = PackedForest(forest, n_attrs, device=_device.resolve(records, device))
+        records = _records(records, forest, forest.n_attrs, device)
+        n_classes = int(n_classes)
+        block_m = _tile(records, block_m, forest.n_nodes, forest.n_attrs, algorithm=algorithm,
+                        jump_mode=jump_mode, n_classes=n_classes)
+        if algorithm == "data_parallel":
+            return _k.fused_votes_data_parallel(
+                records, forest.attr_idx, forest.threshold, forest.child, forest.class_val,
+                n_classes=n_classes, max_depth=forest.max_depth, block_m=block_m,
+            )
+        # Same records@S contract as forest_eval_fused (inf*0 = NaN).
+        return _k.fused_votes_speculative(
+            sanitize_records(records), forest.attr_idx, forest.attr_select, forest.threshold,
+            forest.child, forest.class_val, n_classes=n_classes,
+            total_jumps=_total_jumps(forest.max_depth), jump_mode=jump_mode, block_m=block_m,
         )
-    # Same records@S contract as forest_eval_fused (inf*0 = NaN).
-    return _k.fused_votes_speculative(
-        sanitize_records(records), forest.attr_idx, forest.attr_select, forest.threshold,
-        forest.child, forest.class_val, n_classes=n_classes,
-        total_jumps=_total_jumps(forest.max_depth), jump_mode=jump_mode, block_m=block_m,
-    )
 
 
 def forest_eval_fused_q(
@@ -350,18 +355,19 @@ def forest_eval_fused_q(
     Returns:
       (T, M) int32 per-tree class assignments.
     """
-    _check_args(algorithm, "gather")
-    if not isinstance(forest, QuantizedForest):
-        if n_attrs is None:
-            n_attrs = int(np.shape(records)[-1])
-        forest = QuantizedForest(forest, n_attrs, thr_dtype=thr_dtype, calibration=calibration,
-                                 device=_device.resolve(records, device))
-    records = _records(records, forest, forest.n_attrs, device)
-    block_m = _tile(records, block_m, forest.n_nodes, forest.n_attrs, algorithm=algorithm)
-    tables = (records, forest.attr_idx, forest.threshold, forest.child, forest.class_val)
-    if algorithm == "data_parallel":
-        return _k.fused_data_parallel_q(*tables, max_depth=forest.max_depth, block_m=block_m)
-    return _k.fused_speculative_q(*tables, total_jumps=_total_jumps(forest.max_depth), block_m=block_m)
+    with NULL_TRACER.span("kernel.op", cat="kernel"):
+        _check_args(algorithm, "gather")
+        if not isinstance(forest, QuantizedForest):
+            if n_attrs is None:
+                n_attrs = int(np.shape(records)[-1])
+            forest = QuantizedForest(forest, n_attrs, thr_dtype=thr_dtype, calibration=calibration,
+                                     device=_device.resolve(records, device))
+        records = _records(records, forest, forest.n_attrs, device)
+        block_m = _tile(records, block_m, forest.n_nodes, forest.n_attrs, algorithm=algorithm)
+        tables = (records, forest.attr_idx, forest.threshold, forest.child, forest.class_val)
+        if algorithm == "data_parallel":
+            return _k.fused_data_parallel_q(*tables, max_depth=forest.max_depth, block_m=block_m)
+        return _k.fused_speculative_q(*tables, total_jumps=_total_jumps(forest.max_depth), block_m=block_m)
 
 
 # ---------------------------------------------------------------------------

@@ -20,16 +20,20 @@ Span naming convention: dotted lowercase ``layer.operation[.phase]`` — e.g.
 ``cascade.eval``, ``cascade.stage``, ``cascade.compact`` — with the layer
 repeated in ``cat`` so Perfetto can filter by subsystem.
 
-Profiler bridging: with ``torch_annotations=True`` every span also enters a
-``torch.profiler.record_function`` of the same name, so when
-``torch.profiler`` is recording, the host-side spans line up with the
-device kernels in the same trace.
+Profiler bridging: while a ``torch.profiler`` session records, every span
+of every tracer, a disabled one (``NULL_TRACER``) included, also enters a
+profiler range of the same name, so the host-side spans are events of the
+same session as the device kernels, on its clock.  A disabled tracer's span
+then writes nothing to its ring; with no session recording it is the
+shared no-op span.  Whether a session records is one read of the
+profiler's module flag; without torch imported none can.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -69,9 +73,8 @@ class _Span:
         self._args.update(kw)
 
     def __enter__(self) -> "_Span":
-        ann = self._tracer._annotation_cls
-        if ann is not None:
-            self._profiler_cm = ann(self._name)
+        if _profiling():
+            self._profiler_cm = _profiler_range(self._name)
             self._profiler_cm.__enter__()
         self._t0 = time.perf_counter()
         return self
@@ -102,6 +105,47 @@ class _NullSpan:
 
 _NULL_SPAN = _NullSpan()
 
+_profiler_flags = None   # torch.autograd.profiler, once torch is imported
+
+
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` session is recording (its module flag)."""
+    global _profiler_flags
+    if _profiler_flags is None:
+        _profiler_flags = sys.modules.get("torch.autograd.profiler")
+        if _profiler_flags is None:
+            return False
+    return _profiler_flags._is_profiler_enabled
+
+
+def _profiler_range(name: str):
+    """A profiler range of ``name``: a host event of the recording session.
+
+    torch's C++ range, the one its compiled code opens: on an H100 host it
+    costs 1.4 µs a span under a session, where ``record_function`` costs
+    15.1 µs and adds a device-side annotation.
+    """
+    return sys.modules["torch"]._C._profiler._RecordFunctionFast(name)
+
+
+class _RangeSpan:
+    """A disabled tracer's span while a profiler records: the range alone."""
+
+    __slots__ = ("_range",)
+
+    def __init__(self, name: str):
+        self._range = _profiler_range(name)
+
+    def __enter__(self) -> "_RangeSpan":
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self._range.__exit__(exc_type, exc, tb)
+
+    def set(self, **kw) -> None:
+        return None
+
 
 class Tracer:
     """Bounded in-memory span recorder with Chrome trace-event export.
@@ -110,13 +154,11 @@ class Tracer:
       capacity: ring-buffer size in spans; the oldest spans fall off first
         (steady-state serving keeps the most recent window).
       enabled: a disabled tracer's :meth:`span` returns a shared no-op
-        context manager — one branch, zero allocation.
-      torch_annotations: additionally wrap every span in a
-        ``torch.profiler.record_function`` so device profiles correlate.
+        context manager — two branches, zero allocation — unless a
+        ``torch.profiler`` session records (see the module docstring).
     """
 
-    def __init__(self, *, capacity: int = 65536, enabled: bool = True,
-                 torch_annotations: bool = False):
+    def __init__(self, *, capacity: int = 65536, enabled: bool = True):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         self.enabled = bool(enabled)
@@ -125,18 +167,14 @@ class Tracer:
         self._lock = threading.Lock()
         self._epoch = time.perf_counter()
         self._dropped = 0
-        self._annotation_cls = None
-        if torch_annotations:
-            from torch.profiler import record_function
-
-            self._annotation_cls = record_function
 
     # -- recording ----------------------------------------------------------
 
     def span(self, name: str, *, cat: str = "repro", **args):
-        """A context manager timing one span; no-op when disabled."""
+        """A context manager timing one span; when disabled, a profiler range
+        while a ``torch.profiler`` session records, else a no-op."""
         if not self.enabled:
-            return _NULL_SPAN
+            return _RangeSpan(name) if _profiling() else _NULL_SPAN
         return _Span(self, name, cat, args)
 
     def instant(self, name: str, *, cat: str = "repro", **args) -> None:

@@ -339,22 +339,26 @@ class TunedEvaluator:
         the evaluator's device, through the bucket's resolved variant
         (bucket-padded, unpadded on return); bit-identical to ``eval_serial``
         for every resolution."""
-        dev = _device.resolve(records, self.device)
-        records = _device.as_tensor(records, torch.float32, dev)
-        m, a = records.shape
-        fast = self._fast.get((dev, m, a))
-        if fast is None:
-            gen = self._gen
-            cand, _ = self.resolve(records, device=dev)
-            spec = get_variant(cand.variant)
-            bucket_m = WorkloadShape(m, self.enc.n_nodes, a, self.depth).bucket().m
-            fast = (spec, cand.param_dict, bucket_m, self._tables(spec, dev, a))
-            with self._swap_lock:
-                if gen == self._gen:   # don't cache a pre-swap resolution
-                    self._fast[(dev, m, a)] = fast
-        spec, params, bucket_m, tables = fast
-        out = spec.fn(bucket_pad_records(records, bucket_m), tables, max_depth=self.depth, **params)
-        return out if out.shape[0] == m else out[:m]
+        tracer = self._obs.tracer
+        with tracer.span("tune.call", cat="tune"):
+            dev = _device.resolve(records, self.device)
+            records = _device.as_tensor(records, torch.float32, dev)
+            m, a = records.shape
+            fast = self._fast.get((dev, m, a))
+            if fast is None:
+                with tracer.span("tune.resolve", cat="tune", level="tree", records=m):
+                    gen = self._gen
+                    cand, _ = self.resolve(records, device=dev)
+                    spec = get_variant(cand.variant)
+                    bucket_m = WorkloadShape(m, self.enc.n_nodes, a, self.depth).bucket().m
+                    fast = (spec, cand.param_dict, bucket_m, self._tables(spec, dev, a))
+                    with self._swap_lock:
+                        if gen == self._gen:   # don't cache a pre-swap resolution
+                            self._fast[(dev, m, a)] = fast
+            spec, params, bucket_m, tables = fast
+            out = spec.fn(bucket_pad_records(records, bucket_m, tracer=tracer), tables,
+                          max_depth=self.depth, **params)
+            return out if out.shape[0] == m else out[:m]
 
 
 def tuned_eval(
@@ -621,9 +625,11 @@ class ForestTunedEvaluator:
             n_attrs=a, depth_min=self.depth_min, depth_max=self.depth_max,
         ).bucket().m
         target = self._target(spec, dev, a, params)
+        tracer = self._obs.tracer
 
         def run(rec):
-            out = spec.fn(bucket_pad_records(rec, bucket_m), target, max_depth=depth, **params)
+            out = spec.fn(bucket_pad_records(rec, bucket_m, tracer=tracer), target,
+                          max_depth=depth, **params)
             return out if out.shape[1] == m else out[:, :m]
 
         return run
@@ -631,18 +637,21 @@ class ForestTunedEvaluator:
     def __call__(self, records) -> torch.Tensor:
         """Per-tree class assignments, shape (T, M) int32, on the
         evaluator's device."""
-        dev = _device.resolve(records, self.device)
-        records = _device.as_tensor(records, torch.float32, dev)
-        m, a = records.shape
-        run = self._fast.get((dev, m, a))
-        if run is None:
-            gen = self._gen
-            cand, _ = self.resolve(records, device=dev)
-            run = self._runner(cand, m, a, dev)
-            with self._swap_lock:
-                if gen == self._gen:   # don't cache a pre-swap resolution
-                    self._fast[(dev, m, a)] = run
-        return run(records)
+        tracer = self._obs.tracer
+        with tracer.span("tune.forest_call", cat="tune"):
+            dev = _device.resolve(records, self.device)
+            records = _device.as_tensor(records, torch.float32, dev)
+            m, a = records.shape
+            run = self._fast.get((dev, m, a))
+            if run is None:
+                with tracer.span("tune.resolve", cat="tune", level="forest", records=m):
+                    gen = self._gen
+                    cand, _ = self.resolve(records, device=dev)
+                    run = self._runner(cand, m, a, dev)
+                    with self._swap_lock:
+                        if gen == self._gen:   # don't cache a pre-swap resolution
+                            self._fast[(dev, m, a)] = run
+            return run(records)
 
     # -- class-level dispatch (majority vote vs early-exit cascade) ---------
 
@@ -770,19 +779,22 @@ class ForestTunedEvaluator:
         resolution picked.  Both are exact, so the output always equals
         ``majority_vote(self(records), n_classes)``.
         """
-        dev = _device.resolve(records, self.device)
-        records = _device.as_tensor(records, torch.float32, dev)
-        m, a = records.shape
-        key = ("cls", dev, m, a, int(n_classes))
-        run = self._fast.get(key)
-        if run is None:
-            gen = self._gen
-            cand, _ = self.resolve_classes(records, n_classes, device=dev)
-            run = self._class_runner(cand, n_classes, records, dev)
-            with self._swap_lock:
-                if gen == self._gen:   # don't cache a pre-swap resolution
-                    self._fast[key] = run
-        return run(records)
+        tracer = self._obs.tracer
+        with tracer.span("tune.predict", cat="tune"):
+            dev = _device.resolve(records, self.device)
+            records = _device.as_tensor(records, torch.float32, dev)
+            m, a = records.shape
+            key = ("cls", dev, m, a, int(n_classes))
+            run = self._fast.get(key)
+            if run is None:
+                with tracer.span("tune.resolve", cat="tune", level="classes", records=m):
+                    gen = self._gen
+                    cand, _ = self.resolve_classes(records, n_classes, device=dev)
+                    run = self._class_runner(cand, n_classes, records, dev)
+                    with self._swap_lock:
+                        if gen == self._gen:   # don't cache a pre-swap resolution
+                            self._fast[key] = run
+            return run(records)
 
 
 def tuned_eval_forest(

@@ -310,19 +310,22 @@ def interleaved_medians(fns: dict[str, object], *, warmup: int = 2, iters: int =
     return {k: _median(v) for k, v in samples.items()}
 
 
-def bucket_pad_records(records: torch.Tensor, bucket_m: int) -> torch.Tensor:
+def bucket_pad_records(records: torch.Tensor, bucket_m: int, *,
+                       tracer: obs.Tracer = obs.NULL_TRACER) -> torch.Tensor:
     """Zero-pad the record batch up to the bucket's M, on its device.
 
     Rows past the real M cost what real rows cost, which is exactly what the
     bucket entry must price in.  Returned as-is when M already equals
-    ``bucket_m``.
+    ``bucket_m``; the copy is a ``tune.pad`` span whose ``padded`` arg
+    counts the rows added.
     """
     m = records.shape[0]
     if m == bucket_m:
         return records
-    out = torch.zeros((bucket_m, records.shape[1]), dtype=records.dtype, device=records.device)
-    out[:m] = records
-    return out
+    with tracer.span("tune.pad", cat="tune", records=m, padded=bucket_m - m):
+        out = torch.zeros((bucket_m, records.shape[1]), dtype=records.dtype, device=records.device)
+        out[:m] = records
+        return out
 
 
 def _measured(candidate: Candidate, run, device, warmup: int, iters: int, *,

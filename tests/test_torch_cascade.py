@@ -428,10 +428,25 @@ def test_cascade_metrics_and_spans_match_jax():
                 "cascade.exit_margin"):
         for field in ("count", "sum", "bucket_counts"):
             assert snap["histograms"][key][field] == jsnap["histograms"][key][field], (key, field)
-    names = [(e.name, e.args.get("stage"), e.args.get("phase")) for e in tr.events()]
+    vocabulary = {e.name for e in jtr.events()}
+    names = [(e.name, e.args.get("stage"), e.args.get("phase")) for e in tr.events()
+             if e.name in vocabulary]
     assert names == [(e.name, e.args.get("stage"), e.args.get("phase")) for e in jtr.events()]
     (outer,) = [e for e in tr.events() if e.name == "cascade.eval"]
     assert outer.args["stages_run"] == got.stages_run == 3
+    # the port's own spans: the syncs and observations of the stage loop lie
+    # inside cascade.eval, the finish (and the exit margins' observation in
+    # it) after it
+    (finish,) = [e for e in tr.events() if e.name == "cascade.finish"]
+    assert finish.ts_us >= outer.ts_us + outer.dur_us
+
+    def inside(e, span):
+        return span.ts_us <= e.ts_us and e.ts_us + e.dur_us <= span.ts_us + span.dur_us
+
+    extra = [e for e in tr.events() if e.name not in vocabulary and e is not finish]
+    assert {e.name for e in extra} == {"cascade.sync", "cascade.observe"}
+    assert all(inside(e, outer) or inside(e, finish) for e in extra)
+    assert sum(inside(e, finish) for e in extra) == 1
 
 
 def test_cascade_variants_mirror_jax():

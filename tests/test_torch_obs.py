@@ -24,6 +24,7 @@ from repro.obs import perf as jax_perf
 from repro_torch import obs
 from repro_torch.obs import metrics as metrics_mod
 from repro_torch.obs import perf as torch_perf
+from repro_torch.obs import trace as trace_mod
 
 HOSTILE = 'cpu:cpu:x1|M64 "quoted" back\\slash\nnewline'
 
@@ -303,16 +304,154 @@ def test_counter_samples_export_as_counter_tracks():
 
 
 def test_torch_annotations_reach_the_profiler():
-    """The bridge: every span is also a ``record_function`` of the same name."""
+    """The bridge: while a profiler records, every span is also a
+    ``record_function`` of the same name."""
     from torch.profiler import ProfilerActivity, profile
 
-    tr = obs.Tracer(torch_annotations=True)
+    tr = obs.Tracer()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with tr.span("cascade.stage", cat="cascade", stage=0):
             torch.ones(4).sum()
     assert "cascade.stage" in {e.key for e in prof.key_averages()}
     assert [e.name for e in tr.events()] == ["cascade.stage"]
-    assert obs.Tracer()._annotation_cls is None
+    with tr.span("cascade.stage", cat="cascade", stage=1):
+        pass
+    assert [e.args["stage"] for e in tr.events()] == [0, 1]
+
+
+def test_disabled_span_is_the_shared_no_op_without_a_profiler():
+    off = obs.Tracer(enabled=False)
+    for tr in (obs.NULL_TRACER, off):
+        assert tr.span("tune.call", cat="tune") is trace_mod._NULL_SPAN
+        assert tr.span("cascade.sync", cat="cascade", stage=0, phase="stage") is trace_mod._NULL_SPAN
+
+
+def test_disabled_span_is_a_profiler_range_alone_while_one_records():
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sp = obs.NULL_TRACER.span("cascade.eval", cat="cascade", records=3)
+        assert sp is not trace_mod._NULL_SPAN
+        with sp:
+            with obs.NULL_TRACER.span("kernel.op", cat="kernel"):
+                torch.ones(4).sum()
+            sp.set(stages_run=1)
+    names = [e.name for e in prof.events() if e.name in ("cascade.eval", "kernel.op")]
+    assert sorted(names) == ["cascade.eval", "kernel.op"]
+    assert obs.NULL_TRACER.events() == []
+    assert obs.NULL_TRACER.span("kernel.op", cat="kernel") is trace_mod._NULL_SPAN
+
+
+# ---------------------------------------------------------------------------
+# the hot path's spans under a profiler session (CPU)
+# ---------------------------------------------------------------------------
+
+
+def _program_spans(prof) -> list[tuple[str, float, float]]:
+    """(name, start, end) of the program's spans in a profiler session."""
+    prefixes = ("tune.", "kernel.", "forest.", "cascade.")
+    return sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(prefixes)),
+                  key=lambda s: (s[1], -s[2]))
+
+
+def _parents(spans) -> list[tuple[str, str | None]]:
+    """(span, innermost span around it) for each span, in start order."""
+    out = []
+    for i, (name, a, b) in enumerate(spans):
+        around = [s for s in spans[:i] if s[1] <= a and b <= s[2]]
+        out.append((name, max(around, key=lambda s: s[1])[0] if around else None))
+    return out
+
+
+def _tree_evaluator(tmp_path):
+    from repro_torch.core.tree import breadth_first_encode, random_tree
+    from repro_torch.tune import TuneCache, TunedEvaluator
+
+    enc = breadth_first_encode(random_tree(n_attrs=7, n_classes=5, max_depth=6, seed=1))
+    return TunedEvaluator(enc, cache=TuneCache(tmp_path / "tune.json"), engines=("cuda",),
+                         device="cpu")
+
+
+def _forest_evaluator(tmp_path):
+    from repro_torch.core.forest import EncodedForest
+    from repro_torch.core.tree import breadth_first_encode, random_tree
+    from repro_torch.tune import ForestTunedEvaluator, TuneCache
+
+    trees = [breadth_first_encode(random_tree(n_attrs=7, n_classes=5, max_depth=5, seed=s))
+             for s in range(6)]
+    return ForestTunedEvaluator(EncodedForest(trees), cache=TuneCache(tmp_path / "tune.json"),
+                                engines=("cuda",), device="cpu")
+
+
+def _records(m: int) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(0).normal(size=(m, 7)).astype(np.float32))
+
+
+def test_tuned_entry_spans_nest_as_documented(tmp_path):
+    """``tune.call`` holds the resolution (first call only), the bucket's
+    padding and the kernel wrapper; the launch itself needs the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ev, rec = _tree_evaluator(tmp_path), _records(300)     # bucket 512: padded
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ev(rec)
+        ev(rec)
+    assert _parents(_program_spans(prof)) == [
+        ("tune.call", None), ("tune.resolve", "tune.call"), ("tune.pad", "tune.call"),
+        ("kernel.op", "tune.call"),
+        ("tune.call", None), ("tune.pad", "tune.call"), ("kernel.op", "tune.call")]
+    ev(_records(256))                              # a whole bucket: no copy, no pad span
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ev(_records(256))
+    assert [s[0] for s in _program_spans(prof)] == ["tune.call", "kernel.op"]
+
+
+def test_cascade_predict_spans_nest_as_documented(tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.tune import Candidate
+    from repro_torch.tune.space import backend_tag
+
+    ev, rec = _forest_evaluator(tmp_path), _records(256)
+    key = ev.shape_of(rec).classes_key(5, backend_tag(torch.device("cpu")))
+    ev.promote(key, Candidate.make("forest_cascade_fused_data_parallel", stages=2, block_m=64))
+    ev.predict(rec, 5)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ev.predict(rec, 5)
+    # a stage: survival observed, gather, the stage (kernel wrapper, sync),
+    # its latency observed, scatter and exit test (the survivors' read back:
+    # not after the last stage, which leaves no tree to exit before), the
+    # compaction's time observed
+    gather = [("cascade.observe", "cascade.eval"), ("cascade.compact", "cascade.eval"),
+              ("cascade.stage", "cascade.eval"), ("kernel.op", "cascade.stage"),
+              ("cascade.sync", "cascade.stage"), ("cascade.observe", "cascade.eval"),
+              ("cascade.compact", "cascade.eval")]
+    first = gather + [("cascade.sync", "cascade.compact"), ("cascade.observe", "cascade.eval")]
+    last = gather + [("cascade.observe", "cascade.eval")]
+    got = _parents(_program_spans(prof))
+    assert got[:2] == [("tune.predict", None), ("cascade.eval", "tune.predict")]
+    assert got[2:-2] in (first, first + last)
+    assert got[-2:] == [("cascade.finish", "tune.predict"), ("cascade.observe", "cascade.finish")]
+
+
+def test_majority_predict_spans_nest_as_documented(tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.tree_eval.cascade import MAJORITY_FAMILY
+    from repro_torch.tune import Candidate
+    from repro_torch.tune.space import backend_tag
+
+    ev, rec = _forest_evaluator(tmp_path), _records(256)
+    cpu = backend_tag(torch.device("cpu"))
+    ev.promote(ev.shape_of(rec).classes_key(5, cpu), Candidate.make(MAJORITY_FAMILY))
+    ev.promote(ev.shape_of(rec).key(cpu), Candidate.make("forest_fused_data_parallel", block_m=64))
+    ev.predict(rec, 5)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ev.predict(rec, 5)
+    assert _parents(_program_spans(prof)) == [
+        ("tune.predict", None), ("tune.forest_call", "tune.predict"),
+        ("kernel.op", "tune.forest_call"), ("forest.vote", "tune.predict")]
 
 
 # ---------------------------------------------------------------------------
