@@ -218,6 +218,19 @@ Phases, each printing its own lines:
    vote for the exact bounds, ``deadline_ms=0`` stopping after stage 0;
    per-image latency beside ``forest_eval_fused`` + ``majority_vote``, timed
    in turns, survivors per stage and mean trees evaluated;
+6m. margin — the cascade's margin pass (``csrc/cascade_margin.cu``, built and
+   its ``-Xptxas -v`` report printed) at ``forest-frame``'s shape (M 65,536,
+   C 7, 50 trees in stages of 26 + 24): the exit test of stage 0 and the
+   finish, binning into a histogram's buffer on the card, on seeded tallies
+   with ties, equal to their plain versions bit for bit (keep, exit stages,
+   classes, margin, confidence; the histogram after 3 calls against
+   ``observe_many`` of the plain margins); each kernel's device time
+   (profiler, 200 launches, the tally warm in L2 as the cascade leaves it),
+   its plain version's and ``torch.topk``'s (CUDA events), and its byte
+   bound; then a 50-tree ``CascadeEvaluator`` on the card against the same
+   evaluator on the CPU on 65,536 records (every field and the exit-margin
+   histogram), two margin launches a call.  ``chip_smoke.py --margin`` runs
+   this phase alone;
 6s. serve — the served path at the same sizes, through the entry points a
    user calls: ``TreeServeEngine`` (65,536-record waves, background re-tune
    after 2 waves of a bucket with warmup 1 and 3 timed calls, synchronous
@@ -282,7 +295,10 @@ examples — then the five ``examples/*_torch.py`` with their default
    code 0 and each one's wall time, the quickstart's five EXACT MATCH lines
    (K1 and K2 among them), ``tree_router_moe`` routing on K1 onehot; the
    segmentation service's classifier on image 0 equal to ``eval_serial``;
-8. the ``kernels`` JSON line, the card line, and the ``ok`` line.
+8. the ``kernels`` JSON line (the margin kernels with ``replaces`` null: they
+   replace no TPU kernel; their ``launches`` are phase 6's, in ``--margin``
+   the 50-tree evaluator's, never the timing loops'), the card line, and
+   the ``ok`` line.
 
     python3 chip_smoke.py --parent DIR [DIR ...]
 
@@ -355,6 +371,7 @@ from repro_torch.kernels.tree_eval import (  # noqa: E402
     QuantizedForest,
     cascade_ref_from_classes,
     kernel as K,
+    margin as MARGIN,
     ops,
     plan_cascade,
 )
@@ -970,6 +987,128 @@ def phase_cascade_latency(dev, inputs, forest, card) -> None:
               f"in turns): cascade 2 stages bound 1.0 mean {c[:-1].mean():.3f} on the 5 images, "
               f"{c[-1].mean():.3f} on the skewed mix; forest_eval_fused + majority_vote "
               f"{f[:-1].mean():.3f} and {f[-1].mean():.3f}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6m: the cascade's margin pass
+# ---------------------------------------------------------------------------
+
+MARGIN_M, MARGIN_T, MARGIN_STAGES = 65_536, 50, (26, 24)   # forest-frame's frame, forest and plan
+MARGIN_BOUNDARIES = (0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0)   # cascade.exit_margin's
+
+
+def seeded_tally(m: int, c: int, t: int, seed: int) -> np.ndarray:
+    """(m, c) int32 votes of ``t`` trees, most rows led by one class; an
+    eighth tied at the top, an eighth unanimous."""
+    rng = np.random.default_rng(seed)
+    p = np.full((m, c), 1.0 / c)
+    p[np.arange(m), rng.integers(0, c, m)] += rng.uniform(0.0, 6.0, m)
+    votes = rng.multinomial(t, p / p.sum(1, keepdims=True)).astype(np.int32)
+    k = m // 8
+    votes[:k] = 0
+    votes[:k, :2] = t // 2
+    votes[k:2 * k] = 0
+    votes[k:2 * k, c - 1] = t
+    return votes
+
+
+def margin_forest() -> EncodedForest:
+    """50 trees in ``forest-frame``'s geometry: 25 vote one class whatever the
+    record (the plan puts them first), 25 random, so about one record in
+    seven exits after the first stage."""
+    trees = [Node(class_val=2)] * 25 + [
+        random_tree(n_attrs=N_ATTRS, n_classes=N_CLASSES, max_depth=6, seed=i) for i in range(25)]
+    return EncodedForest([breadth_first_encode(t) for t in trees])
+
+
+def phase_margin(dev, card) -> tuple[list[dict], dict]:
+    """The margin kernels against their plain versions, timed; a whole
+    evaluator on the card against the CPU's.  Returns the kernels' rows and
+    the evaluator's margin launches."""
+    t0 = time.perf_counter()
+    report = _build.ptxas_report(MARGIN.SOURCE)
+    print(f"[margin] build {_build.library_path(MARGIN.SOURCE).name} in {time.perf_counter() - t0:.1f} s")
+    for line in ptxas_lines(report):
+        print(f"[margin] {line}")
+    m, c, t_total = MARGIN_M, N_CLASSES, MARGIN_T
+    first = MARGIN_STAGES[0]
+    votes0 = torch.from_numpy(seeded_tally(m, c, first, seed=1)).to(dev)     # stage 0's tally
+    votes = torch.from_numpy(seeded_tally(m, c, t_total, seed=2)).to(dev)    # the finish's
+    alive = torch.arange(m, device=dev)
+    thr = 1.0 * (t_total - first)
+    trees = torch.where(torch.arange(m, device=dev) % 7 == 0, first, t_total).to(torch.int32)
+    def histogram():
+        return obs.Registry().histogram("cascade.exit_margin", boundaries=MARGIN_BOUNDARIES)
+
+    stage_k, stage_p = (torch.full((m,), -1, dtype=torch.int32, device=dev) for _ in range(2))
+    keep_k = MARGIN.exit_test(votes0, alive, 0, thr, stage_k)
+    keep_p = MARGIN.exit_test_plain(votes0, alive, 0, thr, stage_p)
+    hist_k, hist_p = histogram(), histogram()
+    for _ in range(3):
+        got = MARGIN.finish(votes, trees, t_total, hist_k)
+        want = MARGIN.finish_plain(votes, trees, t_total)
+        hist_p.observe_many(want[1].cpu().numpy())
+    torch.cuda.synchronize()
+    check(torch.equal(keep_k, keep_p) and torch.equal(stage_k, stage_p),
+          "cascade_exit_test_kernel != plain at forest-frame's shape")
+    for name, g, w in zip(("classes", "margin", "confidence"), got, want):
+        check(g.dtype == w.dtype and torch.equal(g, w), f"cascade_finish_kernel {name} != plain")
+    check(hist_k.state() == hist_p.state(), f"finish bins {hist_k.state()} != plain {hist_p.state()}")
+    print(f"[margin] {card}: both kernels equal their plain versions at M={m} C={c}: "
+          f"{int(keep_k.sum())} of {m} stay after stage 0 (threshold {thr}); bins after 3 calls "
+          f"{hist_k.state()['bucket_counts']}")
+
+    hist = histogram()
+    n_exit = m - int(keep_k.sum())
+    specs = [   # (name, kernel call, plain call, torch.topk call, bytes)
+        ("cascade_exit_test_kernel",
+         lambda i: MARGIN.exit_test(votes0, alive, 0, thr, stage_k),
+         lambda i: MARGIN.exit_test_plain(votes0, alive, 0, thr, stage_p),
+         lambda i: votes0.index_select(0, alive).topk(2, dim=1),
+         m * c * 4 + m * 8 + m + n_exit * 4),
+        ("cascade_finish_kernel",
+         lambda i: MARGIN.finish(votes, trees, t_total, hist),
+         lambda i: MARGIN.finish_plain(votes, trees, t_total),
+         lambda i: votes.topk(2, dim=1),
+         m * c * 4 + m * 4 + 3 * m * 4),
+    ]
+    times = profiled_ms([(name, run) for name, run, _, _, _ in specs], 1, iters=200)
+    rows = []
+    for name, run, plain, library, nbytes in specs:
+        ms, n_events = times[name]
+        bound_ms, bound_by = roofline.bound_ms(nbytes, m * c)
+        row = dict(name=name, ms=ms, plain_ms=event_ms(plain, 1, iters=50),
+                   library_ms=event_ms(library, 1, iters=50), bound_ms=bound_ms, bound_by=bound_by,
+                   max_abs_err=0)
+        rows.append(row)
+        print(f"[timing] {card}: {name:32s} M={m} C={c}: kernel {ms:.4f} ms (profiler, {n_events} "
+              f"launches), plain {row['plain_ms']:.4f} ms, torch.topk {row['library_ms']:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}, {nbytes} B), kernel at {bound_ms / ms:.1%} of bound")
+
+    forest = margin_forest()
+    rec = np.random.default_rng(3).normal(size=(m, N_ATTRS)).astype(np.float32)
+    plan = plan_cascade(forest, rec[:512], n_classes=N_CLASSES, stages=2, bound=1.0, device="cpu")
+    check(plan.stage_sizes == MARGIN_STAGES, f"plan {plan.stage_sizes}, not {MARGIN_STAGES}")
+    regs = [obs.Registry(), obs.Registry()]
+    evs = [CascadeEvaluator(forest, plan, n_classes=N_CLASSES, bound=1.0, engine="cuda",
+                            algorithm="data_parallel", registry=r, device=d)
+           for r, d in zip(regs, (dev, "cpu"))]
+    before = dict(MARGIN.LAUNCHES)
+    for seed in range(2):
+        batch = np.random.default_rng(10 + seed).normal(size=(m, N_ATTRS)).astype(np.float32)
+        got, want = evs[0](torch.from_numpy(batch).to(dev)), evs[1](batch)
+        for field in CASCADE_FIELDS:
+            check(torch.equal(getattr(got, field).cpu(), getattr(want, field)),
+                  f"cascade on the card: {field} != the CPU's")
+        check(got.stage_survivors == want.stage_survivors, "cascade on the card: survivors != the CPU's")
+    launched = {k: MARGIN.LAUNCHES[k] - before[k] for k in before}
+    check(launched == {"exit_test": 2, "finish": 2}, f"margin launches {launched} for 2 calls")
+    hist = [obs.snapshot(r)["histograms"]["cascade.exit_margin"] for r in regs]
+    check(hist[0] == hist[1], f"exit-margin histogram on the card {hist[0]} != the CPU's {hist[1]}")
+    print(f"[margin] {card}: 50-tree cascade on the card equals the CPU's on 2 x {m} records "
+          f"(survivors {got.stage_survivors}), margin launches {launched}, exit_margin count "
+          f"{hist[0]['count']} p50 {hist[0]['p50']}")
+    return rows, launched
 
 
 # ---------------------------------------------------------------------------
@@ -4756,6 +4895,18 @@ REPLACES = {
 }
 
 
+def margin_rows(rows: list[dict], launches: dict) -> list[dict]:
+    """The ``kernels`` entries of phase 6m's rows, with ``launches`` the main
+    path's own margin launches (phase 6's in a full run, the 50-tree
+    evaluator's in ``--margin``), never the timing loops'."""
+    return [{"name": row["name"], "route": "cuda",
+             "source": "src/repro_torch/kernels/tree_eval/csrc/cascade_margin.cu",
+             "replaces": None,   # no TPU kernel: the JAX package leaves the margin to XLA's ops
+             "launches": launches[row["name"].removeprefix("cascade_").removesuffix("_kernel")],
+             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+            for row in rows]
+
+
 def ptxas_lines(report: str) -> list[str]:
     """Registers, shared memory and spills of each kernel in an ``-Xptxas -v``
     report, with the kernel names demangled where a demangler is installed."""
@@ -4789,6 +4940,8 @@ def main() -> None:
     parser.add_argument("--families-dist", action="store_true",
                         help="run phase 2s (hymba, xLSTM and whisper split over 'model' on four cards) alone; the "
                              "full run starts it so, in a child, where four cards are present")
+    parser.add_argument("--margin", action="store_true",
+                        help="run phase 6m (the cascade's margin pass) alone")
     parser.add_argument("--dryrun", action="store_true",
                         help="run [dryrun]'s own part (the dry-run CLI on one production cell; on four cards "
                              "phi3.5-moe served on 2x2 against its plan) alone; the full run starts it so, in a "
@@ -4827,6 +4980,10 @@ def main() -> None:
     if args.dryrun:
         _build.build(K.SOURCE)
         print(DRYRUN_RESULT + json.dumps(phase_dryrun(card)))
+        return
+    if args.margin:
+        print(f"[device] {kind}; nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+        print(json.dumps({"kernels": margin_rows(*phase_margin(dev, card))}))
         return
     print(f"[device] {kind}; nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -4880,8 +5037,13 @@ def main() -> None:
     lat, per_trees = phase_service(dev, images, labels, enc, forest)
     phase_quant_service(dev, images, forest, rows, per_trees, layouts)
     phase_quant_latency(dev, images, forest, layouts, card)
+    MARGIN.reset_launches()
     phase_cascade(dev, images + [mix], per_trees + [mix_per_tree], forest, card)
     phase_cascade_latency(dev, images + [mix], forest, card)
+    margin_launches = dict(MARGIN.LAUNCHES)
+    print(f"[service] margin-pass launches in phase 6: {margin_launches}")
+    for name, count in margin_launches.items():
+        check(count > 0, f"margin kernel {name} was not launched by the cascade")
     launches = dict(K.LAUNCHES)
     print(f"[service] main-path launches: {launches}")
     for key, ms in lat.items():
@@ -4949,6 +5111,7 @@ def main() -> None:
             "bound_by": row["bound_by"],
             "library_ms": None,   # no single PyTorch call evaluates a tree or a forest
         })
+    kernels += margin_rows(phase_margin(dev, card)[0], margin_launches)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

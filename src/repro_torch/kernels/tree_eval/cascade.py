@@ -28,9 +28,13 @@ always runs) and the partial-margin confidence is reported for records the
 truncated stages never re-examined.
 
 The stage loop runs on the host, as in the JAX package; everything else —
-the vote tally, the survivor gather and scatter, the exit test — runs on the
-evaluator's device.  The one host read per stage is the survivor count,
-which sizes the next launch.
+the vote tally, the survivor gather and scatter, the exit test, the finish
+and the exit-margin histogram — runs on the evaluator's device.  The one
+host read per stage is the survivor count, which sizes the next launch.
+The exit test and the finish are the *margin pass* (``margin.py``): on a
+card one kernel launch each, which scans a tally row once for its top two
+counts; the margins are binned into the histogram's pending buffer on the
+device, and the host reads it only when the histogram is read.
 """
 
 from __future__ import annotations
@@ -45,7 +49,8 @@ import torch
 from repro_torch import _device, obs
 from repro_torch.core.eval_dataparallel import eval_data_parallel
 from repro_torch.core.eval_speculative import eval_speculative
-from repro_torch.core.forest import vote_counts, vote_winner
+from repro_torch.core.forest import vote_counts
+from repro_torch.kernels.tree_eval import margin as _margin
 from repro_torch.kernels.tree_eval import ops as _ops
 
 # Vote margins are integer counts bounded by the forest size; a coarse
@@ -492,16 +497,11 @@ class CascadeEvaluator:
                     stages_run = s + 1
                     remaining = t_total - done
                     if self.bound is not None and remaining > 0:
-                        top2 = votes.index_select(0, alive).topk(2, dim=1).values
-                        # numpy compares the int margin with the float64
-                        # product; a torch int tensor against a Python float
-                        # would compare in float32.
-                        margin = (top2[:, 0] - top2[:, 1]).double()
-                        decided = margin > self.bound * remaining
-                        exit_stage[alive] = torch.where(decided, s, exit_stage[alive])
+                        keep = _margin.exit_test(votes, alive, s, self.bound * remaining,
+                                                 exit_stage)
                         with self.tracer.span("cascade.sync", cat="cascade", stage=s,
                                               phase="survivors"):
-                            alive = alive[~decided]      # the stage's one host read
+                            alive = alive[keep]      # the stage's one host read
                         n_alive = alive.numel()
                 compact_ms += (time.perf_counter() - c1) * 1e3
                 with self.tracer.span("cascade.observe", cat="cascade"):
@@ -509,16 +509,9 @@ class CascadeEvaluator:
             espan.set(stages_run=stages_run)
 
         with self.tracer.span("cascade.finish", cat="cascade"):
-            classes = vote_winner(votes)
-            top2 = votes.topk(2, dim=1).values
-            margin = (top2[:, 0] - top2[:, 1]).to(torch.int32)
-            if self.obs.enabled:
-                with self.tracer.span("cascade.observe", cat="cascade"):
-                    self.m_exit_margin.observe_many(margin.cpu().numpy())
-            remaining_all = t_total - trees_evaluated
-            # float64 as numpy divides int32 arrays, then cast: bit-identical.
-            ratio = margin.double() / remaining_all.clamp(min=1).double()
-            conf = torch.where(remaining_all <= 0, 1.0, ratio.clamp(0.0, 1.0)).to(torch.float32)
+            classes, margin, conf = _margin.finish(
+                votes, trees_evaluated, t_total,
+                self.m_exit_margin if self.obs.enabled else None, self.tracer)
         return CascadeResult(
             classes=classes,
             margin=margin,

@@ -7,7 +7,10 @@ port's telemetry:
 * :class:`Counter` — monotonically increasing float (locked add);
 * :class:`Gauge`   — last-write-wins float (locked set);
 * :class:`Histogram` — fixed-boundary bucket counts with sum/min/max and
-  p50/p95/p99 derivation by linear interpolation inside the bucket.
+  p50/p95/p99 derivation by linear interpolation inside the bucket; it may
+  also hold *pending* buffers (:meth:`Histogram.pending`) that a kernel adds
+  integer observations to on the device, folded in when the histogram is
+  read.
 
 All instruments support *labels*: an instrument created with ``labelnames``
 is a parent whose :meth:`~Instrument.labels` call returns (and memoises) a
@@ -17,7 +20,8 @@ histogram is one parent with one child per stage.
 Concurrency: every mutation takes the instrument's own lock, so counters
 shared between a request thread and a worker thread cannot lose
 increments.  Reads take the same lock and therefore observe a consistent
-(count, sum, buckets) triple.
+(count, sum, buckets) triple; a histogram folds its pending buffers in under
+it first.
 
 Cost when disabled: each mutation is one attribute load and a branch —
 ``Registry(enabled=False)`` makes a component observation-free without any
@@ -65,6 +69,8 @@ DEFAULT_MS_BOUNDARIES: tuple[float, ...] = (
     100.0, 250.0, 500.0, 1000.0, 2500.0, 5000.0, 10000.0,
 )
 DEFAULT_RATIO_BOUNDARIES: tuple[float, ...] = tuple(i / 10.0 for i in range(11))
+
+_INT64_MAX = 2**63 - 1
 
 
 class Instrument:
@@ -182,6 +188,14 @@ class Histogram(Instrument):
     the bucket holding the q-th observation — exact enough for p50/p95/p99
     over latency grids while storing O(len(boundaries)) state, never the
     raw samples.
+
+    Integer observations can also arrive in *pending* buffers, which a
+    producer on a device adds to without the host reading anything
+    (:meth:`pending`).  Every read (``count``, ``sum``, ``quantile``,
+    ``percentiles``, ``state``, and so the exporters) first folds into the
+    histogram what each buffer gained since the last read, under the
+    histogram's lock.  The sums fold as exact integers, so a histogram fed
+    through buffers reads what ``observe_many`` of the same values gives.
     """
 
     kind = "histogram"
@@ -198,6 +212,8 @@ class Histogram(Instrument):
         self._sum = 0.0
         self._min = float("inf")
         self._max = float("-inf")
+        # key → [buffer, its values when last folded]
+        self._pending: dict = {}
 
     def _make_child(self) -> "Histogram":
         return Histogram(self._registry, self.name, self.help,
@@ -265,14 +281,69 @@ class Histogram(Instrument):
             if mx > self._max:
                 self._max = mx
 
+    def pending_init(self) -> list[int]:
+        """The initial values of a pending buffer: int64, one count per
+        bucket (the boundaries' and the overflow bucket), then the count,
+        the sum, and the least and greatest value, which start at the int64
+        extremes."""
+        return [0] * (len(self.boundaries) + 3) + [_INT64_MAX, -_INT64_MAX - 1]
+
+    def pending(self, key, make):
+        """The pending buffer under ``key``, made by ``make(self.pending_init())``
+        the first time, or None while the registry is disabled.
+
+        A producer adds integer observations to it in place: 1 to the bucket
+        ``searchsorted(boundaries, v, side="left")`` (the bucket ``observe``
+        picks), 1 to the count, ``v`` to the sum, and the least and greatest
+        value to the last two.  ``make`` returns anything with ``tolist()``
+        (a torch tensor on any device).  Producers that share a key share
+        its buffer and must add atomically; a device is the natural key.
+        ``tolist()`` must return the buffer between whole adds: a buffer on
+        a card waits for the adds queued to it (``margin.DeviceBins``).
+
+        A read copies each buffer and folds in what it gained since the read
+        before.  It writes nothing back to the buffer, so an add queued
+        after the copy is never lost: a later read folds it.  The lookup
+        takes no lock once the buffer exists, so a producer does not wait
+        on a read.
+        """
+        if not self._registry.enabled:
+            return None
+        entry = self._pending.get(key)
+        if entry is None:
+            with self._lock:
+                entry = self._pending.get(key)
+                if entry is None:
+                    init = self.pending_init()
+                    entry = self._pending[key] = [make(init), init]
+        return entry[0]
+
+    def _fold(self) -> None:
+        """Fold what each pending buffer gained since the last fold; the
+        caller holds the lock."""
+        nb = len(self._counts)
+        for entry in self._pending.values():
+            now, seen = entry[0].tolist(), entry[1]
+            if now[nb] == seen[nb]:   # no observation added since
+                continue
+            for i in range(nb):
+                self._counts[i] += now[i] - seen[i]
+            self._count += now[nb] - seen[nb]
+            self._sum += float(now[nb + 1] - seen[nb + 1])
+            self._min = min(self._min, float(now[nb + 2]))
+            self._max = max(self._max, float(now[nb + 3]))
+            entry[1] = now
+
     @property
     def count(self) -> int:
         with self._lock:
+            self._fold()
             return self._count
 
     @property
     def sum(self) -> float:
         with self._lock:
+            self._fold()
             return self._sum
 
     def quantile(self, q: float) -> Optional[float]:
@@ -280,6 +351,7 @@ class Histogram(Instrument):
         if not 0.0 <= q <= 1.0:
             raise ValueError(f"quantile must be in [0, 1], got {q}")
         with self._lock:
+            self._fold()
             if self._count == 0:
                 return None
             counts, total = list(self._counts), self._count
@@ -307,6 +379,7 @@ class Histogram(Instrument):
     def state(self) -> dict:
         """A consistent snapshot of the full histogram state."""
         with self._lock:
+            self._fold()
             counts = list(self._counts)
             count, s = self._count, self._sum
             mn = self._min if self._count else None

@@ -8,11 +8,19 @@ on the same numpy inputs, ``plan_cascade``/``rank_trees``,
 every field, against its ``jnp`` engine, its Pallas engine in interpret
 mode and its per-record ``cascade_eval_ref``.  The port's CUDA engine runs
 its kernels' plain versions here (CPU tensors).
+
+The margin pass (``kernels/tree_eval/margin.py``): its plain versions
+against NumPy here, and, in the tests marked ``gpu`` (they skip without a
+card), its two kernels against the plain versions bit for bit and a whole
+evaluator on the card against the same evaluator on the CPU.
 """
 
 from __future__ import annotations
 
 import functools
+import re
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -36,6 +44,9 @@ from repro.kernels.tree_eval.cascade import rank_trees as jax_rank_trees
 from repro.kernels.tree_eval.ref import forest_eval_ref as jax_forest_eval_ref
 from repro_torch import obs
 from repro_torch.core import EncodedForest, eval_forest_cascade, majority_vote
+from repro_torch.core import Node as PortNode
+from repro_torch.core import breadth_first_encode as port_encode
+from repro_torch.core import random_tree as port_random_tree
 from repro_torch.kernels.tree_eval import (
     CASCADE_FAMILY,
     CASCADE_VARIANTS,
@@ -53,7 +64,7 @@ from repro_torch.kernels.tree_eval import (
     rank_trees,
     register_cascade_variant,
 )
-from repro_torch.kernels.tree_eval import ops
+from repro_torch.kernels.tree_eval import margin, ops
 
 # hypothesis is optional: the shim runs a deterministic fixed-example sweep
 # when the real package is not installed (see hypothesis_compat.py).
@@ -491,3 +502,260 @@ def test_evaluator_defaults_and_refusals():
         ev(REC[0])
     empty = ev(REC[:0])
     assert empty.stages_run == 0 and empty.classes.shape == (0,)
+
+
+# -- the margin pass -----------------------------------------------------------
+
+MARGIN_BOUNDARIES = (0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0)
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, for tests marked ``gpu``; decided when the test runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _tally(m: int, c: int, t: int, seed: int) -> np.ndarray:
+    """(m, c) int32 vote counts of ``t`` trees: rows led by one class, rows
+    split evenly (ties at the top), unanimous rows and empty rows."""
+    rng = np.random.default_rng(seed)
+    lead = rng.integers(0, c, m)
+    p = np.full((m, c), 1.0 / c)
+    p[np.arange(m), lead] += rng.uniform(0.0, 3.0, m)
+    votes = rng.multinomial(t, p / p.sum(1, keepdims=True)).astype(np.int32)
+    k = m // 8
+    votes[:k] = 0
+    votes[:k, :2] = t // 2                                   # a tie between classes 0 and 1
+    votes[k:2 * k] = 0
+    votes[k:2 * k, c - 1] = t                                # unanimous, the last class
+    votes[2 * k:2 * k + 2] = 0                               # no tree voted
+    return votes
+
+
+def _np_margin(votes: np.ndarray):
+    top = np.sort(votes, axis=1)
+    return votes.argmax(1).astype(np.int32), (top[:, -1] - top[:, -2]).astype(np.int32)
+
+
+def _margin_histogram():
+    return obs.Registry().histogram("cascade.exit_margin", boundaries=MARGIN_BOUNDARIES)
+
+
+@pytest.mark.parametrize("c", [2, 3, 7, 16])
+def test_margin_plain_versions_match_numpy(c):
+    """Winner, margin, confidence and the histogram against NumPy; the exit test
+    against a float64 comparison, with margins past the last boundary."""
+    t_total = 400
+    hist, want_hist, margins = _margin_histogram(), _margin_histogram(), []
+    for call in range(3):
+        votes = _tally(300, c, t_total - 100 * call, seed=c + call)
+        trees = np.full(300, t_total - 100 * call, np.int32)
+        trees[::3] = t_total
+        classes, mar, conf = margin.finish(torch.from_numpy(votes), torch.from_numpy(trees), t_total,
+                                           hist)
+        want_classes, want_margin = _np_margin(votes)
+        assert_same(classes, want_classes, "classes")
+        assert_same(mar, want_margin, "margin")
+        rem = t_total - trees
+        want_conf = np.where(rem <= 0, 1.0, np.clip(want_margin / np.maximum(rem, 1), 0.0, 1.0))
+        assert_same(conf, want_conf.astype(np.float32), "confidence")
+        margins.append(want_margin)
+        want_hist.observe_many(want_margin)
+        assert hist.state() == want_hist.state()
+    assert max(np.concatenate(margins)) > MARGIN_BOUNDARIES[-1]
+    votes = _tally(300, c, 50, seed=c)
+    for alive in (np.arange(300), np.flatnonzero(np.arange(300) % 3), np.arange(0)):
+        exit_stage = torch.full((300,), -1, dtype=torch.int32)
+        keep = margin.exit_test_plain(torch.from_numpy(votes), torch.from_numpy(alive), 2, 0.58 * 50,
+                                      exit_stage)
+        decided = _np_margin(votes)[1][alive].astype(np.float64) > 0.58 * 50
+        assert_same(keep, ~decided, "keep")
+        want = np.full(300, -1, np.int32)
+        want[alive[decided]] = 2
+        assert_same(exit_stage, want, "exit_stage")
+
+
+def test_margin_wrappers_refuse_what_the_kernels_do_not_take():
+    votes = torch.empty((4, 7), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        margin.finish(votes, torch.empty((4,), dtype=torch.int32, device="meta"), 7)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        margin.exit_test(votes, torch.empty((2,), dtype=torch.int64, device="meta"), 0, 1.0,
+                         torch.empty((4,), dtype=torch.int32, device="meta"))
+
+
+def _card_margin_case(dev, m: int, c: int, seed: int) -> None:
+    t_total = 300 + seed
+    votes_np = _tally(m, c, t_total, seed)
+    votes, cpu_votes = torch.from_numpy(votes_np).to(dev), torch.from_numpy(votes_np)
+    rng = np.random.default_rng(seed)
+    before = dict(margin.LAUNCHES)
+    subsets = (np.arange(m), np.sort(rng.choice(m, size=max(m // 3, 1), replace=False)), np.arange(0))
+    thresholds = (0.58 * 50, 0.0, float(t_total // 2))
+    for alive_np, thr in zip(subsets, thresholds):
+        stage = int(rng.integers(0, 4))
+        init = rng.integers(-1, 2, m).astype(np.int32)
+        got_stage, want_stage = torch.from_numpy(init).to(dev), torch.from_numpy(init.copy())
+        keep = margin.exit_test(votes, torch.from_numpy(alive_np).to(dev), stage, thr, got_stage)
+        want = margin.exit_test_plain(cpu_votes, torch.from_numpy(alive_np), stage, thr, want_stage)
+        assert keep.dtype == torch.bool and keep.device == votes.device
+        assert_same(keep, want.numpy(), f"keep m={m} c={c} thr={thr}")
+        assert_same(got_stage, want_stage.numpy(), f"exit_stage m={m} c={c} thr={thr}")
+    hist, want_hist = _margin_histogram(), _margin_histogram()
+    for call in range(3):
+        trees_np = np.minimum(rng.integers(t_total - 60, t_total + 60, m), t_total).astype(np.int32)
+        got = margin.finish(votes, torch.from_numpy(trees_np).to(dev), t_total, hist)
+        want = margin.finish(cpu_votes, torch.from_numpy(trees_np), t_total, want_hist)
+        for name, g, w in zip(("classes", "margin", "confidence"), got, want):
+            assert g.dtype == w.dtype, name
+            assert_same(g, w.numpy(), f"{name} m={m} c={c} call {call}")
+        assert hist.state() == want_hist.state(), f"histogram m={m} c={c} call {call}"
+    unbinned = margin.finish(votes, torch.from_numpy(trees_np).to(dev), t_total)
+    assert all(torch.equal(g, w.to(dev)) for g, w in zip(unbinned, want))
+    torch.cuda.synchronize()
+    assert margin.LAUNCHES["exit_test"] - before["exit_test"] == 2      # none for no survivors
+    assert margin.LAUNCHES["finish"] - before["finish"] == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [2, 3, 7, 16])
+def test_margin_kernels_equal_plain_on_card(cuda_device, c):
+    """Both kernels against their plain versions, bit for bit: ties, the
+    float64 trap (29 against 0.58·50), M off the 256-row block, one record,
+    no survivors, and margins past the last boundary (T ≥ 300)."""
+    for m, seed in ((1, 1), (300, 2), (65_536, 3)):
+        _card_margin_case(cuda_device, m, c, seed)
+
+
+@pytest.mark.gpu
+def test_margin_bins_under_streams(cuda_device):
+    """Finishes on four threads, each on a stream of its own, bin into one
+    histogram while another thread reads it: every read is whole (the
+    buckets sum to the count, the least and greatest lie among the
+    margins), and the last equals ``observe_many`` of every margin."""
+    t_total, m = 300, 65_536
+    tallies = [torch.from_numpy(_tally(m, 7, t_total, seed=20 + i)).to(cuda_device) for i in range(4)]
+    trees = torch.full((m,), t_total, dtype=torch.int32, device=cuda_device)
+    hist = _margin_histogram()
+    margins, errors, torn, stop = [], [], [], threading.Event()
+
+    def serve(votes):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(device=cuda_device)):
+                for _ in range(25):
+                    margins.append(margin.finish(votes, trees, t_total, hist)[1])
+                torch.cuda.current_stream(cuda_device).synchronize()
+        except Exception as e:  # noqa: BLE001 - reported by the assertion below
+            errors.append(e)
+
+    def read():
+        while not stop.is_set():
+            st = hist.state()
+            if sum(st["bucket_counts"]) != st["count"] or (
+                    st["count"] and not 0 <= st["min"] <= st["max"] <= t_total):
+                torn.append(st)
+
+    reader = threading.Thread(target=read)
+    workers = [threading.Thread(target=serve, args=(v,)) for v in tallies]
+    reader.start()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=120)
+    stop.set()
+    reader.join(timeout=30)
+    assert not errors and not torn and not reader.is_alive() and not any(w.is_alive() for w in workers)
+    want = _margin_histogram()
+    want.observe_many(torch.cat(margins).cpu().numpy())
+    assert len(margins) == 100 and hist.state() == want.state()
+
+
+def _frame_forest(n_attrs: int = 19, n_classes: int = 7) -> EncodedForest:
+    """50 trees as ``forest-frame``'s plan takes them (26 + 24): 25 vote
+    class 2 whatever the record and go first, 25 are random, so a record
+    exits after the first stage where its random tree there votes 2 too."""
+    trees = [PortNode(class_val=2)] * 25 + [
+        port_random_tree(n_attrs=n_attrs, n_classes=n_classes, max_depth=6, seed=i) for i in range(25)]
+    return EncodedForest([port_encode(t) for t in trees])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["cuda", "torch"])
+def test_cascade_on_card_equals_cpu(cuda_device, engine):
+    """A whole evaluator on the card equals it on the CPU, field for field and
+    in its exit-margin histogram, and adds two margin launches a call."""
+    forest = _frame_forest()
+    rec = _records(4_099, 19, seed=5)
+    plan = plan_cascade(forest, rec[:512], n_classes=7, stages=2, bound=1.0, device="cpu")
+    assert plan.stage_sizes == (26, 24)
+    regs = {"card": obs.Registry(), "cpu": obs.Registry()}
+    card = CascadeEvaluator(forest, plan, n_classes=7, bound=1.0, engine=engine, registry=regs["card"],
+                            device=cuda_device)
+    host = CascadeEvaluator(forest, plan, n_classes=7, bound=1.0, engine=engine, registry=regs["cpu"],
+                            device="cpu")
+    before = dict(margin.LAUNCHES)
+    for seed in range(3):
+        batch = _records(4_099, 19, seed=10 + seed)
+        got, want = card(torch.from_numpy(batch).to(cuda_device)), host(batch)
+        for field in FIELDS:
+            assert_same(getattr(got, field), getattr(want, field).numpy(), f"{engine} {field}")
+        assert got.stage_survivors == want.stage_survivors and got.stages_run == want.stages_run == 2
+        assert 0 < got.stage_survivors[1] < 4_099
+    assert {k: margin.LAUNCHES[k] - before[k] for k in before} == {"exit_test": 3, "finish": 3}
+    snaps = {k: obs.snapshot(r)["histograms"]["cascade.exit_margin"] for k, r in regs.items()}
+    assert snaps["card"] == snaps["cpu"] and snaps["card"]["count"] == 3 * 4_099
+
+
+def test_margin_kernels_read_as_time_outside_the_tree_kernels():
+    """The benchmark reads K1–K8 by their frozen names; the margin kernels'
+    names match none of them, so their time counts as the vote's."""
+    trace_reader = pytest.importorskip("perfbench.trace_reader")
+    src = margin.SOURCE.read_text()
+    defined = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\s*\(\w+\)\s*)?(\w+)\s*\(", src)
+    assert sorted(defined) == ["cascade_exit_test_kernel", "cascade_finish_kernel"]
+    for name in defined:
+        assert not trace_reader.is_tree_kernel(f"void (anonymous namespace)::{name}(int const*, int)")
+
+
+def test_exit_margin_histogram_under_threads():
+    """Evaluators on 12 threads (more than the cores) share a registry while
+    another thread reads it: no margin is lost or counted twice."""
+    reg = obs.Registry()
+    plan = plan_cascade(F10, REC, n_classes=5, stages=2, bound=1.0, device="cpu")
+    evs = [CascadeEvaluator(F10, plan, n_classes=5, bound=1.0, registry=reg, device="cpu")
+           for _ in range(12)]
+    hist = reg.histogram("cascade.exit_margin", "final top-1 minus top-2 vote margins",
+                         boundaries=MARGIN_BOUNDARIES)
+    margins, errors, stop = [], [], threading.Event()
+
+    def serve(ev):
+        try:
+            for _ in range(8):
+                margins.append(ev(REC).margin.numpy())
+        except Exception as e:  # noqa: BLE001 - reported by the assertion below
+            errors.append(e)
+
+    def read():
+        while not stop.is_set():
+            obs.snapshot(reg)
+
+    saved = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        reader = threading.Thread(target=read)
+        workers = [threading.Thread(target=serve, args=(ev,)) for ev in evs]
+        reader.start()
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=120)
+        stop.set()
+        reader.join(timeout=30)
+    finally:
+        sys.setswitchinterval(saved)
+    assert not errors and not reader.is_alive() and not any(w.is_alive() for w in workers)
+    want = obs.Registry().histogram("m", boundaries=MARGIN_BOUNDARIES)
+    want.observe_many(np.concatenate(margins))
+    assert len(margins) == 96 and hist.state() == want.state()

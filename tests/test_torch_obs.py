@@ -547,3 +547,78 @@ def test_perf_corrupt_history_raises_the_same(tmp_path):
     with pytest.raises(ValueError) as torch_err:
         torch_perf.load_history(path)
     assert str(torch_err.value) == str(jax_err.value) and "bad.jsonl:3" in str(torch_err.value)
+
+
+# ---------------------------------------------------------------------------
+# pending buffers, folded on read
+# ---------------------------------------------------------------------------
+
+FOLD_BOUNDARIES = (0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0)
+FOLD_BATCHES = ([0, 1, 1, 2, 3, 7, 256, 257, 40], [5, 0, 4, 4, 4], [1000, 1, 17], [9, 300, 2])
+
+
+def _produce(buf: torch.Tensor, values) -> None:
+    """Add integer observations to a pending buffer as a kernel does."""
+    v = np.asarray(values, np.int64)
+    nb = len(FOLD_BOUNDARIES) + 1
+    adds = np.bincount(np.searchsorted(FOLD_BOUNDARIES, v, side="left"), minlength=nb)
+    buf[:nb] += torch.from_numpy(adds)
+    buf[nb] += v.size
+    buf[nb + 1] += int(v.sum())
+    buf[nb + 2] = min(int(buf[nb + 2]), int(v.min()))
+    buf[nb + 3] = max(int(buf[nb + 3]), int(v.max()))
+
+
+# Each case: the steps between two reads, each step (source, batch index);
+# "disabled" runs on a disabled registry, where a histogram hands out no buffer.
+FOLD_CASES = {
+    "one source": [[("a", 0)]],
+    "two sources": [[("a", 0), ("b", 1)]],
+    "several folds": [[("a", 0)], [("a", 1), ("b", 2)], [], [("b", 3), ("a", 1)]],
+    "with observe_many": [[("a", 0), (None, 2)], [("b", 1)]],
+    "disabled": [[("a", 0), ("b", 1)]],
+}
+FOLD_READS = {
+    "count": lambda h, reg: h.count,
+    "sum": lambda h, reg: h.sum,
+    "min_max": lambda h, reg: (h.state()["min"], h.state()["max"]),
+    "bucket_counts": lambda h, reg: h.state()["bucket_counts"],
+    "quantiles": lambda h, reg: [h.quantile(q) for q in (0.0, 0.1, 0.5, 0.95, 0.99, 1.0)],
+    "percentiles": lambda h, reg: h.percentiles(),
+    "state": lambda h, reg: h.state(),
+    "snapshot": lambda h, reg: obs.snapshot(reg),
+    "prometheus": lambda h, reg: obs.prometheus_text(reg),
+}
+
+
+@pytest.mark.parametrize("read", sorted(FOLD_READS))
+@pytest.mark.parametrize("case", sorted(FOLD_CASES))
+def test_pending_buffers_read_as_observe_many(case, read):
+    """A histogram fed through pending buffers reads, by every read path and
+    after every step, what ``observe_many`` of the same values gives."""
+    enabled = case != "disabled"
+    reg, ref_reg = obs.Registry(enabled=enabled), obs.Registry(enabled=enabled)
+    h = reg.histogram("t.margin", "m", boundaries=FOLD_BOUNDARIES)
+    ref = ref_reg.histogram("t.margin", "m", boundaries=FOLD_BOUNDARIES)
+    made = []
+
+    def make(init):
+        made.append(torch.tensor(init, dtype=torch.int64))
+        return made[-1]
+
+    fn = FOLD_READS[read]
+    for steps in FOLD_CASES[case]:
+        for source, i in steps:
+            if source is None:
+                h.observe_many(FOLD_BATCHES[i])
+            else:
+                buf = h.pending(source, make)
+                assert (buf is None) == (not enabled)
+                if buf is not None:
+                    assert buf is h.pending(source, make)
+                    _produce(buf, FOLD_BATCHES[i])
+            ref.observe_many(FOLD_BATCHES[i])
+        assert fn(h, reg) == fn(ref, ref_reg), (case, read)
+        assert fn(h, reg) == fn(ref, ref_reg), (case, read, "read twice")
+    assert len(made) == len({s for steps in FOLD_CASES[case] for s, _ in steps if s}) * enabled
+    assert h.state() == ref.state()
