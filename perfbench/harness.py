@@ -4,7 +4,10 @@ Everything that belongs to a configuration, a traffic mix or a per-layer
 metric is a file found by name:
 
 - ``BENCHMARK.json`` names the cell's configuration, traffic mix and metrics;
-- ``configs/<config>.json`` holds the configuration's sizes and CART settings;
+- ``configs/<config>.json`` holds the configuration's sizes and its kind:
+  a tree cell's CART settings (``"kind"`` absent or ``"tree"``), or a
+  model cell's sizes, mesh, reference and check limits (``"model"``,
+  ``perfbench/model_cell.py``);
 - ``traffic/<traffic>.json`` holds the mix's parameters and names a driver,
   ``drivers/<driver>.py``, that runs the mix;
 - ``metrics/<metric>.py`` reads one metric, end-to-end from the window or
@@ -12,7 +15,7 @@ metric is a file found by name:
   the first dot (``idle_pct.cart``, ``idle_pct.forest``) share
   ``metrics/<stem>.py`` unless a file of their full name exists.
 
-The trees are the configuration's weights: the reference trainer
+Tree cells.  The trees are the configuration's weights: the reference trainer
 (``reference/cart.py``) trains them from the configuration's data seed, and
 they are kept in ``cache/`` inside the checkout, keyed by configuration and
 by a hash of the trainer's source, so only a checkout's first run trains.
@@ -21,6 +24,11 @@ by a hash of the trainer's source, so only a checkout's first run trains.
 The program under test is reached only through the driver, which builds it
 from the node arrays and records made here; the reference judges the
 program's classes record by record.
+
+Model cells make their weights and prompts from ``--seed`` and judge the
+served tokens against a plain reference (``perfbench/model_cell.py``); on
+several cards each rank runs this module's :func:`run_cell`, and rank 0
+ends the window for all of them (``perfbench/ranks.py``).
 """
 
 from __future__ import annotations
@@ -87,9 +95,11 @@ def reported(metric: dict, cell: str, bench: dict) -> bool:
     return moves is None or "workloads" not in moves or cell in moves["workloads"]
 
 
-def load_cell(root: Path, name: str) -> Cell:
-    """The cell ``name`` of ``root/BENCHMARK.json`` with its files loaded."""
-    bench = json.loads((root / "BENCHMARK.json").read_text())
+def load_cell(root: Path, name: str, bench: dict | None = None) -> Cell:
+    """The cell ``name`` of ``root/BENCHMARK.json`` (or of ``bench``, a
+    dict of the same keys) with its files loaded."""
+    if bench is None:
+        bench = json.loads((root / "BENCHMARK.json").read_text())
     work = next((w for w in bench["workloads"] if w["name"] == name), None)
     if work is None:
         raise KeyError(f"no workload named {name!r} in BENCHMARK.json")
@@ -166,6 +176,24 @@ class Context:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    agree = None             # one card: no ranks to agree with
+
+    def frames_of(self, records: int) -> float:
+        return records / self.frame_records
+
+    def call_bounds(self, start: int, n: int) -> tuple[float, float]:
+        """The least seconds of one call of ``n`` records from pool row
+        ``start`` (``perfbench/cost.py``): the step's bound and the tree
+        kernels' alike."""
+        t_count, n_nodes = self.tables[0].shape
+        b = call_bound_s(n, int(self.cell.config["n_attrs"]), t_count, n_nodes,
+                         float(self.row_compares[start + n] - self.row_compares[start]))
+        return b, b
+
+    def judge(self, kept: list, missing: int, device_info: dict):
+        check, wrong_answers = judge(self, kept, missing)
+        return check, wrong_answers + missing, device_info, {}
+
 
 @dataclasses.dataclass
 class Window:
@@ -174,36 +202,45 @@ class Window:
 
     seconds: float
     units: int               # calls made (one `step` each)
-    records: int             # real records classified
+    records: int             # real records classified (a model cell: tokens decoded)
     frames: float
     latencies: list          # seconds a step
-    stretch: dict | None     # the traced stretch: its seconds, records and bound
+    stretch: dict | None     # the traced stretch: its seconds, records and bounds
     setup_s: float = 0.0     # process start to the window's first step
 
 
-def run_window(driver, ctx: Context, seconds: float, trace=None) -> Window:
+def run_window(driver, ctx, seconds: float, trace=None) -> Window:
     """Drive ``driver.step`` back to back for ``seconds``; with ``trace``,
-    profile the first ``trace_seconds`` of it."""
-    t_count, n_nodes = ctx.tables[0].shape
-    a = int(ctx.cell.config["n_attrs"])
-    row_compares = ctx.row_compares
+    profile the first ``trace_seconds`` of it.
+
+    A step returns its calls as (start, n): ``n`` units of work credited
+    (records, tokens), and what the context's ``call_bounds`` needs to
+    bound the call, read only in the traced stretch.  On several ranks
+    (``ctx.agree``) rank 0 decides before each step whether the window, or
+    the traced stretch, has ended, and every rank follows."""
     trace_s = float(ctx.cell.traffic.get("trace_seconds", 0)) if trace is not None else 0.0
+    agree = ctx.agree
 
     lat, units, records = [], 0, 0
-    bound = 0.0
+    bound = kernel_bound = 0.0
     stretch = None
 
     def traced(t_stop: float) -> dict:
         trace.stop()
         return {"seconds": t_stop - t0, "records": records, "bound_s": bound,
-                "frames": records / ctx.frame_records}
+                "kernel_bound_s": kernel_bound, "frames": ctx.frames_of(records)}
 
     if trace is not None:
         trace.start()
     t0 = time.perf_counter()
     while True:
         t_a = time.perf_counter()
-        if t_a - t0 >= seconds:
+        done = t_a - t0 >= seconds
+        if agree is not None:
+            done, end = agree(done, trace is not None and stretch is None and t_a - t0 >= trace_s)
+            if end:
+                stretch = traced(t_a)
+        if done:
             break
         calls = driver.step()
         t_b = time.perf_counter()
@@ -212,15 +249,16 @@ def run_window(driver, ctx: Context, seconds: float, trace=None) -> Window:
         for start, n in calls:
             records += n
             if trace is not None and stretch is None:
-                bound += call_bound_s(n, a, t_count, n_nodes,
-                                      float(row_compares[start + n] - row_compares[start]))
-        if trace is not None and stretch is None and t_b - t0 >= trace_s:
+                b, k = ctx.call_bounds(start, n)
+                bound += b
+                kernel_bound += k
+        if agree is None and trace is not None and stretch is None and t_b - t0 >= trace_s:
             stretch = traced(t_b)
     t_end = time.perf_counter()
     if trace is not None and stretch is None:
         stretch = traced(t_end)
     return Window(seconds=t_end - t0, units=units, records=records,
-                  frames=records / ctx.frame_records, latencies=lat, stretch=stretch)
+                  frames=ctx.frames_of(records), latencies=lat, stretch=stretch)
 
 
 def judge(ctx: Context, kept: list, missing: int) -> tuple[dict, int]:
@@ -252,9 +290,9 @@ def judge(ctx: Context, kept: list, missing: int) -> tuple[dict, int]:
 
 
 def passed(check: dict) -> bool:
-    return (check["wrong_classes"]["value"] <= check["wrong_classes"]["limit"]
-            and check["answers_missing"]["value"] <= check["answers_missing"]["limit"]
-            and check["records_checked"]["value"] >= check["records_checked"]["min"])
+    """Every compared number within its limit (at most ``limit``, at least ``min``)."""
+    return all(v["value"] <= v["limit"] if "limit" in v else v["value"] >= v["min"]
+               for v in check.values())
 
 
 def make_frames(cell: Cell, seed: int, device: torch.device):
@@ -275,19 +313,30 @@ def make_frames(cell: Cell, seed: int, device: torch.device):
     return base, index, pool
 
 
-def run_cell(root: Path, cell: Cell, *, seed: int, seconds: float, trace: bool,
-             device: str, t_start: float, control: bool = False) -> tuple[dict, dict]:
-    """One run of ``cell``: returns (result line, compared numbers)."""
-    dev = torch.device(device)
-    marks = [("start", time.perf_counter())]
+def tree_context(cell: Cell, seed: int, dev: torch.device, control: bool, marks: list) -> Context:
+    """A tree cell's set-up: the trained trees, the frames, each pool row's compares."""
     tables = trained_tables(cell.config)
     marks.append(("trees", time.perf_counter()))
     base, index, pool = make_frames(cell, seed, dev)
     marks.append(("frames", time.perf_counter()))
     compares = ref_descend.classify(tables, base, int(cell.config["n_classes"]))[1]
     row_compares = np.concatenate([[0], np.cumsum(compares[index.reshape(-1)])])
-    ctx = Context(cell=cell, seed=seed, device=dev, tables=tables, base=base, index=index,
-                  pool=pool, row_compares=row_compares, control=control)
+    return Context(cell=cell, seed=seed, device=dev, tables=tables, base=base, index=index,
+                   pool=pool, row_compares=row_compares, control=control)
+
+
+def run_cell(root: Path, cell: Cell, *, seed: int, seconds: float, trace: bool,
+             device: str, t_start: float, control: bool = False, ranks=None):
+    """One run of ``cell``: returns (result line, compared numbers), or
+    (None, None) on a rank other than 0 of a cell on several cards."""
+    dev = torch.device(device)
+    marks = [("start", time.perf_counter())]
+    if cell.config.get("kind", "tree") == "tree":
+        ctx = tree_context(cell, seed, dev, control, marks)
+    else:
+        from perfbench import model_cell
+
+        ctx = model_cell.Context(cell=cell, seed=seed, device=dev, control=control, ranks=ranks)
     driver = load_module(root / "perfbench" / "drivers" / f"{cell.traffic['driver']}.py",
                          f"perfbench_driver_{cell.traffic['driver']}").Driver(ctx)
     marks.append(("program", time.perf_counter()))
@@ -300,6 +349,8 @@ def run_cell(root: Path, cell: Cell, *, seed: int, seconds: float, trace: bool,
         profiler = None
         if trace:
             profiler = trace_reader.Profiler(dev)
+        if ranks is not None:
+            agree_cost_s = ranks.message_cost()
         t_window = time.perf_counter()
         setup_s = t_window - t_start
         before = driver.counters()
@@ -310,28 +361,36 @@ def run_cell(root: Path, cell: Cell, *, seed: int, seconds: float, trace: bool,
         counters = {k: v - before.get(k, 0) for k, v in driver.counters().items()}
     finally:
         driver.close()
-    check, wrong_answers = judge(ctx, kept, missing)
+    device_info = {"peak": peak}
+    if trace:
+        read = profiler.read()
+        device_info.update(busy_s=read["busy_s"], kernel_s=read["kernel_s"],
+                           collective_s=read["collective_s"])
+    judged = ctx.judge(kept, missing, device_info)
+    if judged is None:
+        return None, None
+    check, failed, device_info, judge_info = judged
     result = {
         "correct": passed(check),
         "attempted": win.units,
-        "failed": wrong_answers + missing,
+        "failed": failed,
         "metrics": {},
         "device": {
             "platform": "gpu" if dev.type == "cuda" else dev.type,
             "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
             "count": cell.chips,
-            "memory_peak_bytes": peak,
+            "memory_peak_bytes": device_info["peak"],
         },
     }
     metrics = cell.per_layer if trace else cell.end_to_end
     if trace:
-        read = profiler.read()
-        result["device"]["busy_s"] = read["busy_s"]
+        result["device"]["busy_s"] = device_info["busy_s"]
         result["device"]["window_s"] = win.stretch["seconds"]
         source = trace_reader.TraceData(
-            window_s=win.stretch["seconds"], busy_s=read["busy_s"], kernel_s=read["kernel_s"],
-            bound_s=win.stretch["bound_s"], records=win.stretch["records"],
-            frames=win.stretch["frames"])
+            window_s=win.stretch["seconds"], busy_s=device_info["busy_s"],
+            kernel_s=device_info["kernel_s"], bound_s=win.stretch["bound_s"],
+            records=win.stretch["records"], frames=win.stretch["frames"],
+            collective_s=device_info["collective_s"], kernel_bound_s=win.stretch["kernel_bound_s"])
     else:
         source = dataclasses.replace(win, setup_s=setup_s)
     for metric in metrics:
@@ -345,7 +404,10 @@ def run_cell(root: Path, cell: Cell, *, seed: int, seconds: float, trace: bool,
             if win.latencies else None,
             "setup_parts_s": {name: b - a for (_, a), (name, b) in zip(
                 [("process", t_start)] + marks, marks)},
-            "counters": counters}
+            "counters": counters, **judge_info}
+    if ranks is not None and ranks.agree_calls:
+        info["agree_us_per_step"] = 1e6 * ranks.agree_s / ranks.agree_calls
+        info["agree_message_us"] = 1e6 * agree_cost_s
     result["check"] = check
     return result, info
 

@@ -1,4 +1,5 @@
-"""BENCHMARK.json against its contract and the files it names."""
+"""BENCHMARK.json against its contract and the files it names, and the cells
+kept in ``perfbench/cells/`` against the same rules."""
 
 import json
 import re
@@ -14,6 +15,11 @@ BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 CELLS = [w["name"] for w in BENCH["workloads"]]
+KEPT = {p.name: json.loads(p.read_text()) for p in sorted((ROOT / "perfbench" / "cells").glob("*.json"))}
+SECTIONS = ("configs", "workloads", "end_to_end", "per_layer")
+# BENCHMARK.json with every kept cell's entries added, as a PR that adds them would
+ALL = {**BENCH, **{k: BENCH[k] + [e for kept in KEPT.values() for e in kept[k]] for k in SECTIONS}}
+ALL_CELLS = [w["name"] for w in ALL["workloads"]]
 
 
 def test_top_level_keys_and_paths():
@@ -33,7 +39,7 @@ def test_names_units_and_keys():
         assert c["file"].startswith("perfbench/") and (ROOT / c["file"]).is_file()
     for w in BENCH["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
         for key in ("name", "config", "traffic"):
             assert NAME.match(w[key]), w[key]
     for m in BENCH["end_to_end"] + BENCH["per_layer"]:
@@ -47,29 +53,58 @@ def test_names_units_and_keys():
     for m in BENCH["per_layer"]:
         assert set(m) - {"workloads"} == {"name", "unit", "better", "source", "layer", "moves"}
         assert m["source"] in ("device_trace", "program_span", "program_counter", "host_clock")
+    # four cards only where the cell measures what exists across cards, and
+    # at most a quarter of the cells (rounded down), or one
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(1, len(BENCH["workloads"]) // 4)
     assert all(NAME.match(n) for n in names)
     assert len(set(names)) == len(names)
     assert any(m["name"] == "setup_s" and m["bound"] <= 0.25 for m in BENCH["end_to_end"])
 
 
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", ALL_CELLS)
 def test_cell_finds_its_files_by_name(name):
-    cell = harness.load_cell(ROOT, name)
+    cell = harness.load_cell(ROOT, name, ALL)
     assert (ROOT / "perfbench" / "drivers" / f"{cell.traffic['driver']}.py").is_file()
-    assert cell.config["name"] == next(w["config"] for w in BENCH["workloads"] if w["name"] == name)
+    assert cell.config["name"] == next(w["config"] for w in ALL["workloads"] if w["name"] == name)
     assert any(m["name"] == "setup_s" for m in cell.end_to_end)
     assert len(cell.end_to_end) >= 2 and cell.per_layer
     for m in cell.end_to_end + cell.per_layer:
         assert callable(harness.metric_reader(ROOT, m["name"]).read)
 
 
-@pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])
+@pytest.mark.parametrize("metric", [m["name"] for m in ALL["per_layer"]])
 def test_metric_moves_an_end_to_end_metric_of_each_of_its_cells(metric):
-    m = next(x for x in BENCH["per_layer"] if x["name"] == metric)
-    moves = next(e for e in BENCH["end_to_end"] if e["name"] == m["moves"])
+    m = next(x for x in ALL["per_layer"] if x["name"] == metric)
+    moves = next(e for e in ALL["end_to_end"] if e["name"] == m["moves"])
     assert m["moves"] != "setup_s"
-    for cell in m.get("workloads", CELLS):
-        assert cell in moves.get("workloads", CELLS)
+    for cell in m.get("workloads", ALL_CELLS):
+        assert cell in moves.get("workloads", ALL_CELLS)
+
+
+@pytest.mark.parametrize("file", sorted(KEPT))
+def test_a_kept_cell_is_entries_that_benchmark_json_could_take(file):
+    # the entries keep BENCHMARK.json's rules, name nothing it already names,
+    # and bring their own configuration, cell and end-to-end metric; the bound
+    # is the adding PR's to set
+    kept = KEPT[file]
+    assert set(kept) == {"note", *SECTIONS}
+    assert file == f"{kept['workloads'][0]['name']}.json"
+    for c in kept["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+        assert (ROOT / c["file"]).is_file() and not c["reduced"]
+    for w in kept["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"} and len(w["why"]) <= 200
+        assert w["config"] in {c["name"] for c in ALL["configs"]}
+        assert (ROOT / "perfbench" / "traffic" / f"{w['traffic']}.json").is_file()
+    for m in kept["end_to_end"]:
+        assert set(m) == {"name", "unit", "better", "bound", "source", "workloads"} and m["bound"] is None
+    for m in kept["per_layer"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "source", "layer", "moves"}
+    names = [e["name"] for k in SECTIONS for e in ALL[k]]
+    assert len(set(names)) == len(names)
+    assert all(NAME.match(n) for n in names)
+    assert all(UNIT.match(m["unit"]) for m in kept["end_to_end"] + kept["per_layer"])
 
 
 def test_each_layer_is_named_alike():

@@ -4,7 +4,9 @@ A traced run profiles the first ``trace_seconds`` of its window, host and
 device, in one session (a process's later sessions can lose kernels).  From
 the device events it takes the time the card was busy (the union of every
 kernel, copy and fill), the time inside the tree kernels (K1–K8, by the
-names frozen in ``TREE_KERNELS``), the device operations that took most
+names frozen in ``TREE_KERNELS``), the time inside NCCL's kernels (the
+collectives between cards, by their ``nccl`` prefix), the device
+operations that took most
 time, and the longest idle gaps named by the innermost host operation
 running across their middle.  Per-layer readers (``metrics/<name>.py``)
 take a :class:`TraceData` and return a number or ``None``.
@@ -33,6 +35,9 @@ TREE_KERNELS = {
     "K8": "fused_data_parallel_q_kernel",
 }
 KERNEL_RE = re.compile(r"\b(" + "|".join(sorted(TREE_KERNELS.values())) + r")\b")
+# NCCL's device kernels (``ncclDevKernel_AllGather_RING_LL``, ``ncclKernel_…``):
+# the collectives between cards, a class of their own
+COLLECTIVE_RE = re.compile(r"\bnccl", re.IGNORECASE)
 TOP = 10
 
 
@@ -43,8 +48,15 @@ class TraceData:
     window_s: host-clock length of the traced stretch.
     busy_s: union of the device's events in it.
     kernel_s: union of the tree kernels' events in it.
-    bound_s: the least time the stretch's calls need (``perfbench/cost.py``).
-    records, frames: real records and frames the stretch classified.
+    bound_s: the least time the stretch's calls need (``perfbench/cost.py``;
+      a model cell's decode steps: ``perfbench/cost_decode.py``).
+    records, frames: real records and frames the stretch classified (a
+      model cell: tokens decoded, no frames).
+    collective_s: union of NCCL's kernels in it.
+    kernel_bound_s: the least time of the stretch's tree-kernel work (a tree
+      cell's: ``bound_s``; a model cell's: its router launches on one rank).
+
+    On several cards the device times are each card's, averaged.
     """
 
     window_s: float
@@ -53,11 +65,18 @@ class TraceData:
     bound_s: float
     records: int
     frames: float
+    collective_s: float = 0.0
+    kernel_bound_s: float = 0.0
 
 
 def is_tree_kernel(name: str) -> bool:
     """Whether a device event's name is one of K1-K8's."""
     return KERNEL_RE.search(name) is not None
+
+
+def is_collective(name: str) -> bool:
+    """Whether a device event is one of NCCL's kernels."""
+    return COLLECTIVE_RE.search(name) is not None
 
 
 def union_length(spans) -> float:
@@ -110,6 +129,7 @@ class Profiler:
                 host.append((e.name, *span))
         busy = merged([(a, b) for _, a, b in device])
         kern = [(a, b) for n, a, b in device if is_tree_kernel(n)]
+        coll = [(a, b) for n, a, b in device if is_collective(n)]
         by_op: dict = {}
         for n, a, b in device:
             key = n.replace("(anonymous namespace)::", "").split("(")[0].strip()[:120]
@@ -119,6 +139,7 @@ class Profiler:
         return {
             "busy_s": union_length(busy) / 1e6,
             "kernel_s": union_length(kern) / 1e6,
+            "collective_s": union_length(coll) / 1e6,
             "device_ops": [[k, v] for k, v in sorted(by_op.items(), key=lambda kv: -kv[1])[:TOP]],
             "idle_gaps": idle_gaps(busy, host, lo, hi),
         }
