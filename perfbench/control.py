@@ -62,9 +62,12 @@ def main(argv=None) -> int:
     for seed in args.seeds:
         result, info = harness.run_cell(ROOT, cell, seed=seed, seconds=args.seconds, trace=False,
                                         device="cuda", t_start=time.perf_counter(), control=True)
-        print(json.dumps({"workload": args.workload, "seed": seed, "control": "bf16-records",
-                          "correct": result["correct"], "check": result["check"],
-                          "attempted": result["attempted"], "failed": result["failed"]}))
+        line = {"workload": args.workload, "seed": seed, "control": info.get("control", "bf16-records"),
+                "correct": result["correct"], "check": result["check"],
+                "attempted": result["attempted"], "failed": result["failed"]}
+        if "program_check" in info:             # a model cell: the program's own numbers beside
+            line.update(program_check=info["program_check"], info=info)
+        print(json.dumps(line))
     return 0
 
 

@@ -3,13 +3,14 @@ least time the cards of its mesh take for it.
 
 One rule counts the work whatever implements it, from the configuration's
 sizes alone: every weight read once in its served dtype (each layer's
-attention and all its experts, as a step of 128 tokens routed two ways
-reaches every one of 16 experts; the router's projection and thresholds
-and the norm scales in float32; the output projection over the real
-vocabulary), the embedding rows of the step's tokens, the KV cache read
-once at the positions before the step's and each new K and V written once;
-and the multiply-adds of the projections a token uses (its attention, its
-router, its two experts, the output head) and of its attention scores and
+attention and all its experts, as a step of 128 tokens or more, each routed to
+``top_k`` neighbouring experts, reaches every expert: phi's 16 two ways,
+granite's 40 eight ways; the router's projection and thresholds and the
+norm scales in float32; the output projection over the real vocabulary),
+the embedding rows of the step's tokens, the KV cache read once at the
+positions before the step's and each new K and V written once; and the
+multiply-adds of the projections a token uses (its attention, its router,
+its ``top_k`` experts, the output head) and of its attention scores and
 values.  The bound is the larger of the bytes over the cards' HBM bandwidth
 and the operations over their dense bf16 peak (NVIDIA's H100 SXM data
 sheet, the 700 W part), summed over ``chips`` cards.  Padding (vocabulary,

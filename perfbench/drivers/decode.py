@@ -204,7 +204,9 @@ class Driver:
     @torch.no_grad()
     def warm(self) -> None:
         """Prefill every prompt (set-up the traffic needs), then
-        ``warm_steps`` decode steps; the window starts at the prompt's end."""
+        ``warm_steps`` of the window's steps, their bookkeeping too, so that
+        no kernel is first loaded in the window; the window starts afresh at
+        the prompt's end."""
         tr = self.ctx.cell.traffic
         rows_call = int(tr["prefill_rows"]) // self.n_shards
         self.cache = self.model.init_cache(self.local, self.max_len)
@@ -227,11 +229,14 @@ class Driver:
             del logits, part, full
         self.mode = None
         self.first, _ = self._agreed(torch.cat(firsts))
-        inp = self.first
-        for j in range(int(tr["warm_steps"])):
-            _, inp, _ = self._decode(inp, self.s0 + j)
-        self._wait()
         self.pos, self.inp = self.s0, self.first
+        for _ in range(int(tr["warm_steps"])):         # the window's own step, what it kept dropped
+            self.step()
+        self.pos, self.inp = self.s0, self.first
+        self.steps = self.turns = 0
+        self.issue_s = self.wait_s = 0.0
+        self.positions, self.kept_logits = [], []
+        self.keep_rng = self.ctx.rng(3)
 
     @torch.no_grad()
     def step(self) -> list[tuple[int, int]]:

@@ -227,7 +227,7 @@ def run_window(driver, ctx, seconds: float, trace=None) -> Window:
 
     def traced(t_stop: float) -> dict:
         trace.stop()
-        return {"seconds": t_stop - t0, "records": records, "bound_s": bound,
+        return {"seconds": t_stop - t0, "units": units, "records": records, "bound_s": bound,
                 "kernel_bound_s": kernel_bound, "frames": ctx.frames_of(records)}
 
     if trace is not None:
@@ -348,7 +348,7 @@ def run_cell(root: Path, cell: Cell, *, seed: int, seconds: float, trace: bool,
             torch.cuda.reset_peak_memory_stats(dev)
         profiler = None
         if trace:
-            profiler = trace_reader.Profiler(dev)
+            profiler = trace_reader.Profiler(dev, host=bool(cell.traffic.get("trace_host", True)))
         if ranks is not None:
             agree_cost_s = ranks.message_cost()
         t_window = time.perf_counter()
@@ -365,7 +365,7 @@ def run_cell(root: Path, cell: Cell, *, seed: int, seconds: float, trace: bool,
     if trace:
         read = profiler.read()
         device_info.update(busy_s=read["busy_s"], kernel_s=read["kernel_s"],
-                           collective_s=read["collective_s"])
+                           collective_s=read["collective_s"], launches=read["launches"])
     judged = ctx.judge(kept, missing, device_info)
     if judged is None:
         return None, None
@@ -390,7 +390,8 @@ def run_cell(root: Path, cell: Cell, *, seed: int, seconds: float, trace: bool,
             window_s=win.stretch["seconds"], busy_s=device_info["busy_s"],
             kernel_s=device_info["kernel_s"], bound_s=win.stretch["bound_s"],
             records=win.stretch["records"], frames=win.stretch["frames"],
-            collective_s=device_info["collective_s"], kernel_bound_s=win.stretch["kernel_bound_s"])
+            collective_s=device_info["collective_s"], kernel_bound_s=win.stretch["kernel_bound_s"],
+            launches=device_info["launches"], steps=win.stretch["units"])
     else:
         source = dataclasses.replace(win, setup_s=setup_s)
     for metric in metrics:

@@ -114,7 +114,7 @@ class Context:
 def combine_devices(infos: list[dict]) -> dict:
     """The fullest card's peak; trace seconds averaged over the cards."""
     out = {"peak": max(i["peak"] for i in infos)}
-    for key in ("busy_s", "kernel_s", "collective_s"):
+    for key in ("busy_s", "kernel_s", "collective_s", "launches"):
         if key in infos[0]:
             out[key] = sum(i[key] for i in infos) / len(infos)
     return out

@@ -1,7 +1,9 @@
 """Plain PyTorch reference of a decoder with a tree-routed MoE, and the
 weights the benchmark makes for it from ``--seed``.
 
-The architecture is phi3.5-moe's as the port serves it (the configuration
+Every model configuration of the benchmark names it (phi3.5-moe, its first,
+gave the module its name; granite-moe uses it too).  The architecture is
+the port's decoder as it serves a tree-routed MoE (each configuration
 file's ``assumed`` lists where that departs from the published model):
 token embedding; per layer RMSNorm (a scale, no bias), grouped-query
 attention with plain RoPE (the head dim's halves rotate together) and a
@@ -9,18 +11,22 @@ causal softmax, RMSNorm, and a mixture of SwiGLU experts routed by a hard
 tree: ``z = h @ router_proj`` and a serial descent from node 0 of the
 perfect tree of depth ``d`` (node ``n`` goes right, to ``2n + 2``, when
 ``z[n] > router_thr[n]``, else left, to ``2n + 1``); leaf ``l`` picks
-expert ``l mod E`` and the one after it, each with gate 1/2; then a final
-RMSNorm and the output projection over the real vocabulary.
+expert ``l mod E`` and the ``top_k - 1`` after it (mod E), each with gate
+``1/top_k``; then a final RMSNorm and the output projection over the real
+vocabulary.
 
 Everything is float32 with TF32 off: no port code, no kernel, no cache;
 each sequence is run whole, layer by layer, and each layer's weights are
 made again from the seed (:class:`Weights`) and freed after it.  The
 program is only read: its routes, where given, are followed at a near-tie
-(the reference's router input within ``band`` of that node's threshold,
-in units of the node's spread over the sequence) so that its rounding does
-not send the reference down another expert; a differing route outside the
-band is counted and not followed.  ``act_round`` rounds the residual
-stream after the embedding and after every layer (the float8 control).
+(the reference's router input within ``band`` of the threshold, in units
+of the node's spread over the sequence, at the node where the reference's
+descent parts from one to a leaf of the program's expert; the least such
+reading where several leaves answer that expert) so that the program's
+rounding does not send the reference down another expert; a differing
+route outside the band is counted and not followed.  ``act_round`` rounds
+the residual stream after the embedding and after every layer (the float8
+control).
 """
 
 from __future__ import annotations
@@ -176,19 +182,35 @@ def split_node(a: torch.Tensor, b: torch.Tensor, depth: int) -> torch.Tensor:
     return (1 << first) - 1 + (a >> (depth - first))
 
 
-def experts(h: torch.Tensor, w: dict, e1: torch.Tensor, n_experts: int) -> torch.Tensor:
-    """Gate 1/2 on expert ``e1`` and on the one after it (mod E): the SwiGLU
-    FFN of each expert over the tokens routed to it."""
+def parting_margin(dist: torch.Tensor, leaf: torch.Tensor, expert: torch.Tensor, depth: int,
+                   n_experts: int) -> torch.Tensor:
+    """The band reading ``dist`` (..., I) at the node where the descent to
+    ``leaf`` parts from the nearest descent that answers ``expert``: every
+    leaf ``expert + j E`` below ``2**depth`` answers it (one where the tree
+    has as many leaves as experts; one or two for 40 experts under 64)."""
+    n_leaves = 1 << depth
+    best = torch.full(leaf.shape, math.inf, dtype=dist.dtype, device=dist.device)
+    for base in range(0, n_leaves, n_experts):
+        other = expert + base
+        ok = other < n_leaves
+        node = split_node(leaf, torch.where(ok, other, expert), depth)
+        best = torch.where(ok, torch.minimum(best, dist.gather(-1, node[..., None])[..., 0]), best)
+    return best
+
+
+def experts(h: torch.Tensor, w: dict, e1: torch.Tensor, n_experts: int, top_k: int) -> torch.Tensor:
+    """Gate ``1/top_k`` on expert ``e1`` and on the ``top_k - 1`` after it
+    (mod E): the SwiGLU FFN of each expert over the tokens routed to it."""
     flat = h.reshape(-1, h.shape[-1])
     first = e1.reshape(-1)
     y = torch.zeros_like(flat)
     for e in range(n_experts):
-        rows = ((first == e) | ((first + 1) % n_experts == e)).nonzero()[:, 0]
+        rows = ((e - first) % n_experts < top_k).nonzero()[:, 0]
         if rows.numel() == 0:
             continue
         x = flat[rows]
         wi, wg, wo = (w[k][e].float() for k in ("wi", "wg", "wo_e"))
-        y.index_add_(0, rows, 0.5 * ((torch.nn.functional.silu(x @ wg) * (x @ wi)) @ wo))
+        y.index_add_(0, rows, (1.0 / top_k) * ((torch.nn.functional.silu(x @ wg) * (x @ wi)) @ wo))
     return y.view_as(h)
 
 
@@ -203,7 +225,7 @@ def forward(weights: Weights, tokens: torch.Tensor, *, routes: torch.Tensor | No
     (differing outside the band), ``near_ties`` and ``splits`` (the band
     reading of every differing route, at the node where the paths part)."""
     cfg = weights.cfg
-    depth, n_exp = tree_depth(cfg), cfg["moe"]["n_experts"]
+    depth, n_exp, top_k = tree_depth(cfg), cfg["moe"]["n_experts"], cfg["moe"]["top_k"]
     eps = cfg["norm_eps"]
     rnd = act_round or (lambda t: t)
     taken, wrong, ties, splits = [], 0, 0, []
@@ -217,19 +239,18 @@ def forward(weights: Weights, tokens: torch.Tensor, *, routes: torch.Tensor | No
             z = h @ w["router_proj"]
             leaf = descend(z, w["router_thr"], depth)
             if routes is not None:
-                prog = routes[i].to(leaf.device).long()       # experts; a leaf each, as leaves == experts
+                prog = routes[i].to(leaf.device).long()       # the program's experts
                 differs = prog != leaf % n_exp
                 if bool(differs.any()):
-                    node = split_node(leaf, prog, depth)
                     spread = z.std(dim=1, keepdim=True).clamp_min(1e-30)       # (n, 1, I)
-                    margin = ((z - w["router_thr"]).abs() / spread).gather(-1, node[..., None])[..., 0]
+                    margin = parting_margin((z - w["router_thr"]).abs() / spread, leaf, prog, depth, n_exp)
                     tie = differs & (margin <= band)
                     wrong += int((differs & ~tie).sum())
                     ties += int(tie.sum())
                     splits.append(margin[differs].cpu())
                     leaf = torch.where(tie, prog, leaf)
             taken.append(leaf % n_exp)
-            x = rnd(x + experts(h, w, leaf % n_exp, n_exp))
+            x = rnd(x + experts(h, w, leaf % n_exp, n_exp, top_k))
             del w, h, z
         logits = rmsnorm(x, top["final_norm"].float(), eps) @ top["lm_head"].float()
     return {"logits": logits, "routes": torch.stack(taken), "wrong_routes": wrong,

@@ -21,14 +21,30 @@ def pytest_configure(config):
     config.addinivalue_line("markers", "gpu: needs a CUDA device; skips without one")
 
 
+def with_kept(bench: dict, kept_cells: list) -> dict:
+    """``bench`` with the entries of each kept cell added: an end-to-end
+    entry that names a metric ``bench`` has (``name`` and ``workloads``
+    alone) adds the cell to that metric's ``workloads``, under its bound."""
+    out = {**bench, "end_to_end": [dict(m) for m in bench["end_to_end"]]}
+    for kept in kept_cells:
+        for key in ("configs", "workloads", "end_to_end", "per_layer"):
+            have = {m["name"]: m for m in out[key]} if key == "end_to_end" else {}
+            fresh = [e for e in kept[key] if e["name"] not in have]
+            for e in kept[key]:
+                if e["name"] in have:
+                    have[e["name"]]["workloads"] = have[e["name"]]["workloads"] + e["workloads"]
+            out[key] = out[key] + fresh
+    return out
+
+
+def kept_files() -> dict:
+    """The kept cells' files by name, parsed."""
+    return {p.name: json.loads(p.read_text()) for p in sorted((ROOT / "perfbench" / "cells").glob("*.json"))}
+
+
 def bench_with_kept() -> dict:
     """BENCHMARK.json with the entries of every kept cell added."""
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    for path in sorted((ROOT / "perfbench" / "cells").glob("*.json")):
-        kept = json.loads(path.read_text())
-        for key in ("configs", "workloads", "end_to_end", "per_layer"):
-            bench[key] = bench[key] + kept[key]
-    return bench
+    return with_kept(json.loads((ROOT / "BENCHMARK.json").read_text()), list(kept_files().values()))
 
 
 def kept_cell(name: str):
@@ -50,18 +66,26 @@ def checkout_with_kept(dest: Path) -> Path:
 
 def small_model(cfg: dict, traffic: dict) -> None:
     """A model cell's configuration and traffic at CPU-test size, in place:
-    the port's smoke phi3.5-moe (2 layers, width 64, 4 experts, 512 ids) in
-    float32 with its own limits, 8 prompts of 128 tokens (one 512-token MoE
-    group a batch shard), turns of 8 tokens, 4 rows checked."""
-    cfg.update(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=512,
-               dtype="float32", param_dtype="float32")
-    cfg["moe"] = {**cfg["moe"], "n_experts": 4, "d_ff": 128}
+    the widths, depth, experts and vocabulary of the port's smoke twin of
+    the configuration's registry entry (``get_smoke_config``) in float32 with
+    their own limits, 8 prompts of 128 tokens (one 512-token MoE group a
+    batch shard), turns of 8 tokens, 4 rows checked with their logits kept
+    at every step (a fault that shows from a turn's second step on is seen
+    however few steps a loaded machine runs)."""
+    from repro_torch.configs import get_smoke_config
+
+    smoke = get_smoke_config(cfg["registry"])
+    cfg.update({k: getattr(smoke, k) for k in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
+                                                "vocab_size")})
+    cfg["moe"] = {**cfg["moe"], **{k: getattr(smoke.moe, k) for k in ("n_experts", "top_k", "d_ff",
+                                                                      "router_tree_depth")}}
+    cfg.update(dtype="float32", param_dtype="float32")
     # float32 at this size: the program reads ~1e-6 of the logits' scale, the
     # float8 control ~0.07 over two layers (the full model's limits are for
     # bfloat16 over 32)
     cfg["check"] = {**cfg["check"], "logit_err": 0.01, "token_gap": 0.01}
     traffic.update(batch=8, prompt_tokens=128, turn_tokens=8, prefill_rows=8, warm_steps=2, kept_rows=4,
-                   check_every=2, max_kept_steps=256, trace_seconds=0.2)
+                   check_every=1, max_kept_steps=256, trace_seconds=0.2)
 
 
 def small(cell):

@@ -1,6 +1,7 @@
 """BENCHMARK.json against its contract and the files it names, and the cells
 kept in ``perfbench/cells/`` against the same rules."""
 
+import hashlib
 import json
 import re
 import shutil
@@ -9,17 +10,23 @@ from pathlib import Path
 import pytest
 
 from perfbench import cost, harness, trace_reader
+from perfbench.tests.conftest import kept_files, with_kept
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 CELLS = [w["name"] for w in BENCH["workloads"]]
-KEPT = {p.name: json.loads(p.read_text()) for p in sorted((ROOT / "perfbench" / "cells").glob("*.json"))}
+KEPT = kept_files()
 SECTIONS = ("configs", "workloads", "end_to_end", "per_layer")
 # BENCHMARK.json with every kept cell's entries added, as a PR that adds them would
-ALL = {**BENCH, **{k: BENCH[k] + [e for kept in KEPT.values() for e in kept[k]] for k in SECTIONS}}
+ALL = with_kept(BENCH, list(KEPT.values()))
 ALL_CELLS = [w["name"] for w in ALL["workloads"]]
+KINDS = {c["name"]: json.loads((ROOT / c["file"]).read_text()).get("kind", "tree") for c in ALL["configs"]}
+# the tree cells' entries, as the benchmark's first PR set them: later entries
+# are added beside them, never in their place
+TREE_CONFIGS = ("seg-cart", "seg-bagged50")
+TREE_ENTRIES_SHA256 = "b5f2517c8e23c52b3c26a4fb5ede60f12799ccceb0cb273697d49a29662fc135"
 
 
 def test_top_level_keys_and_paths():
@@ -89,6 +96,7 @@ def test_a_kept_cell_is_entries_that_benchmark_json_could_take(file):
     # is the adding PR's to set
     kept = KEPT[file]
     assert set(kept) == {"note", *SECTIONS}
+    shared = {m["name"] for m in BENCH["end_to_end"]}
     assert file == f"{kept['workloads'][0]['name']}.json"
     for c in kept["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
@@ -98,13 +106,54 @@ def test_a_kept_cell_is_entries_that_benchmark_json_could_take(file):
         assert w["config"] in {c["name"] for c in ALL["configs"]}
         assert (ROOT / "perfbench" / "traffic" / f"{w['traffic']}.json").is_file()
     for m in kept["end_to_end"]:
-        assert set(m) == {"name", "unit", "better", "bound", "source", "workloads"} and m["bound"] is None
+        if m["name"] in shared:           # joins a metric of BENCHMARK.json, under its bound
+            assert set(m) == {"name", "workloads"}
+            assert set(m["workloads"]) <= {w["name"] for w in kept["workloads"]}
+        else:
+            assert set(m) == {"name", "unit", "better", "bound", "source", "workloads"} and m["bound"] is None
     for m in kept["per_layer"]:
         assert set(m) - {"workloads"} == {"name", "unit", "better", "source", "layer", "moves"}
     names = [e["name"] for k in SECTIONS for e in ALL[k]]
     assert len(set(names)) == len(names)
     assert all(NAME.match(n) for n in names)
-    assert all(UNIT.match(m["unit"]) for m in kept["end_to_end"] + kept["per_layer"])
+    assert all(UNIT.match(m["unit"]) for m in kept["end_to_end"] + kept["per_layer"] if m["name"] not in shared)
+
+
+def test_every_per_layer_metric_moves_an_end_to_end_metric_of_benchmark_json():
+    names = {m["name"] for m in BENCH["end_to_end"]}
+    for m in BENCH["per_layer"]:
+        assert m["moves"] in names, m["name"]
+
+
+@pytest.mark.parametrize("metric", [m["name"] for m in ALL["end_to_end"] + ALL["per_layer"]])
+def test_every_metric_has_a_reader_file_of_its_name_or_stem(metric):
+    folder = ROOT / "perfbench" / "metrics"
+    assert (folder / f"{metric}.py").is_file() or (folder / f"{metric.split('.')[0]}.py").is_file()
+
+
+def test_the_shared_decode_rate_lists_model_cells_alone():
+    rate = next(m for m in BENCH["end_to_end"] if m["name"] == "decode_tokens_per_s")
+    config = {w["name"]: w["config"] for w in ALL["workloads"]}
+    assert rate["workloads"]
+    for cell in next(m for m in ALL["end_to_end"] if m["name"] == "decode_tokens_per_s")["workloads"]:
+        assert KINDS[config[cell]] == "model", cell
+    # every model cell's per-layer metrics move it
+    for m in ALL["per_layer"]:
+        if any(KINDS[config[c]] == "model" for c in m["workloads"]):
+            assert m["moves"] == "decode_tokens_per_s", m["name"]
+
+
+def test_the_tree_entries_are_unchanged():
+    cells = {w["name"] for w in BENCH["workloads"] if w["config"] in TREE_CONFIGS}
+    rates = {m["name"] for m in BENCH["end_to_end"]
+             if m["name"] == "setup_s" or set(m.get("workloads", ())) <= cells}
+    tree = {
+        "configs": [c for c in BENCH["configs"] if c["name"] in TREE_CONFIGS],
+        "workloads": [w for w in BENCH["workloads"] if w["name"] in cells],
+        "end_to_end": [m for m in BENCH["end_to_end"] if m["name"] in rates],
+        "per_layer": [m for m in BENCH["per_layer"] if m["moves"] in rates],
+    }
+    assert hashlib.sha256(json.dumps(tree, sort_keys=True).encode()).hexdigest() == TREE_ENTRIES_SHA256
 
 
 def test_each_layer_is_named_alike():

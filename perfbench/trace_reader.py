@@ -1,13 +1,17 @@
 """The traced stretch: one ``torch.profiler`` session and what it saw.
 
 A traced run profiles the first ``trace_seconds`` of its window, host and
-device, in one session (a process's later sessions can lose kernels).  From
+device, in one session (a process's later sessions can lose kernels); a
+traffic mix with ``"trace_host": false`` has the device and the CUDA runtime's
+calls traced without the host's operations, so that a step of thousands of
+small launches is not slowed by the host's record of each operation, and
+idle gaps outside a runtime call go unnamed.  From
 the device events it takes the time the card was busy (the union of every
 kernel, copy and fill), the time inside the tree kernels (K1–K8, by the
 names frozen in ``TREE_KERNELS``), the time inside NCCL's kernels (the
 collectives between cards, by their ``nccl`` prefix), the device
 operations that took most
-time, and the longest idle gaps named by the innermost host operation
+time, how many kernels it ran, and the longest idle gaps named by the innermost host operation
 running across their middle.  Per-layer readers (``metrics/<name>.py``)
 take a :class:`TraceData` and return a number or ``None``.
 """
@@ -55,8 +59,11 @@ class TraceData:
     collective_s: union of NCCL's kernels in it.
     kernel_bound_s: the least time of the stretch's tree-kernel work (a tree
       cell's: ``bound_s``; a model cell's: its router launches on one rank).
+    launches: the device's kernels in it (copies and fills not counted).
+    steps: the driver's steps in it (a tree cell's calls, a model cell's
+      decode steps).
 
-    On several cards the device times are each card's, averaged.
+    On several cards the device times and launches are each card's, averaged.
     """
 
     window_s: float
@@ -67,11 +74,18 @@ class TraceData:
     frames: float
     collective_s: float = 0.0
     kernel_bound_s: float = 0.0
+    launches: float = 0.0
+    steps: int = 0
 
 
 def is_tree_kernel(name: str) -> bool:
     """Whether a device event's name is one of K1-K8's."""
     return KERNEL_RE.search(name) is not None
+
+
+def is_kernel(name: str) -> bool:
+    """Whether a device event is a kernel: not a copy or a fill."""
+    return not name.startswith(("Memcpy", "Memset"))
 
 
 def is_collective(name: str) -> bool:
@@ -99,14 +113,19 @@ def merged(spans) -> list[tuple[float, float]]:
     return [(a, b) for a, b in out]
 
 
+HOST_UNNAMED = "host outside any profiled op"
+HOST_UNTRACED = "host outside any CUDA call (host ops not traced)"
+
+
 class Profiler:
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, host: bool = True):
         from torch.profiler import ProfilerActivity, profile
 
-        acts = [ProfilerActivity.CPU]
+        host = host or device.type != "cuda"
+        acts = [ProfilerActivity.CPU] if host else []
         if device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
-        self.device = device
+        self.device, self.host = device, host
         self.prof = profile(activities=acts, acc_events=True)
 
     def start(self) -> None:
@@ -140,14 +159,17 @@ class Profiler:
             "busy_s": union_length(busy) / 1e6,
             "kernel_s": union_length(kern) / 1e6,
             "collective_s": union_length(coll) / 1e6,
+            "launches": sum(is_kernel(n) for n, _, _ in device),
             "device_ops": [[k, v] for k, v in sorted(by_op.items(), key=lambda kv: -kv[1])[:TOP]],
-            "idle_gaps": idle_gaps(busy, host, lo, hi),
+            "idle_gaps": idle_gaps(busy, host, lo, hi,
+                                   HOST_UNNAMED if self.host else HOST_UNTRACED),
         }
 
 
-def idle_gaps(busy, host, lo: float, hi: float) -> list:
+def idle_gaps(busy, host, lo: float, hi: float, unnamed: str = HOST_UNNAMED) -> list:
     """Idle time between ``lo`` and ``hi`` (µs) by the innermost host operation
-    that spans each gap's middle; the ``TOP`` names with most idle seconds."""
+    that spans each gap's middle (``unnamed`` where none does); the ``TOP``
+    names with most idle seconds."""
     gaps, t = [], lo
     for a, b in busy:
         if a > t:
@@ -167,6 +189,6 @@ def idle_gaps(busy, host, lo: float, hi: float) -> list:
             j += 1
         while live and live[0][1] < mid:
             heapq.heappop(live)
-        name = live[0][2] if live else "host outside any profiled op"
+        name = live[0][2] if live else unnamed
         totals[name] = totals.get(name, 0.0) + (b - a) / 1e6
     return [[k, v] for k, v in sorted(totals.items(), key=lambda kv: -kv[1])[:TOP]]
